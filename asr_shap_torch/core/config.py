@@ -1,0 +1,134 @@
+"""Typed configuration of the PyTorch port.
+
+A copy of the configs the ported slice needs from ``asr_shap.core.config``,
+with the same field names and defaults, so an archive's embedded config and
+a test's config mean the same thing in both packages. The mesh and the
+conformer configs are not part of this slice; ``PipelineConfig`` therefore
+has no ``mesh`` field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+# The 32-symbol CTC vocabulary of facebook/wav2vec2-base-960h.
+WAV2VEC2_VOCAB: Tuple[str, ...] = (
+    "<pad>", "<s>", "</s>", "<unk>", "|",
+    "E", "T", "A", "O", "N", "I", "H", "S", "R", "D", "L", "U",
+    "M", "W", "C", "F", "G", "Y", "P", "B", "V", "K", "'", "X",
+    "J", "Q", "Z",
+)
+PAD_ID = 0
+WORD_DELIMITER_ID = 4  # "|"
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Config:
+    """Architecture of a Wav2Vec2-style CTC model; defaults reproduce
+    ``facebook/wav2vec2-base-960h``."""
+
+    vocab_size: int = 32
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    conv_dim: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"  # "group" (base) | "layer"
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    do_stable_layer_norm: bool = False  # base: post-LN encoder layers
+    layer_norm_eps: float = 1e-5
+    feat_proj_dim: int = 512
+
+    # Numerics. "float32" only in this slice; "bfloat16" raises.
+    dtype: str = "float32"
+    # "highest": float32 matmuls and convolutions without TF32 (cuBLAS and
+    # cuDNN); "default" lets both use TF32.
+    matmul_precision: str = "highest"
+    # "xla": plain PyTorch attention; "pallas": the hand-written flash
+    # kernels (kernels/flash_attention.py); "auto" resolves to "xla".
+    attention_impl: str = "xla"
+    remat_policy: str = "full"
+    # "lax": F.conv1d everywhere; "pallas": the hand-written dgrad kernel
+    # (kernels/conv_dgrad.py) for eligible feature-encoder layers.
+    conv_impl: str = "lax"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    def frames_for_samples(self, n: int) -> int:
+        """Output frame count of the conv feature encoder for n samples."""
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            n = (n - k) // s + 1
+        return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ExplainerConfig:
+    """Expected-gradients settings (the other explainers' fields are kept
+    so configs match the reference package field for field)."""
+
+    nsamples: int = 200
+    num_background: int = 5
+    background_sigma: float = 0.01
+    method: str = "grad"
+    aggregation: str = "max"
+    token_timestep: int = 0
+    token_id: int = 0
+    draw_chunk: int = 8
+    output_chunk: int = 0     # 0 = all output frames in one batched VJP
+    remat: bool = True
+    host_draw_chunk: int = 0
+    lime_num_samples: int = 500
+    lime_keep_prob: float = 0.5
+    lime_ridge_alpha: float = 1.0
+    lime_num_segments: int = 64
+    kmeans_background: int = 0
+    kernel_num_segments: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class TestSetConfig:
+    """Controlled clean+noisy test-set generation."""
+
+    num_samples: int = 20
+    snrs_db: Tuple[float, ...] = (5.0, 2.0, 1.0)
+    min_length: int = 100_000
+    max_length: int = 0
+    sample_rate: int = 16_000
+    seed: int = 0
+    noise_kind: str = "white"
+
+
+TestSetConfig.__test__ = False  # keep pytest from collecting the dataclass
+
+
+@dataclasses.dataclass(frozen=True)
+class MetricConfig:
+    """eta_raw / WER settings; "strict" ITM is E_c > E_u, "half" is
+    E_c > 0.5 * E_u."""
+
+    segment_ms: float = 0.0625
+    percentile: float = 99.0
+    itm_variant: str = "strict"
+    sample_rate: int = 16_000
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Top-level bundle for end-to-end runs."""
+
+    model: Wav2Vec2Config = Wav2Vec2Config()
+    explainer: ExplainerConfig = ExplainerConfig()
+    testset: TestSetConfig = TestSetConfig()
+    metric: MetricConfig = MetricConfig()
+    data_dir: str = "data"
+    seed: int = 0
+    sample_batch: int = 0
+    crash_retries: int = 3
+    crash_backoff_s: float = 60.0

@@ -1,0 +1,133 @@
+"""Flat ``.npz`` params archives, read into torch tensors.
+
+The archive format is the reference package's: leaves keyed by their tree
+path joined with ``::`` (list items as ``#i``), plus an optional
+``__asr_shap_config__`` entry holding the architecture config as JSON. The
+reference stacks the encoder layers along a leading axis; the port keeps
+one dict per layer in ``params["encoder"]["layers"]``. All other leaves
+keep the reference layouts: conv kernels ``[K, C_in, C_out]``, linears
+``[in, out]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from asr_shap_torch.core import config as config_mod
+from asr_shap_torch.core.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+_SEP = "::"
+_CONFIG_KEY = "__asr_shap_config__"
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}#{i}{_SEP}"))
+    else:
+        out[prefix[: -len(_SEP)]] = np.asarray(tree)
+    return out
+
+
+def _map_leaves(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _unstack_layers(stacked: Any) -> list:
+    """Stacked per-layer leaves (leading axis = layer) -> one tree per layer."""
+    leaves = _flatten(stacked)
+    n = next(iter(leaves.values())).shape[0]
+    layers = []
+    for i in range(n):
+        layer: Dict[str, Any] = {}
+        for path, arr in leaves.items():
+            node = layer
+            parts = path.split(_SEP)
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = arr[i]
+        layers.append(layer)
+    return layers
+
+
+def params_from_jax(tree: Any, device: str | torch.device = "cuda") -> Dict[str, Any]:
+    """Reference-package params (a tree of numpy arrays, encoder layers
+    stacked) -> port params (float32 tensors on ``device``, one dict per
+    encoder layer)."""
+    device = resolve_device(device)
+    tree = _map_leaves(tree, np.asarray)
+    out = dict(tree)
+    if "encoder" in tree and "layers" in tree["encoder"]:
+        out["encoder"] = dict(tree["encoder"])
+        out["encoder"]["layers"] = _unstack_layers(tree["encoder"]["layers"])
+
+    def to_tensor(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+    return _map_leaves(out, to_tensor)
+
+
+def load_config(path: str) -> Optional[Any]:
+    """The embedded config dataclass, or None for weights-only archives.
+    Fields the current dataclass does not know are dropped with a warning;
+    fields added since the save keep their defaults."""
+    data = np.load(path)
+    if _CONFIG_KEY not in data.files:
+        return None
+    payload = json.loads(bytes(data[_CONFIG_KEY]).decode())
+    cls = getattr(config_mod, payload["class"], None)
+    if cls is None:
+        raise ValueError(
+            f"{path}: config class {payload['class']!r} is not ported yet "
+            "(the port has Wav2Vec2Config only)"
+        )
+    known = {f.name for f in dataclasses.fields(cls)}
+    fields, dropped = {}, []
+    for k, v in payload["fields"].items():
+        if k in known:
+            fields[k] = tuple(v) if isinstance(v, list) else v
+        else:
+            dropped.append(k)
+    if dropped:
+        logger.warning("%s: ignoring config fields unknown to %s (%s)",
+                       path, cls.__name__, ", ".join(dropped))
+    return cls(**fields)
+
+
+def load_params(path: str, device: str | torch.device = "cuda") -> Dict[str, Any]:
+    """Read an archive into port params on ``device``."""
+    data = np.load(path)
+    tree: Dict[str, Any] = {}
+    for key in data.files:
+        if key == _CONFIG_KEY:
+            continue
+        parts = key.split(_SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = data[key]
+
+    def listify(node):
+        if isinstance(node, dict):
+            if node and all(k.startswith("#") for k in node):
+                return [listify(node[f"#{i}"]) for i in range(len(node))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    return params_from_jax(listify(tree), device)

@@ -1,0 +1,475 @@
+// K2-K4: flash attention forward, dq backward and dk/dv backward, float32.
+//
+// Replace the Pallas TPU kernels of asr_shap/kernels/flash_attention.py:
+//   K2 flash_fwd_kernel <- _fwd_kernel (launched by _fwd)
+//   K3 flash_dq_kernel  <- _dq_kernel  (launched by _bwd, no d(bias) output)
+//   K4 flash_dkv_kernel <- _dkv_kernel (launched by _bwd)
+//
+// Layouts: q, k, v, o [BH, T, D]; lse [BH, T]; g, dq, dk, dv [N, T, D] and
+// dd [N, T] with N a multiple of BH. Row n of g is the cotangent of residual
+// row n % BH: the explainer's vmapped cotangent rows fold into N while the
+// forward residuals are stored once. bias is null or a [B, T] additive key
+// mask (B = BH / H), the [B, 1, 1, T] mask of the reference; it gets no
+// gradient. Scores are (q * scale) . k + bias, scale = D^-1/2.
+//
+// Bound on the H100: float32 FMA throughput. Per residual row pair the
+// backward does 14*T*T*D operations on O(T*D) bytes (T = 149, D = 64 on the
+// main path), so operations bound it; the forward is a few MFLOP and is
+// bound by its launch. Design: one block of 256 threads per (row n, 64-row
+// tile) of the blocked axis, a loop over 64-row tiles of the other axis
+// inside the block (the TPU's sequential grid axis has no Hopper
+// counterpart). Scores and probabilities live in registers (4x4 per thread)
+// and, where a second product needs them in another thread, in shared
+// memory; they never reach device memory. The forward uses the online
+// softmax. The dq kernel also computes dd = rowsum(g * o) for its rows and
+// writes it for the dk/dv kernel, which runs after it on the same stream.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int TILE = 64;
+constexpr int LD = TILE + 1;  // padded leading dimension: no bank conflicts
+constexpr int THREADS = 256;
+constexpr float NEG = -1e30f;
+
+// Copy rows [row0, row0 + 64) of a row-major [T, D] matrix into a transposed
+// shared tile dst[d * LD + row], scaled; rows past T are zero.
+template <int D>
+__device__ __forceinline__ void load_t(float* dst, const float* src, int row0,
+                                       int T, float scale) {
+  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
+    const int row = idx / D, d = idx % D;
+    const int t = row0 + row;
+    dst[d * LD + row] = t < T ? src[(long long)t * D + d] * scale : 0.f;
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// ------------------------------------------------------------------ K2
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ o, float* __restrict__ lse, int T, int H,
+                 float scale) {
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* qT = smem;           // [D][LD]
+  float* kT = qT + D * LD;    // [D][LD]
+  float* vT = kT + D * LD;    // [D][LD]
+  float* ps = vT + D * LD;    // [TILE][LD]
+
+  const int n = blockIdx.x;
+  const int q0 = blockIdx.y * TILE;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long base = (long long)n * T * D;
+  const float* brow = bias ? bias + (long long)(n / H) * T : nullptr;
+
+  load_t<D>(qT, q + base, q0, T, scale);
+  float m_i[4], l_i[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_i[i] = -INFINITY;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kv0 = 0; kv0 < T; kv0 += TILE) {
+    __syncthreads();
+    load_t<D>(kT, k + base, kv0, T, 1.f);
+    load_t<D>(vT, v + base, kv0, T, 1.f);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qT[d * LD + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = kT[d * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = kv0 + tx + 16 * j;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = col < T ? s[i][j] + (brow ? brow[col] : 0.f) : NEG;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      mx = half_warp_max(mx);
+      const float m_new = fmaxf(m_i[i], mx);
+      const float alpha = expf(m_i[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        ps[(ty + 16 * i) * LD + tx + 16 * j] = p;
+        rs += p;
+      }
+      l_i[i] = l_i[i] * alpha + half_warp_sum(rs);
+      m_i[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    for (int jj = 0; jj < TILE; ++jj) {
+      float pv[4], vv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * LD + jj];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = vT[(tx + 16 * c) * LD + jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    if (t >= T) continue;
+    const float inv = 1.f / l_i[i];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) o[base + (long long)t * D + tx + 16 * c] = acc[i][c] * inv;
+    if (tx == 0) lse[(long long)n * T + t] = m_i[i] + logf(l_i[i]);
+  }
+}
+
+// ------------------------------------------------------------------ K3
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ o,
+                const float* __restrict__ lse, const float* __restrict__ g,
+                const float* __restrict__ bias, float* __restrict__ dq,
+                float* __restrict__ dd_out, int T, int H, int BH, float scale) {
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* qT = smem;           // [D][LD] scaled q
+  float* gT = qT + D * LD;    // [D][LD]
+  float* kT = gT + D * LD;    // [D][LD]
+  float* vT = kT + D * LD;    // [D][LD]
+  float* dss = vT + D * LD;   // [TILE][LD]
+
+  const int n = blockIdx.x;
+  const int res = n % BH;
+  const int q0 = blockIdx.y * TILE;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long rbase = (long long)res * T * D;
+  const long long gbase = (long long)n * T * D;
+  const float* brow = bias ? bias + (long long)(res / H) * T : nullptr;
+
+  load_t<D>(qT, q + rbase, q0, T, scale);
+  load_t<D>(gT, g + gbase, q0, T, 1.f);
+  __syncthreads();
+
+  float lse_i[4], dd_i[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = ty + 16 * i;
+    const int t = q0 + row;
+    float part = 0.f;
+    if (t < T) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int col = tx + 16 * c;
+        part = fmaf(gT[col * LD + row], o[rbase + (long long)t * D + col], part);
+      }
+    }
+    dd_i[i] = half_warp_sum(part);
+    lse_i[i] = t < T ? lse[(long long)res * T + t] : 0.f;
+    if (tx == 0 && t < T) dd_out[(long long)n * T + t] = dd_i[i];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kv0 = 0; kv0 < T; kv0 += TILE) {
+    __syncthreads();
+    load_t<D>(kT, k + rbase, kv0, T, 1.f);
+    load_t<D>(vT, v + rbase, kv0, T, 1.f);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float a[4], ga[4], b[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = qT[d * LD + ty + 16 * i];
+        ga[i] = gT[d * LD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j] = kT[d * LD + tx + 16 * j];
+        vb[j] = vT[d * LD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          dp[i][j] = fmaf(ga[i], vb[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = kv0 + tx + 16 * j;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float ds = 0.f;
+        if (col < T) {
+          const float p = expf(s[i][j] + (brow ? brow[col] : 0.f) - lse_i[i]);
+          ds = p * (dp[i][j] - dd_i[i]);
+        }
+        dss[(ty + 16 * i) * LD + tx + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+    for (int jj = 0; jj < TILE; ++jj) {
+      float dv_[4], kv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dv_[i] = dss[(ty + 16 * i) * LD + jj];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kv[c] = kT[(tx + 16 * c) * LD + jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dv_[i], kv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    if (t >= T) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dq[gbase + (long long)t * D + tx + 16 * c] = scale * acc[i][c];
+  }
+}
+
+// ------------------------------------------------------------------ K4
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ lse,
+                 const float* __restrict__ g, const float* __restrict__ dd,
+                 const float* __restrict__ bias, float* __restrict__ dk,
+                 float* __restrict__ dv, int T, int H, int BH, float scale) {
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* kT = smem;            // [D][LD]
+  float* vT = kT + D * LD;     // [D][LD]
+  float* qT = vT + D * LD;     // [D][LD] scaled q
+  float* gT = qT + D * LD;     // [D][LD]
+  float* pts = gT + D * LD;    // [TILE][LD] p transposed (kv rows, q cols)
+  float* dsts = pts + TILE * LD;
+  float* lse_s = dsts + TILE * LD;  // [TILE]
+  float* dd_s = lse_s + TILE;       // [TILE]
+
+  const int n = blockIdx.x;
+  const int res = n % BH;
+  const int k0 = blockIdx.y * TILE;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long rbase = (long long)res * T * D;
+  const long long gbase = (long long)n * T * D;
+  const float* brow = bias ? bias + (long long)(res / H) * T : nullptr;
+
+  load_t<D>(kT, k + rbase, k0, T, 1.f);
+  load_t<D>(vT, v + rbase, k0, T, 1.f);
+  float bk[4], acc_k[4][DC], acc_v[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = k0 + ty + 16 * i;
+    bk[i] = (brow && t < T) ? brow[t] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  }
+
+  for (int qq0 = 0; qq0 < T; qq0 += TILE) {
+    __syncthreads();
+    load_t<D>(qT, q + rbase, qq0, T, scale);
+    load_t<D>(gT, g + gbase, qq0, T, 1.f);
+    for (int j = threadIdx.x; j < TILE; j += THREADS) {
+      const int t = qq0 + j;
+      lse_s[j] = t < T ? lse[(long long)res * T + t] : 0.f;
+      dd_s[j] = t < T ? dd[(long long)n * T + t] : 0.f;
+    }
+    __syncthreads();
+
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float ka[4], va[4], qb[4], gb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ka[i] = kT[d * LD + ty + 16 * i];
+        va[i] = vT[d * LD + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qb[j] = qT[d * LD + tx + 16 * j];
+        gb[j] = gT[d * LD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
+          dpt[i][j] = fmaf(va[i], gb[j], dpt[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qc = tx + 16 * j;
+      const bool ok = qq0 + qc < T;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = 0.f, ds = 0.f;
+        if (ok) {
+          p = expf(st[i][j] + bk[i] - lse_s[qc]);
+          ds = p * (dpt[i][j] - dd_s[qc]);
+        }
+        pts[(ty + 16 * i) * LD + qc] = p;
+        dsts[(ty + 16 * i) * LD + qc] = ds;
+      }
+    }
+    __syncthreads();
+    for (int jj = 0; jj < TILE; ++jj) {
+      float pa[4], da[4], gv[DC], qv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[i] = pts[(ty + 16 * i) * LD + jj];
+        da[i] = dsts[(ty + 16 * i) * LD + jj];
+      }
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        gv[c] = gT[(tx + 16 * c) * LD + jj];
+        qv[c] = qT[(tx + 16 * c) * LD + jj];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          acc_v[i][c] = fmaf(pa[i], gv[c], acc_v[i][c]);
+          acc_k[i][c] = fmaf(da[i], qv[c], acc_k[i][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = k0 + ty + 16 * i;
+    if (t >= T) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const long long off = gbase + (long long)t * D + tx + 16 * c;
+      dk[off] = acc_k[i][c];  // q was scaled on load: this is scale * ds^T q
+      dv[off] = acc_v[i][c];
+    }
+  }
+}
+
+template <typename Kernel>
+int launch_prep(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return (int)err;
+}
+
+}  // namespace
+
+// Each entry point returns the CUDA error of its launch (0 on success).
+// D must be 32 or 64.
+
+extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
+                             const float* bias, float* o, float* lse, int BH,
+                             int T, int D, int H, float scale, void* stream) {
+  if (BH < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid(BH, (T + TILE - 1) / TILE);
+  const size_t smem = (size_t)(3 * D * LD + TILE * LD) * sizeof(float);
+  int err;
+  if (D == 64) {
+    if ((err = launch_prep(flash_fwd_kernel<64>, smem))) return err;
+    flash_fwd_kernel<64><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, bias, o, lse, T, H, scale);
+  } else if (D == 32) {
+    if ((err = launch_prep(flash_fwd_kernel<32>, smem))) return err;
+    flash_fwd_kernel<32><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, bias, o, lse, T, H, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,
+                            const float* o, const float* lse, const float* g,
+                            const float* bias, float* dq, float* dd, int N,
+                            int BH, int T, int D, int H, float scale,
+                            void* stream) {
+  if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid(N, (T + TILE - 1) / TILE);
+  const size_t smem = (size_t)(4 * D * LD + TILE * LD) * sizeof(float);
+  int err;
+  if (D == 64) {
+    if ((err = launch_prep(flash_dq_kernel<64>, smem))) return err;
+    flash_dq_kernel<64><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, o, lse, g, bias, dq, dd, T, H, BH, scale);
+  } else if (D == 32) {
+    if ((err = launch_prep(flash_dq_kernel<32>, smem))) return err;
+    flash_dq_kernel<32><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, o, lse, g, bias, dq, dd, T, H, BH, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
+                             const float* lse, const float* g, const float* dd,
+                             const float* bias, float* dk, float* dv, int N,
+                             int BH, int T, int D, int H, float scale,
+                             void* stream) {
+  if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid(N, (T + TILE - 1) / TILE);
+  const size_t smem = (size_t)(4 * D * LD + 2 * TILE * LD + 2 * TILE) * sizeof(float);
+  int err;
+  if (D == 64) {
+    if ((err = launch_prep(flash_dkv_kernel<64>, smem))) return err;
+    flash_dkv_kernel<64><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, scale);
+  } else if (D == 32) {
+    if ((err = launch_prep(flash_dkv_kernel<32>, smem))) return err;
+    flash_dkv_kernel<32><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,147 @@
+"""Expected gradients, the equivalent of shap.GradientExplainer.
+
+For input x and background rows B, draw pairs (b ~ Uniform(B), t ~ U(0, 1)),
+take the input Jacobian of f at x_t = b + t (x - b), multiply by (x - b) and
+average:
+
+    phi[n, j] = E_{b,t}[ dF_j/dx_n (b + t (x - b)) * (x_n - b_n) ]
+
+Each draw is one forward and one batched VJP: ``torch.func.vjp`` gives the
+backward, and ``torch.func.vmap`` pushes the T_out one-hot cotangent rows
+through it at once (the kernels fold those rows into their batch). Draws
+run one after another and accumulate in float32. The draws come from a
+``torch.Generator`` or are given explicitly as (background index, t) pairs.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from asr_shap_torch.core.config import ExplainerConfig
+
+Draws = Tuple[torch.Tensor, torch.Tensor]  # (background index [n], t [n])
+
+
+class Explanation(NamedTuple):
+    """values [N_input, T_out]; base_values [T_out] = mean f over the
+    background; model_output [T_out] = f(x)."""
+
+    values: torch.Tensor
+    base_values: torch.Tensor
+    model_output: torch.Tensor
+
+
+def _jacobian(f: Callable, x: torch.Tensor, output_chunk: int) -> torch.Tensor:
+    """Jacobian of f: R^N -> R^T at x, one forward and a batched VJP of the
+    one-hot cotangent rows (``output_chunk`` rows at a time). [T, N]."""
+    y, vjp_fn = torch.func.vjp(f, x)
+    t = y.shape[0]
+    eye = torch.eye(t, dtype=y.dtype, device=y.device)
+    rows = torch.func.vmap(lambda ct: vjp_fn(ct)[0])
+    if output_chunk <= 0 or output_chunk >= t:
+        return rows(eye)
+    return torch.cat([rows(eye[s:s + output_chunk])
+                      for s in range(0, t, output_chunk)])
+
+
+def _draw_phi(f: Callable, x: torch.Tensor, b: torch.Tensor, t: torch.Tensor,
+              output_chunk: int) -> torch.Tensor:
+    """Contribution of one (b, t) draw. [T, N]."""
+    x_t = b + t * (x - b)
+    return _jacobian(f, x_t, output_chunk) * (x - b)[None, :]
+
+
+def num_draws(config: ExplainerConfig) -> int:
+    """``nsamples`` rounded up to a multiple of ``draw_chunk``."""
+    chunk = max(1, config.draw_chunk)
+    return -(-config.nsamples // chunk) * chunk
+
+
+def sample_draws(generator: torch.Generator, total: int,
+                 num_background: int) -> Draws:
+    """(background index, t) for ``total`` draws from ``generator``."""
+    idx = torch.randint(0, num_background, (total,), generator=generator,
+                        device=generator.device)
+    t = torch.rand((total,), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return idx, t
+
+
+def _phi_sum(f: Callable, x: torch.Tensor, background: torch.Tensor,
+             draws: Draws, output_chunk: int) -> torch.Tensor:
+    """Sum over the draws of the per-draw phi, float32. [T, N]."""
+    idx, ts = (d.to(x.device) for d in draws)
+    acc = None
+    for i in range(idx.shape[0]):
+        phi = _draw_phi(f, x, background[idx[i]], ts[i], output_chunk)
+        phi = phi.to(torch.float32)
+        acc = phi if acc is None else acc + phi
+    return acc
+
+
+def expected_phi(f: Callable, x: torch.Tensor, background: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 config: ExplainerConfig = ExplainerConfig(),
+                 draws: Optional[Draws] = None) -> torch.Tensor:
+    """The attribution matrix alone, [N, T_out]; see ``expected_gradients``."""
+    total = num_draws(config)
+    if draws is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        draws = sample_draws(generator, total, background.shape[0])
+    elif draws[0].shape[0] != total:
+        raise ValueError(f"{draws[0].shape[0]} explicit draws given, the "
+                         f"config asks for {total}")
+    acc = _phi_sum(f, x, background, draws, config.output_chunk)
+    return (acc / total).T.contiguous()
+
+
+def expected_gradients(f: Callable[[torch.Tensor], torch.Tensor],
+                       x: torch.Tensor, background: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       config: ExplainerConfig = ExplainerConfig(),
+                       draws: Optional[Draws] = None) -> Explanation:
+    """Explain f at x. f: [N] -> [T_out]; background [B, N]; x [N].
+
+    The draw count is ``nsamples`` rounded up to a multiple of
+    ``draw_chunk``. ``draws`` (background index [n], t [n]) replaces the
+    generator, so that a test can feed the reference package's draws."""
+    phi = expected_phi(f, x, background, generator, config, draws)
+    with torch.no_grad():
+        fx = f(x)
+        base = torch.stack([f(b) for b in background]).mean(dim=0)
+    return Explanation(values=phi, base_values=base, model_output=fx)
+
+
+class GradientExplainer:
+    """``shap.GradientExplainer``-style API: construct with f and the
+    background, then ``shap_values(x)``."""
+
+    def __init__(self, f: Callable[[torch.Tensor], torch.Tensor],
+                 background: torch.Tensor,
+                 config: ExplainerConfig = ExplainerConfig()):
+        self.f = f
+        self.background = background
+        self.config = config
+
+    def explain(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Explanation:
+        return expected_gradients(self.f, x, self.background, generator,
+                                  self.config)
+
+    def shap_values(self, x: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """[N] or [1, N] input -> [N, T_out] numpy attribution matrix."""
+        if x.ndim == 2:
+            x = x[0]
+        phi = expected_phi(self.f, x, self.background, generator, self.config)
+        return phi.cpu().numpy()
+
+    @property
+    def expected_value(self) -> np.ndarray:
+        with torch.no_grad():
+            base = torch.stack([self.f(b) for b in self.background]).mean(dim=0)
+        return base.cpu().numpy()

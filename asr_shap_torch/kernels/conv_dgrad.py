@@ -1,0 +1,186 @@
+"""K1: the input gradient (dgrad) of a valid strided conv1d.
+
+Replaces the Pallas TPU kernel ``asr_shap/kernels/conv_dgrad.py``
+(``_dgrad_kernel``, launched by ``_dgrad_call``) with the CUDA kernel in
+``csrc/conv_dgrad.cu``. It computes, for channels-last tensors and a kernel
+``W [K, C_in, C_out]``, the polyphase sum
+
+    xbar[b, v*s + r, :] = sum_d ybar[b, v - d, :] @ W[d*s + r].T
+
+over the taps d with ``d*s + r < K`` and ``0 <= v - d < T_out``; rows with
+no valid tap are zero. On Wav2Vec2's feature encoder (C = 512,
+(K, s) in {(3, 2), (2, 2)}) with the explainer's T_out cotangent rows folded
+into the batch it is a float32 GEMM of 2*B*T_out*K*C_in*C_out operations
+over a few bytes per operation, so the card's float32 FMA rate bounds it.
+The kernel is a shared-memory tiled SIMT GEMM: one block per
+(128 output rows, 128 input channels, phase r), each thread an 8x8
+register tile; it reads the halo rows ``v - d`` straight from device memory
+and masks the edges, and the phase interleave is its store address.
+
+The forward of the eligible layers stays ``F.conv1d``, as the reference
+leaves it to ``lax.conv``. ``ConvDgrad`` carries a ``vmap`` rule that folds
+the explainer's vmapped cotangent rows into the kernel's batch dimension,
+as the reference's ``custom_vmap`` does; a ctypes launch cannot see a
+batched tensor, so the rule is what makes the batched VJP possible.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from asr_shap_torch.kernels import _build
+
+
+def eligible(c_in: int, c_out: int, stride: int, groups: int,
+             padding: int) -> bool:
+    """Shapes the kernel takes: ungrouped, unpadded, strided convs with
+    channel counts divisible by 128 (the C_in = 1 first layer and the
+    grouped, padded positional conv are not eligible)."""
+    return (groups == 1 and padding == 0 and stride > 1
+            and c_in % 128 == 0 and c_out % 128 == 0)
+
+
+def conv1d_dgrad_plain(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
+                       t_in: int) -> torch.Tensor:
+    """Plain PyTorch version: one matmul per tap, scattered into the strided
+    rows it feeds (no [B, T, K*C] unfold)."""
+    b, t_out, _ = ybar.shape
+    k_taps, c_in, _ = kernel.shape
+    xbar = ybar.new_zeros((b, t_in, c_in))
+    span = stride * (t_out - 1) + 1
+    for k in range(k_taps):
+        xbar[:, k:k + span:stride] += ybar @ kernel[k].T
+    return xbar
+
+
+def _check(ybar: torch.Tensor, kernel: torch.Tensor, stride: int, t_in: int):
+    if ybar.ndim != 3 or kernel.ndim != 3:
+        raise ValueError("conv1d_dgrad: ybar [B, T_out, C_out] and kernel "
+                         "[K, C_in, C_out] expected")
+    k_taps, c_in, c_out = kernel.shape
+    if ybar.shape[2] != c_out:
+        raise ValueError(f"conv1d_dgrad: C_out mismatch {ybar.shape} vs {kernel.shape}")
+    if (t_in - k_taps) // stride + 1 != ybar.shape[1]:
+        raise ValueError(f"conv1d_dgrad: T_out={ybar.shape[1]} does not follow "
+                         f"from T_in={t_in}, K={k_taps}, stride={stride}")
+    if ybar.device != kernel.device:
+        raise ValueError("conv1d_dgrad: ybar and kernel on different devices")
+
+
+def conv1d_dgrad(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
+                 t_in: int) -> torch.Tensor:
+    """ybar [B, T_out, C_out], kernel [K, C_in, C_out] -> xbar [B, T_in, C_in].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    _check(ybar, kernel, stride, t_in)
+    if ybar.device.type == "cpu":
+        return conv1d_dgrad_plain(ybar, kernel, stride, t_in)
+    if ybar.device.type != "cuda":
+        raise ValueError(f"conv1d_dgrad: unsupported device {ybar.device}")
+    if ybar.dtype != torch.float32 or kernel.dtype != torch.float32:
+        raise NotImplementedError("conv1d_dgrad: the CUDA kernel takes float32 "
+                                  "only (the bf16 path is not ported yet)")
+    k_taps, c_in, c_out = kernel.shape
+    if not eligible(c_in, c_out, stride, 1, 0):
+        raise ValueError(f"conv1d_dgrad: shape not eligible for the kernel "
+                         f"(C_in={c_in}, C_out={c_out}, stride={stride})")
+    if not (ybar.is_contiguous() and kernel.is_contiguous()):
+        raise ValueError("conv1d_dgrad: contiguous tensors expected")
+    if ybar.data_ptr() % 16 or kernel.data_ptr() % 16:
+        raise ValueError("conv1d_dgrad: 16-byte aligned tensors expected")
+    b, t_out, _ = ybar.shape
+    out = torch.empty((b, t_in, c_in), device=ybar.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    fn = _build.c_function("conv_dgrad", "conv1d_dgrad_f32",
+                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    rc = fn(ybar.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t_out, t_in,
+            c_out, c_in, k_taps, stride,
+            torch.cuda.current_stream(ybar.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv1d_dgrad: kernel launch failed (CUDA error {rc})")
+    _build.LAUNCHES["conv_dgrad"] += 1
+    return out
+
+
+def conv1d_forward(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                   padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """F.conv1d in the reference layouts: x [B, T, C_in], kernel
+    [K, C_in // groups, C_out] -> [B, T', C_out]."""
+    return F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), stride=stride,
+                    padding=padding, groups=groups).transpose(1, 2)
+
+
+def _conv1d_wgrad(x: torch.Tensor, ybar: torch.Tensor, stride: int,
+                  k_taps: int) -> torch.Tensor:
+    """Weight gradient, one einsum per tap (the explainer never asks for it:
+    its weights do not require grad)."""
+    t_out = ybar.shape[1]
+    span = stride * (t_out - 1) + 1
+    return torch.stack([
+        torch.einsum("bti,bto->io", x[:, k:k + span:stride], ybar)
+        for k in range(k_taps)
+    ])
+
+
+class ConvDgrad(torch.autograd.Function):
+    """The dgrad as a Function of its own, so that vmap reaches the kernel
+    through the ``vmap`` rule below."""
+
+    @staticmethod
+    def forward(ybar, kernel, stride, t_in):
+        return conv1d_dgrad(_build.kernel_input(ybar), _build.kernel_input(kernel),
+                            stride, t_in)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError("conv dgrad has no second derivative here")
+
+    @staticmethod
+    def vmap(info, in_dims, ybar, kernel, stride, t_in):
+        if in_dims[1] is not None:
+            raise NotImplementedError("conv dgrad: batched kernels under vmap")
+        ybar = ybar.movedim(in_dims[0], 0)
+        n = ybar.shape[0]
+        flat = ybar.reshape((-1,) + ybar.shape[2:])
+        out = ConvDgrad.apply(flat, kernel, stride, t_in)
+        return out.reshape((n, -1) + out.shape[1:]), 0
+
+
+class Conv1d(torch.autograd.Function):
+    """Valid strided conv1d: F.conv1d forward, K1 as the input gradient."""
+
+    @staticmethod
+    def forward(x, kernel, stride):
+        return conv1d_forward(x, kernel, stride)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, kernel, stride = inputs
+        ctx.stride = stride
+        ctx.t_in = x.shape[1]
+        ctx.save_for_backward(x, kernel)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        x, kernel = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ConvDgrad.apply(ybar, kernel, ctx.stride, ctx.t_in)
+        if ctx.needs_input_grad[1]:
+            dw = _conv1d_wgrad(x, ybar, ctx.stride, kernel.shape[0])
+        return dx, dw, None
+
+
+def conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> torch.Tensor:
+    """x [B, T, C_in], kernel [K, C_in, C_out] -> [B, T_out, C_out], with
+    K1 as the input gradient."""
+    return Conv1d.apply(x, kernel, stride)

@@ -1,0 +1,50 @@
+"""Aggregation heads: what gets explained, as functions of the logits."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from asr_shap_torch.core.config import ExplainerConfig, Wav2Vec2Config
+
+
+def aggregation_head(logits: torch.Tensor, kind: str, token_timestep: int = 0,
+                     token_id: int = 0) -> torch.Tensor:
+    """logits [..., T, V] -> explained outputs [..., T_out]; T_out = T for
+    "max"/"mean", 1 for "token"/"mean_time"."""
+    if kind == "max":
+        return logits.amax(dim=-1)
+    if kind == "mean":
+        return logits.mean(dim=-1)
+    if kind == "token":
+        return logits[..., token_timestep, token_id][..., None]
+    if kind == "mean_time":
+        return logits.mean(dim=(-2, -1))[..., None]
+    raise ValueError(f"unknown aggregation head {kind!r}")
+
+
+def model_logits_fn(model_cfg: Wav2Vec2Config):
+    """The forward for a model config; only Wav2Vec2 is ported."""
+    if type(model_cfg) is not Wav2Vec2Config:
+        raise NotImplementedError(f"{type(model_cfg).__name__} is not ported")
+    from asr_shap_torch.models.wav2vec2 import wav2vec2_logits
+
+    return wav2vec2_logits
+
+
+def make_explained_fn(params, model_config: Wav2Vec2Config,
+                      explainer_config: ExplainerConfig,
+                      remat: bool | None = None
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """f: normalized waveform [N] -> explained outputs [T_out]."""
+    logits_fn = model_logits_fn(model_config)
+    use_remat = explainer_config.remat if remat is None else remat
+    ec = explainer_config
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        logits = logits_fn(params, model_config, x[None, :], remat=use_remat)
+        return aggregation_head(logits, ec.aggregation, ec.token_timestep,
+                                ec.token_id)[0]
+
+    return f

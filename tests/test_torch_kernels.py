@@ -1,0 +1,217 @@
+"""The port's kernels (asr_shap_torch/kernels) against the reference Pallas
+kernels run in interpret mode. On the CPU each wrapper takes its plain
+PyTorch version, inside the same autograd Functions and vmap rules that the
+CUDA path uses. Inputs are made by numpy from a seed and handed to both
+packages."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from asr_shap.kernels.conv_dgrad import conv1d_dgrad as jax_conv1d_dgrad
+from asr_shap.kernels.flash_attention import flash_attention as jax_flash
+from asr_shap.models.wav2vec2 import _conv1d as jax_conv1d
+from asr_shap_torch.kernels import LAUNCHES, _build, conv_dgrad, flash_attention as fa
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+# conv dgrad: atol 2e-3 / rtol 1e-4, the reference kernel test's tolerance
+# (float32 sums over K*C = up to 640 products taken in another order)
+@pytest.mark.parametrize("k,s,t", [(3, 2, 498), (2, 2, 61), (5, 3, 200)])
+def test_conv_dgrad_plain_matches_pallas(rng, k, s, t):
+    c = 128
+    w = rng.standard_normal((k, c, c)).astype(np.float32) * 0.1
+    t_out = (t - k) // s + 1
+    ybar = rng.standard_normal((2, t_out, c)).astype(np.float32)
+    ref = np.asarray(jax_conv1d_dgrad(jnp.asarray(ybar), jnp.asarray(w), s, t))
+    out = conv_dgrad.conv1d_dgrad(_t(ybar), _t(w), s, t)
+    assert out.shape == (2, t, c)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-3, rtol=1e-4)
+
+
+def test_conv_dgrad_vmapped_rows_match_pallas(rng):
+    """The explainer's pattern: one-hot cotangent rows vmapped through the
+    VJP of the kernel's Function (the vmap rule folds them into B)."""
+    k, s, t, c = 3, 2, 340, 128
+    x = rng.standard_normal((1, t, c)).astype(np.float32)
+    w = rng.standard_normal((k, c, c)).astype(np.float32) * 0.1
+
+    def jax_rows():
+        f = lambda a: jax_conv1d(a, jnp.asarray(w), stride=s, impl="pallas").sum(-1)[0]
+        y, vjp_fn = jax.vjp(f, jnp.asarray(x))
+        return jax.vmap(lambda e: vjp_fn(e)[0])(jnp.eye(y.shape[0], dtype=y.dtype))
+
+    wt = _t(w)
+    f = lambda a: conv_dgrad.conv1d(a, wt, s).sum(-1)[0]
+    y, vjp_fn = torch.func.vjp(f, _t(x))
+    rows = torch.func.vmap(lambda e: vjp_fn(e)[0])(torch.eye(y.shape[0]))
+    np.testing.assert_allclose(rows.numpy(), np.asarray(jax_rows()), atol=2e-3, rtol=1e-4)
+    # forward is F.conv1d; it must match lax.conv
+    np.testing.assert_allclose(
+        conv_dgrad.conv1d(_t(x), wt, s).numpy(),
+        np.asarray(jax_conv1d(jnp.asarray(x), jnp.asarray(w), stride=s, impl="lax")),
+        atol=2e-4, rtol=1e-5)
+
+
+def test_conv_dgrad_wrapper_rejects_what_the_kernel_cannot_take():
+    w = torch.zeros(3, 128, 128)
+    with pytest.raises(ValueError):
+        conv_dgrad.conv1d_dgrad(torch.zeros(1, 10, 128), w, 2, 30)  # T_out mismatch
+    with pytest.raises(ValueError):
+        conv_dgrad.conv1d_dgrad(torch.zeros(1, 10, 128, device="meta"),
+                                w.to("meta"), 2, 21)
+    assert not conv_dgrad.eligible(1, 512, 5, 1, 0)      # C_in = 1 first layer
+    assert not conv_dgrad.eligible(48, 768, 1, 16, 64)   # grouped, padded pos conv
+    assert conv_dgrad.eligible(512, 512, 2, 1, 0)
+
+
+def _qkv(rng, b, h, t, d):
+    return [rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3)]
+
+
+def _mask(t, valid):
+    m = (np.arange(t)[None, :] < np.asarray(valid)[:, None])
+    return np.where(m, 0.0, -1e9).astype(np.float32)[:, None, None, :]
+
+
+# flash forward: rtol 2e-4 / atol 2e-5, the reference kernel test's tolerance
+@pytest.mark.parametrize("t,masked", [(49, False), (70, False), (90, True)])
+def test_flash_forward_matches_pallas(rng, t, masked):
+    q, k, v = _qkv(rng, 2, 3, t, 64)
+    bias = _mask(t, [t, t - 30]) if masked else None
+    ref = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)),
+                               None if bias is None else jnp.asarray(bias),
+                               interpret=True))
+    out = fa.flash_attention(_t(q), _t(k), _t(v), None if bias is None else _t(bias))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-5)
+
+
+# flash backward: rtol 5e-4 / atol 5e-5, the reference kernel test's tolerance
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_backward_matches_pallas(rng, masked):
+    b, h, t, d = 2, 2, 50, 32
+    q, k, v = _qkv(rng, b, h, t, d)
+    bias = _mask(t, [t, 30]) if masked else None
+
+    def jloss(q_, k_, v_):
+        o = jax_flash(q_, k_, v_, None if bias is None else jnp.asarray(bias),
+                      interpret=True)
+        return jnp.sum(jnp.sin(o))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    tb = None if bias is None else _t(bias).requires_grad_()
+    torch.sin(fa.flash_attention(tq, tk, tv, tb)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4, atol=5e-5)
+    if tb is not None:  # a mask is a constant on the kernel path
+        assert torch.count_nonzero(tb.grad) == 0
+
+
+def test_flash_vmapped_backward_matches_pallas(rng):
+    """The Jacobian by a vmapped VJP, as the explainer takes it: cotangent
+    rows fold into the kernels' leading dim through FlashBackward's rule."""
+    b, h, t, d = 1, 2, 40, 32
+    q, k, v = _qkv(rng, b, h, t, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+
+    def jf(x):
+        return jax_flash(jq + x, jk, jv, None, interpret=True).sum(axis=(0, 1, 3))
+
+    _, jvjp = jax.vjp(jf, jnp.zeros_like(jq))
+    ref = jax.vmap(lambda ct: jvjp(ct)[0])(jnp.eye(t))
+
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    f = lambda x: fa.flash_attention(tq + x, tk, tv).sum(dim=(0, 1, 3))
+    _, vjp_fn = torch.func.vjp(f, torch.zeros_like(tq))
+    jac = torch.func.vmap(lambda ct: vjp_fn(ct)[0])(torch.eye(t))
+    np.testing.assert_allclose(jac.numpy(), np.asarray(ref), rtol=5e-4, atol=5e-5)
+
+
+def test_flash_plain_kernels_fold_cotangent_rows(rng):
+    """dq/dkv with V cotangents per residual row equal V separate calls."""
+    bh, t, d, heads = 4, 33, 32, 2
+    q, k, v = (_t(a) for a in _qkv(rng, 1, bh, t, d))
+    q, k, v = q[0], k[0], v[0]
+    bias = _t(_mask(t, [t, 20]))[:, 0, 0, :]
+    o, lse = fa.flash_fwd(q, k, v, bias, heads)
+    g = _t(rng.standard_normal((3 * bh, t, d)))
+    dq, dd = fa.flash_dq(q, k, v, o, lse, g, bias, heads)
+    dk, dv = fa.flash_dkv(q, k, v, lse, g, dd, bias, heads)
+    for i in range(3):
+        gi = g[i * bh:(i + 1) * bh]
+        dq_i, dd_i = fa.flash_dq(q, k, v, o, lse, gi, bias, heads)
+        dk_i, dv_i = fa.flash_dkv(q, k, v, lse, gi, dd_i, bias, heads)
+        for got, want in ((dq, dq_i), (dk, dk_i), (dv, dv_i)):
+            torch.testing.assert_close(got[i * bh:(i + 1) * bh], want)
+
+
+def test_flash_wrappers_reject_what_the_kernels_cannot_take():
+    q = torch.zeros(4, 10, 32)
+    lse = torch.zeros(4, 10)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_dq(q, q, q, q, lse[:, :9], torch.zeros(8, 10, 32), None, 2)
+    with pytest.raises(ValueError, match="divide"):
+        fa.flash_dq(q, q, q, q, lse, torch.zeros(6, 10, 32), None, 2)
+    with pytest.raises(ValueError, match="bias"):
+        fa.flash_fwd(q, q, q, torch.zeros(4, 10), 2)
+    with pytest.raises(ValueError, match="device"):
+        meta = q.to("meta")
+        fa.flash_fwd(meta, meta, meta, None, 2)
+
+
+@pytest.mark.parametrize("nvcc_ok", [True, False])
+def test_build_starts_one_nvcc_per_source_and_reuses_libraries(tmp_path, monkeypatch,
+                                                               nvcc_ok):
+    """The build logic with a stand-in nvcc that records its arguments and
+    writes its -o file (or fails): one process per source, sm_90a, results
+    reused by content hash, failures raised with the compiler's output."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    body = ('while [ $# -gt 0 ]; do [ "$1" = -o ] && { shift; : > "$1"; }; shift; done'
+            if nvcc_ok else 'echo "error: no card"; exit 2')
+    nvcc.write_text(f'#!/bin/sh\necho "$@" >> "{calls}"\n{body}\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if not nvcc_ok:
+        with pytest.raises(RuntimeError, match="no card"):
+            _build.build_all()
+        return
+    paths = _build.build_all()
+    assert sorted(paths) == ["conv_dgrad", "flash_attention"]
+    assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
+    lines = calls.read_text().splitlines()
+    assert len(lines) == 2 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
+    assert _build.build_all() == paths
+    assert len(calls.read_text().splitlines()) == 2
+
+
+@pytest.mark.parametrize("shape", [(2, 16), (2, 1, 16)])
+def test_kernel_attention_refuses_other_bias_ranks(rng, monkeypatch, shape):
+    """Under impl="pallas" a bias the kernels cannot take raises; it never
+    falls back to the plain math."""
+    from asr_shap_torch.ops import attention
+
+    def no_plain(*args):
+        raise AssertionError("the plain attention ran under impl='pallas'")
+
+    monkeypatch.setattr(attention, "_xla_attention", no_plain)
+    q, k, v = (_t(a) for a in _qkv(rng, 2, 2, 16, 32))
+    with pytest.raises(NotImplementedError, match="bias"):
+        attention.multi_head_attention(q, k, v, torch.zeros(shape), impl="pallas")
+
+
+def test_cpu_path_counts_no_launches(rng):
+    before = dict(LAUNCHES)
+    q, k, v = (_t(a) for a in _qkv(rng, 1, 2, 16, 32))
+    fa.flash_attention(q, k, v)
+    assert LAUNCHES == before
+    with pytest.raises(NotImplementedError):  # K3b: full score bias not ported
+        fa.flash_attention(q, k, v, torch.zeros(1, 2, 16, 16))
