@@ -1,10 +1,10 @@
 """Typed configuration of the PyTorch port.
 
-A copy of the configs the ported slice needs from ``asr_shap.core.config``,
+A copy of the configs the ported slices need from ``asr_shap.core.config``,
 with the same field names and defaults, so an archive's embedded config and
-a test's config mean the same thing in both packages. The mesh and the
-conformer configs are not part of this slice; ``PipelineConfig`` therefore
-has no ``mesh`` field.
+a test's config mean the same thing in both packages. The mesh and the mel
+conformer configs are not ported yet; ``PipelineConfig`` therefore has no
+``mesh`` field.
 """
 
 from __future__ import annotations
@@ -66,6 +66,27 @@ class Wav2Vec2Config:
         for k, s in zip(self.conv_kernel, self.conv_stride):
             n = (n - k) // s + 1
         return n
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2ConformerConfig(Wav2Vec2Config):
+    """Wav2Vec2-Conformer CTC model: conformer blocks over the wav2vec2 conv
+    feature encoder. Defaults reproduce
+    ``facebook/wav2vec2-conformer-rel-pos-large-960h-ft``;
+    ``position_embeddings_type="rotary"`` gives the rope-large variant."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    conv_bias: bool = True
+    feat_extract_norm: str = "layer"
+    do_stable_layer_norm: bool = True
+    feat_proj_dim: int = 512
+    position_embeddings_type: str = "relative"  # "relative" | "rotary" | "none"
+    rotary_embedding_base: int = 10_000
+    conv_depthwise_kernel_size: int = 31
+    hidden_act: str = "swish"  # FFN activation; "swish"/"silu", else GELU
 
 
 @dataclasses.dataclass(frozen=True)

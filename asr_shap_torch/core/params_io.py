@@ -4,9 +4,11 @@ The archive format is the reference package's: leaves keyed by their tree
 path joined with ``::`` (list items as ``#i``), plus an optional
 ``__asr_shap_config__`` entry holding the architecture config as JSON. The
 reference stacks the encoder layers along a leading axis; the port keeps
-one dict per layer in ``params["encoder"]["layers"]``. All other leaves
-keep the reference layouts: conv kernels ``[K, C_in, C_out]``, linears
-``[in, out]``.
+one dict per layer in ``params["encoder"]["layers"]``, whatever the layer
+holds (Wav2Vec2's attention/ffn/norms, or the conformer's attn, conv, ffn1,
+ffn2 and final_norm). All other leaves keep the reference layouts: conv
+kernels ``[K, C_in, C_out]`` (the conformer's depthwise kernel
+``[K, 1, D]``), linears ``[in, out]``.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def load_config(path: str) -> Optional[Any]:
     if cls is None:
         raise ValueError(
             f"{path}: config class {payload['class']!r} is not ported yet "
-            "(the port has Wav2Vec2Config only)"
+            "(the port has Wav2Vec2Config and Wav2Vec2ConformerConfig)"
         )
     known = {f.name for f in dataclasses.fields(cls)}
     fields, dropped = {}, []

@@ -1,16 +1,29 @@
-// K2-K4: flash attention forward, dq backward and dk/dv backward, float32.
+// K2-K4: flash attention forward, dq backward and dk/dv backward, float32,
+// each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f).
 //
 // Replace the Pallas TPU kernels of asr_shap/kernels/flash_attention.py:
-//   K2 flash_fwd_kernel <- _fwd_kernel (launched by _fwd)
-//   K3 flash_dq_kernel  <- _dq_kernel  (launched by _bwd, no d(bias) output)
-//   K4 flash_dkv_kernel <- _dkv_kernel (launched by _bwd)
+//   K2  flash_fwd_kernel<D, false> <- _fwd_kernel (launched by _fwd)
+//   K2f flash_fwd_kernel<D, true>  <- the same call with a [bq, T] full-bias
+//                                     block
+//   K3  flash_dq_kernel<D, false>  <- _dq_kernel (launched by _bwd), no
+//                                     d(bias) output
+//   K3b flash_dq_kernel<D, true>   <- _dq_kernel with its d(bias) = ds output
+//   K4  flash_dkv_kernel<D, false> <- _dkv_kernel (launched by _bwd)
+//   K4f flash_dkv_kernel<D, true>  <- _dkv_kernel with the transposed
+//                                     [bk, Tq] full-bias block
 //
 // Layouts: q, k, v, o [BH, T, D]; lse [BH, T]; g, dq, dk, dv [N, T, D] and
 // dd [N, T] with N a multiple of BH. Row n of g is the cotangent of residual
-// row n % BH: the explainer's vmapped cotangent rows fold into N while the
-// forward residuals are stored once. bias is null or a [B, T] additive key
-// mask (B = BH / H), the [B, 1, 1, T] mask of the reference; it gets no
-// gradient. Scores are (q * scale) . k + bias, scale = D^-1/2.
+// row res = n % BH: the explainer's vmapped cotangent rows fold into N while
+// the forward residuals are stored once. Scores are (q * scale) . k + bias,
+// scale = D^-1/2. The bias is one of
+//   - null;
+//   - a [B, T] additive key mask (B = BH / H), the [B, 1, 1, T] mask of the
+//     reference; it gets no gradient;
+//   - a full [BH, T, T] score bias (the rel-pos scores of the conformer
+//     families); row n reads plane res, and K3b writes d(bias) = ds as
+//     dbias [N, T, T], one plane per cotangent row.
+// Bias entries of -1e9 (padded keys) give probabilities of exactly 0.
 //
 // Bound on the H100: float32 FMA throughput. Per residual row pair the
 // backward does 14*T*T*D operations on O(T*D) bytes (T = 149, D = 64 on the
@@ -23,6 +36,15 @@
 // memory; they never reach device memory. The forward uses the online
 // softmax. The dq kernel also computes dd = rowsum(g * o) for its rows and
 // writes it for the dk/dv kernel, which runs after it on the same stream.
+//
+// Full bias: K2f and K3b read bias[res, q, k] straight from device memory,
+// 16 neighbouring keys per half warp. K3b stores each ds tile once, from
+// registers, in the same pattern: its N * T * T floats of d(bias) are the
+// one output that is not O(T * D), 212 MB per launch on the conformer path,
+// 0.06 ms of the card's memory rate against 0.2 ms of operations. K4f walks
+// q tiles for a fixed kv tile, so it stages the [kv, q] bias tile through
+// the shared buffer that then holds p, reading device memory along k
+// (coalesced) instead of the TPU kernel's transposed copy.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,8 +80,24 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
+// The bias plane or row of residual row res: a [T, T] plane of the full bias,
+// or the [T] key mask of its batch entry; null without a bias.
+template <bool FULL>
+__device__ __forceinline__ const float* bias_base(const float* bias, int res,
+                                                  int H, int T) {
+  if (bias == nullptr) return nullptr;
+  return FULL ? bias + (long long)res * T * T : bias + (long long)(res / H) * T;
+}
+
+// The bias of query row `row` and key `col`, both < T.
+template <bool FULL>
+__device__ __forceinline__ float bias_at(const float* b, int row, int col, int T) {
+  if (b == nullptr) return 0.f;
+  return FULL ? b[(long long)row * T + col] : b[col];
+}
+
 // ------------------------------------------------------------------ K2
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
@@ -76,7 +114,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.y * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long base = (long long)n * T * D;
-  const float* brow = bias ? bias + (long long)(n / H) * T : nullptr;
+  const float* brow = bias_base<FULL>(bias, n, H, T);
 
   load_t<D>(qT, q + base, q0, T, scale);
   float m_i[4], l_i[4], acc[4][DC];
@@ -115,7 +153,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int col = kv0 + tx + 16 * j;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[i][j] = col < T ? s[i][j] + (brow ? brow[col] : 0.f) : NEG;
+        const int row = min(q0 + ty + 16 * i, T - 1);  // rows past T are dropped
+        s[i][j] = col < T ? s[i][j] + bias_at<FULL>(brow, row, col, T) : NEG;
       }
     }
 #pragma unroll
@@ -162,13 +201,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ K3
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ o,
                 const float* __restrict__ lse, const float* __restrict__ g,
                 const float* __restrict__ bias, float* __restrict__ dq,
-                float* __restrict__ dd_out, int T, int H, int BH, float scale) {
+                float* __restrict__ dd_out, float* __restrict__ dbias, int T,
+                int H, int BH, float scale) {
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
   float* qT = smem;           // [D][LD] scaled q
@@ -183,7 +223,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long rbase = (long long)res * T * D;
   const long long gbase = (long long)n * T * D;
-  const float* brow = bias ? bias + (long long)(res / H) * T : nullptr;
+  const float* brow = bias_base<FULL>(bias, res, H, T);
+  float* dbias_n = FULL ? dbias + (long long)n * T * T : nullptr;
 
   load_t<D>(qT, q + rbase, q0, T, scale);
   load_t<D>(gT, g + gbase, q0, T, 1.f);
@@ -245,10 +286,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int col = kv0 + tx + 16 * j;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
         float ds = 0.f;
         if (col < T) {
-          const float p = expf(s[i][j] + (brow ? brow[col] : 0.f) - lse_i[i]);
+          const float b = bias_at<FULL>(brow, min(row, T - 1), col, T);
+          const float p = expf(s[i][j] + b - lse_i[i]);
           ds = p * (dp[i][j] - dd_i[i]);
+          if (FULL && row < T) dbias_n[(long long)row * T + col] = ds;
         }
         dss[(ty + 16 * i) * LD + tx + 16 * j] = ds;
       }
@@ -277,7 +321,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ K4
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ lse,
@@ -290,7 +334,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vT = kT + D * LD;     // [D][LD]
   float* qT = vT + D * LD;     // [D][LD] scaled q
   float* gT = qT + D * LD;     // [D][LD]
-  float* pts = gT + D * LD;    // [TILE][LD] p transposed (kv rows, q cols)
+  float* pts = gT + D * LD;    // [TILE][LD] p transposed (kv rows, q cols);
+                               // K4f stages the bias tile here first
   float* dsts = pts + TILE * LD;
   float* lse_s = dsts + TILE * LD;  // [TILE]
   float* dd_s = lse_s + TILE;       // [TILE]
@@ -301,7 +346,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long rbase = (long long)res * T * D;
   const long long gbase = (long long)n * T * D;
-  const float* brow = bias ? bias + (long long)(res / H) * T : nullptr;
+  const float* brow = bias_base<FULL>(bias, res, H, T);
 
   load_t<D>(kT, k + rbase, k0, T, 1.f);
   load_t<D>(vT, v + rbase, k0, T, 1.f);
@@ -309,7 +354,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = k0 + ty + 16 * i;
-    bk[i] = (brow && t < T) ? brow[t] : 0.f;
+    bk[i] = (!FULL && brow && t < T) ? brow[t] : 0.f;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
   }
@@ -322,6 +367,15 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int t = qq0 + j;
       lse_s[j] = t < T ? lse[(long long)res * T + t] : 0.f;
       dd_s[j] = t < T ? dd[(long long)n * T + t] : 0.f;
+    }
+    if (FULL && brow) {
+      // pts[kr][qc] = bias[res, qq0 + qc, k0 + kr]: neighbouring threads
+      // read neighbouring keys of one query row
+      for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
+        const int kr = idx % TILE, qc = idx / TILE;
+        const int tq = qq0 + qc, tk = k0 + kr;
+        pts[kr * LD + qc] = (tq < T && tk < T) ? brow[(long long)tq * T + tk] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -358,7 +412,10 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         float p = 0.f, ds = 0.f;
         if (ok) {
-          p = expf(st[i][j] + bk[i] - lse_s[qc]);
+          // K4f: this thread's own bias entry, staged above; it is
+          // overwritten by p just below, by the same thread
+          const float b = (FULL && brow) ? pts[(ty + 16 * i) * LD + qc] : bk[i];
+          p = expf(st[i][j] + b - lse_s[qc]);
           ds = p * (dpt[i][j] - dd_s[qc]);
         }
         pts[(ty + 16 * i) * LD + qc] = p;
@@ -408,49 +465,111 @@ int launch_prep(Kernel kernel, size_t smem) {
   return (int)err;
 }
 
+template <int D, bool FULL>
+int fwd_launch(const float* q, const float* k, const float* v, const float* bias,
+               float* o, float* lse, int BH, int T, int H, float scale,
+               cudaStream_t stream) {
+  dim3 grid(BH, (T + TILE - 1) / TILE);
+  const size_t smem = (size_t)(3 * D * LD + TILE * LD) * sizeof(float);
+  int err = launch_prep(flash_fwd_kernel<D, FULL>, smem);
+  if (err) return err;
+  flash_fwd_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, bias, o, lse, T, H, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool FULL>
+int fwd(const float* q, const float* k, const float* v, const float* bias,
+        float* o, float* lse, int BH, int T, int D, int H, float scale,
+        void* stream) {
+  if (BH < 1 || T < 1 || (FULL && bias == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64) return fwd_launch<64, FULL>(q, k, v, bias, o, lse, BH, T, H, scale, st);
+  if (D == 32) return fwd_launch<32, FULL>(q, k, v, bias, o, lse, BH, T, H, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D, bool FULL>
+int dq_launch(const float* q, const float* k, const float* v, const float* o,
+              const float* lse, const float* g, const float* bias, float* dq,
+              float* dd, float* dbias, int N, int BH, int T, int H, float scale,
+              cudaStream_t stream) {
+  dim3 grid(N, (T + TILE - 1) / TILE);
+  const size_t smem = (size_t)(4 * D * LD + TILE * LD) * sizeof(float);
+  int err = launch_prep(flash_dq_kernel<D, FULL>, smem);
+  if (err) return err;
+  flash_dq_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, g, bias, dq, dd, dbias, T, H, BH, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool FULL>
+int dq(const float* q, const float* k, const float* v, const float* o,
+       const float* lse, const float* g, const float* bias, float* dq_, float* dd,
+       float* dbias, int N, int BH, int T, int D, int H, float scale, void* stream) {
+  if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
+  if (FULL && (bias == nullptr || dbias == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64) return dq_launch<64, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
+  if (D == 32) return dq_launch<32, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D, bool FULL>
+int dkv_launch(const float* q, const float* k, const float* v, const float* lse,
+               const float* g, const float* dd, const float* bias, float* dk,
+               float* dv, int N, int BH, int T, int H, float scale,
+               cudaStream_t stream) {
+  dim3 grid(N, (T + TILE - 1) / TILE);
+  const size_t smem = (size_t)(4 * D * LD + 2 * TILE * LD + 2 * TILE) * sizeof(float);
+  int err = launch_prep(flash_dkv_kernel<D, FULL>, smem);
+  if (err) return err;
+  flash_dkv_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool FULL>
+int dkv(const float* q, const float* k, const float* v, const float* lse,
+        const float* g, const float* dd, const float* bias, float* dk, float* dv,
+        int N, int BH, int T, int D, int H, float scale, void* stream) {
+  if (N < 1 || BH < 1 || N % BH != 0 || T < 1 || (FULL && bias == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 64) return dkv_launch<64, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
+  if (D == 32) return dkv_launch<32, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Each entry point returns the CUDA error of its launch (0 on success).
-// D must be 32 or 64.
+// D must be 32 or 64. bias: null or a [B, T] key mask for K2-K4, a [BH, T, T]
+// full score bias for the *_bias / *_dbias entry points.
 
 extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
                              const float* bias, float* o, float* lse, int BH,
                              int T, int D, int H, float scale, void* stream) {
-  if (BH < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(BH, (T + TILE - 1) / TILE);
-  const size_t smem = (size_t)(3 * D * LD + TILE * LD) * sizeof(float);
-  int err;
-  if (D == 64) {
-    if ((err = launch_prep(flash_fwd_kernel<64>, smem))) return err;
-    flash_fwd_kernel<64><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, bias, o, lse, T, H, scale);
-  } else if (D == 32) {
-    if ((err = launch_prep(flash_fwd_kernel<32>, smem))) return err;
-    flash_fwd_kernel<32><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, bias, o, lse, T, H, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return fwd<false>(q, k, v, bias, o, lse, BH, T, D, H, scale, stream);
+}
+
+extern "C" int flash_fwd_bias_f32(const float* q, const float* k, const float* v,
+                                  const float* bias, float* o, float* lse, int BH,
+                                  int T, int D, int H, float scale, void* stream) {
+  return fwd<true>(q, k, v, bias, o, lse, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,
                             const float* o, const float* lse, const float* g,
-                            const float* bias, float* dq, float* dd, int N,
+                            const float* bias, float* dq_, float* dd, int N,
                             int BH, int T, int D, int H, float scale,
                             void* stream) {
-  if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(N, (T + TILE - 1) / TILE);
-  const size_t smem = (size_t)(4 * D * LD + TILE * LD) * sizeof(float);
-  int err;
-  if (D == 64) {
-    if ((err = launch_prep(flash_dq_kernel<64>, smem))) return err;
-    flash_dq_kernel<64><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, o, lse, g, bias, dq, dd, T, H, BH, scale);
-  } else if (D == 32) {
-    if ((err = launch_prep(flash_dq_kernel<32>, smem))) return err;
-    flash_dq_kernel<32><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, o, lse, g, bias, dq, dd, T, H, BH, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dq<false>(q, k, v, o, lse, g, bias, dq_, dd, nullptr, N, BH, T, D, H, scale, stream);
+}
+
+extern "C" int flash_dq_dbias_f32(const float* q, const float* k, const float* v,
+                                  const float* o, const float* lse, const float* g,
+                                  const float* bias, float* dq_, float* dd,
+                                  float* dbias, int N, int BH, int T, int D, int H,
+                                  float scale, void* stream) {
+  return dq<true>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
@@ -458,18 +577,13 @@ extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
                              const float* bias, float* dk, float* dv, int N,
                              int BH, int T, int D, int H, float scale,
                              void* stream) {
-  if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(N, (T + TILE - 1) / TILE);
-  const size_t smem = (size_t)(4 * D * LD + 2 * TILE * LD + 2 * TILE) * sizeof(float);
-  int err;
-  if (D == 64) {
-    if ((err = launch_prep(flash_dkv_kernel<64>, smem))) return err;
-    flash_dkv_kernel<64><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, scale);
-  } else if (D == 32) {
-    if ((err = launch_prep(flash_dkv_kernel<32>, smem))) return err;
-    flash_dkv_kernel<32><<<grid, THREADS, smem, (cudaStream_t)stream>>>(q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dkv<false>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
+}
+
+extern "C" int flash_dkv_bias_f32(const float* q, const float* k, const float* v,
+                                  const float* lse, const float* g, const float* dd,
+                                  const float* bias, float* dk, float* dv, int N,
+                                  int BH, int T, int D, int H, float scale,
+                                  void* stream) {
+  return dkv<true>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
 }

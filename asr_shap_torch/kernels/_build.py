@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 # launches its kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {
     "conv_dgrad": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+    "flash_fwd_bias": 0, "flash_dq_dbias": 0, "flash_dkv_bias": 0,
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

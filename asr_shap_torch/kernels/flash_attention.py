@@ -3,11 +3,13 @@
 Replace the Pallas TPU kernels of ``asr_shap/kernels/flash_attention.py``:
 K2 ``_fwd_kernel`` (launched by ``_fwd``), K3 ``_dq_kernel`` and K4
 ``_dkv_kernel`` (both launched by ``_bwd``), with the CUDA kernels in
-``csrc/flash_attention.cu``. Scores are ``(q * D^-1/2) . k + bias``; the
-bias is absent or a ``[B, 1, 1, T]`` additive key mask, which gets a zero
-cotangent, as on the reference's kernel path. The reference's
-differentiable ``[B, H, T, T]`` score bias and its d(bias) output (K3b) are
-not ported yet and raise.
+``csrc/flash_attention.cu``. Scores are ``(q * D^-1/2) . k + bias``. The
+bias is absent; a ``[B, 1, 1, T]`` additive key mask, which gets a zero
+cotangent, as on the reference's kernel path; or any other rank-4 bias,
+broadcast to a full ``[B, H, T, T]`` score bias (the rel-pos scores of the
+conformer families). The full bias runs its own variants: K2f forward, K3b
+dq that also writes d(bias) = ds, and K4f dk/dv; its cotangent is summed
+back to the bias's own shape.
 
 On the main path the backward dominates: the explainer folds its T_out
 vmapped cotangent rows into the batch, so K3 and K4 see about 1,800
@@ -37,15 +39,29 @@ _I = ctypes.c_int
 
 
 # ------------------------------------------------------------ plain versions
+#
+# The kernels' bias argument: None, a [B, T] key mask or a full [BH, T, T]
+# score bias (told apart by rank).
+
+def _is_full(bias: Optional[torch.Tensor]) -> bool:
+    return bias is not None and bias.ndim == 3
+
+
+def _scores(q, k, bias, heads):
+    s = (q * q.shape[-1] ** -0.5) @ k.transpose(1, 2)      # [BH, T, T]
+    if _is_full(bias):
+        s = s + bias
+    elif bias is not None:
+        s = s + bias.repeat_interleave(heads, dim=0)[:, None, :]
+    return s
+
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], heads: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k, v [BH, T, D]; bias None or [B, T] -> (o [BH, T, D], lse [BH, T])."""
-    scale = q.shape[-1] ** -0.5
-    s = (q * scale) @ k.transpose(1, 2)
-    if bias is not None:
-        s = s + bias.repeat_interleave(heads, dim=0)[:, None, :]
+    """q, k, v [BH, T, D]; bias None, [B, T] or [BH, T, T]
+    -> (o [BH, T, D], lse [BH, T])."""
+    s = _scores(q, k, bias, heads)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -58,24 +74,18 @@ def _fold(g: torch.Tensor, bh: int) -> torch.Tensor:
     return g.reshape(-1, bh, *g.shape[1:])
 
 
-def _scores(q, k, bias, heads):
-    s = (q * q.shape[-1] ** -0.5) @ k.transpose(1, 2)      # [BH, T, T]
-    if bias is not None:
-        s = s + bias.repeat_interleave(heads, dim=0)[:, None, :]
-    return s
-
-
-def flash_dq_plain(q, k, v, o, lse, g, bias, heads
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_dq_plain(q, k, v, o, lse, g, bias, heads):
     """Residuals [BH, T, D] (lse [BH, T]), g [N, T, D] with N a multiple of
-    BH -> (dq [N, T, D], dd = rowsum(g * o) [N, T])."""
+    BH -> (dq [N, T, D], dd = rowsum(g * o) [N, T], dbias): dbias = ds
+    [N, T, T] for a full bias, else None."""
     bh = q.shape[0]
     g4 = _fold(g, bh)
     p = torch.exp(_scores(q, k, bias, heads) - lse[..., None])
     dd = (g4 * o).sum(dim=-1)                                # [V, BH, T]
     ds = p * (g4 @ v.transpose(1, 2) - dd[..., None])
     dq = q.shape[-1] ** -0.5 * (ds @ k)
-    return dq.reshape(g.shape), dd.reshape(g.shape[:2])
+    dbias = ds.reshape(g.shape[0], *ds.shape[2:]) if _is_full(bias) else None
+    return dq.reshape(g.shape), dd.reshape(g.shape[:2]), dbias
 
 
 def flash_dkv_plain(q, k, v, lse, g, dd, bias, heads
@@ -104,7 +114,7 @@ def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
         raise ValueError(f"flash attention: BH={bh}, N={n} and H={heads} do not divide")
     expected = {"k": (k, (bh, t, d)), "v": (v, (bh, t, d)), "o": (o, (bh, t, d)),
                 "lse": (lse, (bh, t)), "g": (g, (n, t, d)), "dd": (dd, (n, t)),
-                "bias": (bias, (bh // heads, t))}
+                "bias": (bias, (bh, t, t) if _is_full(bias) else (bh // heads, t))}
     tensors = [q]
     for name, (x, shape) in expected.items():
         if x is None:
@@ -138,77 +148,104 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fn(name: str, nargs_ptr: int, nargs_int: int):
-    return _build.c_function("flash_attention", name,
-                             [_P] * nargs_ptr + [_I] * nargs_int + [ctypes.c_float, _P])
+def _launch(name: str, counter: str, ptrs, ints, scale: float, stream: int) -> None:
+    """Call entry point ``name`` of the flash library and count the launch
+    under ``counter``; raise on a CUDA error."""
+    fn = _build.c_function("flash_attention", name,
+                           [_P] * len(ptrs) + [_I] * len(ints) + [ctypes.c_float, _P])
+    rc = fn(*ptrs, *ints, scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
+    _build.LAUNCHES[counter] += 1
 
 
 def flash_fwd(q, k, v, bias, heads):
-    """K2. q, k, v [BH, T, D]; bias None or [B, T] -> (o, lse [BH, T])."""
+    """K2, or K2f for a full bias. q, k, v [BH, T, D]; bias None, [B, T] or
+    [BH, T, T] -> (o, lse [BH, T])."""
     if _check(q, k, v, bias, heads):
         return flash_fwd_plain(q, k, v, bias, heads)
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), device=q.device, dtype=torch.float32)
-    rc = _fn("flash_fwd_f32", 6, 4)(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(o), _ptr(lse),
-        bh, t, d, heads, d ** -0.5, _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd: kernel launch failed (CUDA error {rc})")
-    _build.LAUNCHES["flash_fwd"] += 1
+    name, counter = (("flash_fwd_bias_f32", "flash_fwd_bias") if _is_full(bias)
+                     else ("flash_fwd_f32", "flash_fwd"))
+    _launch(name, counter, [_ptr(x) for x in (q, k, v, bias, o, lse)],
+            [bh, t, d, heads], d ** -0.5, _stream(q))
     return o, lse
 
 
 def flash_dq(q, k, v, o, lse, g, bias, heads):
-    """K3. g [N, T, D], N a multiple of BH -> (dq [N, T, D], dd [N, T])."""
+    """K3, or K3b for a full bias. g [N, T, D], N a multiple of BH ->
+    (dq [N, T, D], dd [N, T], dbias): dbias = ds [N, T, T] for a full bias,
+    else None."""
     if _check(q, k, v, bias, heads, o=o, lse=lse, g=g):
         return flash_dq_plain(q, k, v, o, lse, g, bias, heads)
     bh, t, d = q.shape
     n = g.shape[0]
     dq = torch.empty_like(g)
     dd = torch.empty((n, t), device=g.device, dtype=torch.float32)
-    rc = _fn("flash_dq_f32", 9, 5)(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(g), _ptr(bias),
-        _ptr(dq), _ptr(dd), n, bh, t, d, heads, d ** -0.5, _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"flash_dq: kernel launch failed (CUDA error {rc})")
-    _build.LAUNCHES["flash_dq"] += 1
-    return dq, dd
+    ptrs = [_ptr(x) for x in (q, k, v, o, lse, g, bias, dq, dd)]
+    dbias = None
+    if _is_full(bias):
+        dbias = torch.empty((n, t, t), device=g.device, dtype=torch.float32)
+        _launch("flash_dq_dbias_f32", "flash_dq_dbias", ptrs + [_ptr(dbias)],
+                [n, bh, t, d, heads], d ** -0.5, _stream(q))
+    else:
+        _launch("flash_dq_f32", "flash_dq", ptrs, [n, bh, t, d, heads], d ** -0.5,
+                _stream(q))
+    return dq, dd, dbias
 
 
 def flash_dkv(q, k, v, lse, g, dd, bias, heads):
-    """K4. dd as returned by K3 -> (dk, dv), each [N, T, D]."""
+    """K4, or K4f for a full bias. dd as returned by K3 -> (dk, dv), each
+    [N, T, D]."""
     if _check(q, k, v, bias, heads, lse=lse, g=g, dd=dd):
         return flash_dkv_plain(q, k, v, lse, g, dd, bias, heads)
     bh, t, d = q.shape
     n = g.shape[0]
     dk = torch.empty_like(g)
     dv = torch.empty_like(g)
-    rc = _fn("flash_dkv_f32", 9, 5)(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(lse), _ptr(g), _ptr(dd), _ptr(bias),
-        _ptr(dk), _ptr(dv), n, bh, t, d, heads, d ** -0.5, _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"flash_dkv: kernel launch failed (CUDA error {rc})")
-    _build.LAUNCHES["flash_dkv"] += 1
+    name, counter = (("flash_dkv_bias_f32", "flash_dkv_bias") if _is_full(bias)
+                     else ("flash_dkv_f32", "flash_dkv"))
+    _launch(name, counter, [_ptr(x) for x in (q, k, v, lse, g, dd, bias, dk, dv)],
+            [n, bh, t, d, heads], d ** -0.5, _stream(q))
     return dk, dv
 
 
 # ------------------------------------------------------------ autograd
 
-def _mask_rows(bias: Optional[torch.Tensor], b: int, t: int):
-    """[B, 1, 1, T] (or broadcastable) mask -> contiguous [B, T] float32."""
+def _is_mask(bias: torch.Tensor) -> bool:
+    return tuple(bias.shape[1:3]) == (1, 1)
+
+
+def _kernel_bias(bias: Optional[torch.Tensor], b: int, h: int, t: int):
+    """A rank-4 bias as the kernels take it: a [B, 1, 1, T] (or
+    broadcastable) key mask -> contiguous [B, T]; any other, broadcast to
+    [B, H, T, T] -> contiguous [BH, T, T]. Both float32."""
     if bias is None:
         return None
-    if bias.ndim != 4 or bias.shape[1:3] != (1, 1):
+    if bias.ndim != 4:
         raise NotImplementedError(
-            "flash attention: only [B, 1, 1, T] masks are ported; the "
-            "differentiable [B, H, T, T] score bias (K3b) is not yet")
-    return _build.kernel_input(bias[:, 0, 0, :].expand(b, t).to(torch.float32))
+            f"flash attention: a rank-4 bias expected, got {tuple(bias.shape)}")
+    if _is_mask(bias):
+        return _build.kernel_input(bias[:, 0, 0, :].expand(b, t).to(torch.float32))
+    return _build.kernel_input(
+        bias.expand(b, h, t, t).reshape(b * h, t, t).to(torch.float32))
+
+
+def _unbroadcast(grad: torch.Tensor, shape) -> torch.Tensor:
+    """Sum ``grad`` over the axes that ``shape`` broadcast (size 1 there)."""
+    for ax, (bs, gs) in enumerate(zip(shape, grad.shape)):
+        if bs == 1 and gs != 1:
+            grad = grad.sum(dim=ax, keepdim=True)
+    return grad
 
 
 class FlashBackward(torch.autograd.Function):
-    """K3 then K4. g may carry V cotangents per residual row: its leading
-    dim is V*B while the residuals' is B."""
+    """K3 then K4 (K3b then K4f for a full bias). g may carry V cotangents
+    per residual row: its leading dim is V*B while the residuals' is B.
+    Returns (dq, dk, dv, dbias); dbias is d(scores) [V*B, H, T, T] for a
+    full bias, else None."""
 
     @staticmethod
     def forward(q, k, v, o, lse, g, bias):
@@ -216,10 +253,11 @@ class FlashBackward(torch.autograd.Function):
         res = [_build.kernel_input(x.reshape(b * h, t, d)) for x in (q, k, v, o)]
         lse3 = _build.kernel_input(lse.reshape(b * h, t))
         g3 = _build.kernel_input(g.reshape(-1, t, d))
-        bias2 = _mask_rows(bias, b, t)
-        dq, dd = flash_dq(*res, lse3, g3, bias2, h)
-        dk, dv = flash_dkv(*res[:3], lse3, g3, dd, bias2, h)
-        return tuple(x.reshape(g.shape) for x in (dq, dk, dv))
+        kbias = _kernel_bias(bias, b, h, t)
+        dq, dd, dbias = flash_dq(*res, lse3, g3, kbias, h)
+        dk, dv = flash_dkv(*res[:3], lse3, g3, dd, kbias, h)
+        outs = tuple(x.reshape(g.shape) for x in (dq, dk, dv))
+        return outs + (None if dbias is None else dbias.reshape(g.shape[0], h, t, t),)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -236,18 +274,22 @@ class FlashBackward(torch.autograd.Function):
         g = g.movedim(in_dims[5], 0)
         nv = g.shape[0]
         flat = g.reshape((-1,) + g.shape[2:])                  # [V*B, H, T, D]
-        outs = FlashBackward.apply(q, k, v, o, lse, flat, bias)
-        return tuple(x.reshape((nv,) + q.shape) for x in outs), (0, 0, 0)
+        dq, dk, dv, dbias = FlashBackward.apply(q, k, v, o, lse, flat, bias)
+        outs = tuple(x.reshape((nv,) + q.shape) for x in (dq, dk, dv))
+        if dbias is None:
+            return outs + (None,), (0, 0, 0, None)
+        b, h, t, _ = q.shape
+        return outs + (dbias.reshape(nv, b, h, t, t),), (0, 0, 0, 0)
 
 
 class FlashAttention(torch.autograd.Function):
-    """K2 forward; K3/K4 backward through ``FlashBackward``."""
+    """K2 (K2f) forward; K3/K4 (K3b/K4f) backward through ``FlashBackward``."""
 
     @staticmethod
     def forward(q, k, v, bias):
         b, h, t, d = q.shape
         q3, k3, v3 = (_build.kernel_input(x.reshape(b * h, t, d)) for x in (q, k, v))
-        o3, lse = flash_fwd(q3, k3, v3, _mask_rows(bias, b, t), h)
+        o3, lse = flash_fwd(q3, k3, v3, _kernel_bias(bias, b, h, t), h)
         return o3.reshape(b, h, t, d), lse.reshape(b, h, t)
 
     @staticmethod
@@ -260,14 +302,21 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_lse):
         q, k, v, o, lse, bias = ctx.saved_tensors
-        dq, dk, dv = FlashBackward.apply(q, k, v, o, lse, g, bias)
+        dq, dk, dv, dfull = FlashBackward.apply(q, k, v, o, lse, g, bias)
         dbias = None
-        if bias is not None and ctx.needs_input_grad[3]:
+        # A full bias gets its d(bias) from K3b whether or not autograd asks
+        # for it: what needs_input_grad reports inside torch.func transforms
+        # is not verified, and the rel-pos layers always need it.
+        if dfull is not None:
+            dbias = _unbroadcast(dfull, bias.shape).to(bias.dtype)
+        elif bias is not None and ctx.needs_input_grad[3]:
             dbias = torch.zeros_like(bias)  # masks are constants
         return dq, dk, dv, dbias
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention over [B, H, T, D]; ``bias`` None or a [B, 1, 1, T] mask."""
+    """Attention over [B, H, T, D]; ``bias`` None, a [B, 1, 1, T] mask
+    (constant) or a rank-4 score bias broadcastable to [B, H, T, T]
+    (differentiable)."""
     return FlashAttention.apply(q, k, v, bias)[0]

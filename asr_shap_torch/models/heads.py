@@ -6,7 +6,11 @@ from typing import Callable
 
 import torch
 
-from asr_shap_torch.core.config import ExplainerConfig, Wav2Vec2Config
+from asr_shap_torch.core.config import (
+    ExplainerConfig,
+    Wav2Vec2Config,
+    Wav2Vec2ConformerConfig,
+)
 
 
 def aggregation_head(logits: torch.Tensor, kind: str, token_timestep: int = 0,
@@ -25,7 +29,12 @@ def aggregation_head(logits: torch.Tensor, kind: str, token_timestep: int = 0,
 
 
 def model_logits_fn(model_cfg: Wav2Vec2Config):
-    """The forward for a model config; only Wav2Vec2 is ported."""
+    """The forward for a model config, selected by its type as the
+    reference's pipeline does (the conformer config subclasses Wav2Vec2's)."""
+    if isinstance(model_cfg, Wav2Vec2ConformerConfig):
+        from asr_shap_torch.models.w2v2_conformer import w2v2_conformer_logits
+
+        return w2v2_conformer_logits
     if type(model_cfg) is not Wav2Vec2Config:
         raise NotImplementedError(f"{type(model_cfg).__name__} is not ported")
     from asr_shap_torch.models.wav2vec2 import wav2vec2_logits

@@ -1,0 +1,194 @@
+"""Wav2Vec2-Conformer CTC model, functional, on a params dict of tensors.
+
+The port of ``asr_shap/models/w2v2_conformer.py``
+(``transformers.Wav2Vec2ConformerForCTC``): conformer blocks over the
+wav2vec2 conv feature encoder and feature projection, which come from
+``models/wav2vec2.py``. Position schemes:
+
+  * "relative": Transformer-XL relative-position attention. The
+    content-position scores (q + bias_v) . proj(pe), rel-shifted and
+    pre-scaled by hd^-1/2, enter the attention as a differentiable
+    [B, H, T, T] score bias; under ``attention_impl="pallas"`` that is the
+    full-bias flash kernels (K2f forward, K3b dq with d(bias), K4f dk/dv);
+  * "rotary": rotary embedding of the pre-projection hidden states (the
+    HF formulation rotates the shared q/k input; parity requires it);
+  * "none".
+
+As in HF, the encoder has no conv positional embedding (HF builds one and
+never applies it), and BatchNorm runs in inference mode. The conv module
+does not re-mask padded frames, as HF does not. The params tree is the
+reference's with one dict per encoder layer (see ``core/params_io.py``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from asr_shap_torch.core.config import Wav2Vec2ConformerConfig
+from asr_shap_torch.core.device import resolve_device
+from asr_shap_torch.kernels.conv_dgrad import conv1d_forward
+from asr_shap_torch.models.wav2vec2 import (
+    ParamInit,
+    _gelu,
+    _layer_norm,
+    _linear,
+    frame_mask_for,
+    init_conv_encoder,
+    projected_features,
+)
+from asr_shap_torch.ops.attention import multi_head_attention, rel_pos_embedding, rel_shift
+
+Params = Dict[str, Any]
+
+
+# --------------------------------------------------------------------- init
+
+def init_w2v2_conformer_params(seed: int, config: Wav2Vec2ConformerConfig,
+                               device: str | torch.device = "cuda") -> Params:
+    """Random initialization from a numpy seed with the reference's shapes
+    (``ParamInit``'s scheme; u/v biases zero, BatchNorm at identity
+    statistics)."""
+    init = ParamInit(np.random.default_rng(seed), resolve_device(device))
+    cfg = config
+    d, nh, hd = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    zeros = lambda *shape: init.tensor(np.zeros(shape))
+
+    def ffn():
+        return {"norm": init.norm(d),
+                "intermediate": init.linear(d, cfg.intermediate_size),
+                "output": init.linear(cfg.intermediate_size, d)}
+
+    def layer():
+        attn: Params = {"norm": init.norm(d),
+                        **{name: init.linear(d, d) for name in ("q", "k", "v", "out")}}
+        if cfg.position_embeddings_type == "relative":
+            attn["pos"] = init.linear(d, d, bias=False)
+            attn["bias_u"] = zeros(nh, hd)
+            attn["bias_v"] = zeros(nh, hd)
+        ksz = cfg.conv_depthwise_kernel_size
+        return {
+            "ffn1": ffn(),
+            "attn": attn,
+            "conv": {
+                "norm": init.norm(d),
+                "pw1": init.linear(d, 2 * d, bias=False),
+                "depthwise": {"kernel": init.normal((ksz, 1, d), math.sqrt(1.0 / ksz))},
+                "bn": {"scale": init.tensor(np.ones(d)), "bias": zeros(d),
+                       "mean": zeros(d), "var": init.tensor(np.ones(d))},
+                "pw2": init.linear(d, d, bias=False),
+            },
+            "ffn2": ffn(),
+            "final_norm": init.norm(d),
+        }
+
+    return {
+        "feature_encoder": init_conv_encoder(init, cfg),
+        "feature_projection": {"layer_norm": init.norm(cfg.feat_proj_dim),
+                               "projection": init.linear(cfg.feat_proj_dim, d)},
+        "encoder": {"layers": [layer() for _ in range(cfg.num_hidden_layers)],
+                    "layer_norm": init.norm(d)},
+        "lm_head": init.linear(d, cfg.vocab_size),
+    }
+
+
+# ------------------------------------------------------------------ forward
+
+def _apply_rotary(h: torch.Tensor, nh: int, hd: int, base: float) -> torch.Tensor:
+    """Rotary embedding on pre-projection hidden states [B, T, D]."""
+    b, t, d = h.shape
+    inv = 1.0 / (base ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                       device=h.device) / hd))
+    freqs = torch.arange(t, dtype=torch.float32, device=h.device)[:, None] * inv[None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)                  # [T, hd]
+    cos = torch.cos(emb)[None, :, None, :]
+    sin = torch.sin(emb)[None, :, None, :]
+    hs = h.reshape(b, t, nh, hd)
+    h1, h2 = hs[..., : hd // 2], hs[..., hd // 2:]
+    rot = torch.cat([-h2, h1], dim=-1)
+    return (hs * cos + rot * sin).reshape(b, t, d)
+
+
+def _ffn(p: Params, x: torch.Tensor, act, eps: float) -> torch.Tensor:
+    h = _linear(p["intermediate"], _layer_norm(p["norm"], x, eps))
+    return _linear(p["output"], act(h))
+
+
+def _attention(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
+               pe: Optional[torch.Tensor], bias: Optional[torch.Tensor]) -> torch.Tensor:
+    b, t, d = x.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    xn = _layer_norm(p["norm"], x, cfg.layer_norm_eps)
+    qk_in = xn
+    if cfg.position_embeddings_type == "rotary":
+        qk_in = _apply_rotary(xn, nh, hd, float(cfg.rotary_embedding_base))
+
+    def proj(pp, v):
+        return _linear(pp, v).reshape(b, t, nh, hd).transpose(1, 2)
+
+    q, k, v = proj(p["q"], qk_in), proj(p["k"], qk_in), proj(p["v"], xn)
+    attn_bias, q_attn = bias, q
+    if cfg.position_embeddings_type == "relative":
+        # content-position scores, pre-scaled so that they add to the
+        # attention's already scaled q.k: (ac + bd) / sqrt(hd) overall
+        p_proj = _linear(p["pos"], pe).reshape(-1, nh, hd)      # [2T-1, H, hd]
+        q_v = q + p["bias_v"][None, :, None, :]
+        scores_bd = torch.einsum("bhtd,rhd->bhtr", q_v, p_proj)
+        rel = rel_shift(scores_bd) * hd ** -0.5                  # [B, H, T, T]
+        attn_bias = rel if bias is None else rel + bias
+        q_attn = q + p["bias_u"][None, :, None, :]
+    o = multi_head_attention(q_attn, k, v, attn_bias, impl=cfg.attention_impl)
+    return _linear(p["out"], o.transpose(1, 2).reshape(b, t, d))
+
+
+def _conv_module(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor) -> torch.Tensor:
+    """LN, pointwise conv, GLU, depthwise conv (a library conv, as in the
+    reference), inference BatchNorm, SiLU, pointwise conv."""
+    h = _layer_norm(p["norm"], x, cfg.layer_norm_eps)
+    h = F.glu(_linear(p["pw1"], h), dim=-1)                    # [B, T, d]
+    ksz = cfg.conv_depthwise_kernel_size
+    h = conv1d_forward(h, p["depthwise"]["kernel"], stride=1, padding=(ksz - 1) // 2,
+                       groups=h.shape[-1])
+    bn = p["bn"]
+    h = (h - bn["mean"]) * torch.rsqrt(bn["var"] + 1e-5) * bn["scale"] + bn["bias"]
+    return _linear(p["pw2"], F.silu(h))
+
+
+def _conformer_block(layer: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
+                     pe: Optional[torch.Tensor], bias: Optional[torch.Tensor]) -> torch.Tensor:
+    eps = cfg.layer_norm_eps
+    act = F.silu if cfg.hidden_act in ("swish", "silu") else _gelu
+    x = x + 0.5 * _ffn(layer["ffn1"], x, act, eps)
+    x = x + _attention(layer["attn"], cfg, x, pe, bias)
+    x = x + _conv_module(layer["conv"], cfg, x)
+    x = x + 0.5 * _ffn(layer["ffn2"], x, act, eps)
+    return _layer_norm(layer["final_norm"], x, eps)
+
+
+def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
+                          input_values: torch.Tensor,
+                          lengths: Optional[torch.Tensor] = None,
+                          remat: bool = False) -> torch.Tensor:
+    """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
+    ``lengths`` enables padded batching; ``remat`` is accepted for signature
+    parity and does nothing (see ``wav2vec2.encoder``). Raises where
+    ``wav2vec2_logits`` does: bf16, ``matmul_precision`` other than
+    "highest", and CUDA with TF32 on."""
+    cfg = config
+    h = projected_features(params, cfg, input_values)
+    bias = None
+    if lengths is not None:
+        frame_mask = frame_mask_for(cfg, lengths, h)
+        h = h * frame_mask[..., None]
+        bias = torch.where(frame_mask[:, None, None, :] != 0, 0.0, -1e9).to(h.dtype)
+    pe = None
+    if cfg.position_embeddings_type == "relative":
+        pe = rel_pos_embedding(h.shape[1], cfg.hidden_size, device=h.device).to(h.dtype)
+    for layer in params["encoder"]["layers"]:
+        h = _conformer_block(layer, cfg, h, pe, bias)
+    h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
+    return _linear(params["lm_head"], h).to(torch.float32)

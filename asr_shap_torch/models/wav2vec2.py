@@ -85,64 +85,82 @@ def _conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
 # init
 # ---------------------------------------------------------------------------
 
-def init_wav2vec2_params(seed: int, config: Wav2Vec2Config,
-                         device: str | torch.device = "cuda") -> Params:
-    """Random initialization from a numpy seed: fan-in uniform linears,
-    he-normal convs (the reference's scheme; its draws differ)."""
-    device = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    cfg = config
+class ParamInit:
+    """Numpy-seeded parameter draws, as float32 tensors on ``device``:
+    fan-in uniform linears, normal convs, unit norms (the reference's
+    scheme; its draws differ)."""
 
-    def t(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    def __init__(self, rng: np.random.Generator, device: torch.device):
+        self.rng = rng
+        self.device = device
 
-    def normal(shape, std):
-        return t(rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+    def tensor(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
 
-    def linear(d_in, d_out):
+    def normal(self, shape, std) -> torch.Tensor:
+        return self.tensor(self.rng.standard_normal(shape, dtype=np.float32)
+                           * np.float32(std))
+
+    def linear(self, d_in: int, d_out: int, bias: bool = True) -> Params:
         bound = 1.0 / math.sqrt(d_in)
-        return {"kernel": t(rng.uniform(-bound, bound, (d_in, d_out))),
-                "bias": t(np.zeros(d_out))}
+        p = {"kernel": self.tensor(self.rng.uniform(-bound, bound, (d_in, d_out)))}
+        if bias:
+            p["bias"] = self.tensor(np.zeros(d_out))
+        return p
 
-    def norm(dim):
-        return {"scale": t(np.ones(dim)), "bias": t(np.zeros(dim))}
+    def norm(self, dim: int) -> Params:
+        return {"scale": self.tensor(np.ones(dim)), "bias": self.tensor(np.zeros(dim))}
 
+
+def init_conv_encoder(init: ParamInit, config: Wav2Vec2Config) -> list:
+    """The conv feature encoder's layers, which Wav2Vec2 shares with the
+    Wav2Vec2-Conformer."""
+    cfg = config
     conv_layers = []
     in_ch = 1
     for i, (dim, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
-        layer: Params = {"conv": {"kernel": normal((k, in_ch, dim),
-                                                   math.sqrt(2.0 / (k * in_ch)))}}
+        layer: Params = {"conv": {"kernel": init.normal((k, in_ch, dim),
+                                                        math.sqrt(2.0 / (k * in_ch)))}}
         if cfg.conv_bias:
-            layer["conv"]["bias"] = t(np.zeros(dim))
+            layer["conv"]["bias"] = init.tensor(np.zeros(dim))
         if (cfg.feat_extract_norm == "group" and i == 0) or cfg.feat_extract_norm == "layer":
-            layer["norm"] = norm(dim)
+            layer["norm"] = init.norm(dim)
         conv_layers.append(layer)
         in_ch = dim
+    return conv_layers
+
+
+def init_wav2vec2_params(seed: int, config: Wav2Vec2Config,
+                         device: str | torch.device = "cuda") -> Params:
+    """Random initialization from a numpy seed (see ``ParamInit``)."""
+    init = ParamInit(np.random.default_rng(seed), resolve_device(device))
+    cfg = config
+    conv_layers = init_conv_encoder(init, cfg)
 
     h = cfg.hidden_size
     pos_k = cfg.num_conv_pos_embeddings
     layers = [{
-        "attention": {name: linear(h, h) for name in ("q", "k", "v", "out")},
-        "layer_norm": norm(h),
-        "ffn": {"intermediate": linear(h, cfg.intermediate_size),
-                "output": linear(cfg.intermediate_size, h)},
-        "final_layer_norm": norm(h),
+        "attention": {name: init.linear(h, h) for name in ("q", "k", "v", "out")},
+        "layer_norm": init.norm(h),
+        "ffn": {"intermediate": init.linear(h, cfg.intermediate_size),
+                "output": init.linear(cfg.intermediate_size, h)},
+        "final_layer_norm": init.norm(h),
     } for _ in range(cfg.num_hidden_layers)]
 
     return {
         "feature_encoder": conv_layers,
-        "feature_projection": {"layer_norm": norm(cfg.feat_proj_dim),
-                               "projection": linear(cfg.feat_proj_dim, h)},
+        "feature_projection": {"layer_norm": init.norm(cfg.feat_proj_dim),
+                               "projection": init.linear(cfg.feat_proj_dim, h)},
         "encoder": {
             "pos_conv": {
-                "kernel": normal((pos_k, h // cfg.num_conv_pos_embedding_groups, h),
-                                 math.sqrt(4.0 / (pos_k * h))),
-                "bias": t(np.zeros(h)),
+                "kernel": init.normal((pos_k, h // cfg.num_conv_pos_embedding_groups, h),
+                                      math.sqrt(4.0 / (pos_k * h))),
+                "bias": init.tensor(np.zeros(h)),
             },
-            "layer_norm": norm(h),
+            "layer_norm": init.norm(h),
             "layers": layers,
         },
-        "lm_head": linear(h, cfg.vocab_size),
+        "lm_head": init.linear(h, cfg.vocab_size),
     }
 
 
@@ -248,6 +266,17 @@ def wav2vec2_logits(params: Params, config: Wav2Vec2Config,
     (``core.device.highest_precision``), else it raises: the model does not
     change torch's process-wide switches itself."""
     cfg = config
+    h = projected_features(params, cfg, input_values)
+    frame_mask = None if lengths is None else frame_mask_for(cfg, lengths, h)
+    h = encoder(params, cfg, h, frame_mask, remat=remat)
+    return _linear(params["lm_head"], h).to(torch.float32)
+
+
+def projected_features(params: Params, config: Wav2Vec2Config,
+                       input_values: torch.Tensor) -> torch.Tensor:
+    """Waveform [B, N] -> projected features [B, T, hidden]: the numerics
+    checks, the conv feature encoder and the feature projection."""
+    cfg = config
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype {cfg.dtype!r}: only float32 is ported")
     check_matmul_precision(cfg.matmul_precision)
@@ -256,12 +285,13 @@ def wav2vec2_logits(params: Params, config: Wav2Vec2Config,
                            "inside core.device.highest_precision()")
     feats = feature_encoder(params, cfg, input_values)
     fp = params["feature_projection"]
-    h = _linear(fp["projection"], _layer_norm(fp["layer_norm"], feats,
-                                              cfg.layer_norm_eps))
-    frame_mask = None
-    if lengths is not None:
-        t = h.shape[1]
-        fl = feature_lengths(cfg, lengths.to(h.device))
-        frame_mask = (torch.arange(t, device=h.device)[None, :] < fl[:, None]).to(h.dtype)
-    h = encoder(params, cfg, h, frame_mask, remat=remat)
-    return _linear(params["lm_head"], h).to(torch.float32)
+    return _linear(fp["projection"], _layer_norm(fp["layer_norm"], feats,
+                                                 cfg.layer_norm_eps))
+
+
+def frame_mask_for(config: Wav2Vec2Config, lengths: torch.Tensor,
+                   h: torch.Tensor) -> torch.Tensor:
+    """[B] sample lengths -> [B, T] frame mask (1 valid, 0 padded) in h's dtype."""
+    t = h.shape[1]
+    fl = feature_lengths(config, lengths.to(h.device))
+    return (torch.arange(t, device=h.device)[None, :] < fl[:, None]).to(h.dtype)

@@ -3,7 +3,9 @@
 Per sample: normalize -> one forward for the confidence and the greedy
 transcript -> expected-gradients attribution matrix -> persist the
 (audio, noise, shap_values, text) quadruple under the store's naming
-contract. Samples already complete in the store are skipped (resume).
+contract. The model config's type selects the forward (Wav2Vec2 or
+Wav2Vec2-Conformer, ``models.heads.model_logits_fn``); both share the
+vocabulary. Samples already complete in the store are skipped (resume).
 Samples run in exact-length buckets, shortest first, one at a time. The
 background and the draws of sample i come from generators seeded by
 (seed, i), so a sample's result does not depend on bucketing or on which

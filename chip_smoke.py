@@ -5,26 +5,34 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each reported on its own lines:
+Two paths are driven, each through run_shap_pipeline at full width with
+random weights from a seed: the base path (Wav2Vec2-base, kernels K1-K4)
+and the conformer slice (Wav2Vec2-Conformer rel-pos-large, kernels K1 and
+the full-bias flash kernels K2f, K3b, K4f). Phases, each reported on its
+own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card, float32,
-   at the main path's shapes, with the tolerance stated beside it;
-3. drive the main path: run_shap_pipeline at full Wav2Vec2-base width
-   (random weights from a seed) on a 48,000-sample clip and its 5 dB
+   at its path's shapes, with the tolerance stated beside it (the full-bias
+   kernels with a rel-pos-like bias, and with the same bias masked);
+3. drive each path: run_shap_pipeline on a 48,000-sample clip and its 5 dB
    white-noise mix, 4 expected-gradients draws each, with the launch counts
    set to 0 just before and read just after; check phi, the store and the
-   counts, and score each sample (transcript, confidence, eta_raw, WER);
-4. check the result against a reference: phi of one full-width draw
+   path's kernels' counts, and score each sample (transcript, confidence,
+   eta_raw, WER);
+4. check each path's result against a reference: phi of one full-width draw
    through the kernels against the same draw through plain PyTorch, and a
-   narrow model on the card against the CPU;
+   narrow model on the card against the CPU (for the conformer, the trained
+   archive artifacts/params_synthetic_conformer.npz through the pipeline,
+   phi and transcript);
 5. time each kernel with CUDA events beside its bound, its plain version and
-   one library call; time the slice per draw, then profile two more draws
-   (torch.profiler: device busy share, time by kernel group). A kernel's times in the
-   JSON line are per draw of the main path: the sum over the launches one
-   draw makes (K1 once per eligible conv layer, K2-K4 once per encoder
-   layer); its "launches" is the count from the pipeline run of phase 3.
+   one library call; time each path per draw, with its peak device memory,
+   then profile two more draws (torch.profiler: device busy share, time by
+   kernel group). A kernel's times in the JSON line are per draw of its
+   path: the sum over the launches one draw makes (K1 once per eligible
+   conv layer, the flash kernels once per encoder layer); its "launches" is
+   the count from its path's pipeline run of phase 3.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -50,8 +58,10 @@ from asr_shap_torch.core.config import (
     MetricConfig,
     PipelineConfig,
     Wav2Vec2Config,
+    Wav2Vec2ConformerConfig,
 )
 from asr_shap_torch.core.device import highest_precision
+from asr_shap_torch.core.params_io import load_config, load_params
 from asr_shap_torch.core.store import AttributionStore, key_for
 from asr_shap_torch.explain.expected_gradients import expected_phi, sample_draws
 from asr_shap_torch.kernels import LAUNCHES, build_all, reset_launches
@@ -61,12 +71,27 @@ from asr_shap_torch.kernels import flash_attention as fa
 from asr_shap_torch.metrics.eta_raw import eta_raw
 from asr_shap_torch.metrics.wer import wer
 from asr_shap_torch.models.heads import make_explained_fn
+from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
 from asr_shap_torch.models.wav2vec2 import init_wav2vec2_params
+from asr_shap_torch.ops.attention import rel_shift
 from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
 
 N_SAMPLES = 48_000
 NSAMPLES = 4
 SEED = 0
+CONFORMER_ARCHIVE = "artifacts/params_synthetic_conformer.npz"
+# the kernels each path must launch, and the TPU kernel each one replaces
+BASE_KERNELS = ("conv_dgrad", "flash_fwd", "flash_dq", "flash_dkv")
+CONFORMER_KERNELS = ("conv_dgrad", "flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")
+ROUTES = {
+    "conv_dgrad": ("asr_shap_torch/csrc/conv_dgrad.cu", "asr_shap/kernels/conv_dgrad.py:150"),
+    "flash_fwd": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
+    "flash_dq": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
+    "flash_dkv": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
+    "flash_fwd_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
+    "flash_dq_dbias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
+    "flash_dkv_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
+}
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3 bandwidth.
 PEAK_F32 = 67e12
@@ -152,6 +177,34 @@ def flash_inputs(gen, b, h, t, d, v_rows, masked):
     return q, k, v, bias, g
 
 
+def rel_pos_bias(gen, q, masked):
+    """A [BH, T, T] full bias shaped like the conformer's: q . random
+    position projections over 2T-1 relative positions, rel-shifted and
+    scaled by D^-1/2; ``masked`` adds -1e9 on the last 29 keys."""
+    bh, t, d = q.shape
+    p_proj = torch.randn((2 * t - 1, bh, d), generator=gen, device="cuda")
+    bias = rel_shift(torch.einsum("bhtd,rhd->bhtr", q[None], p_proj))[0] * d ** -0.5
+    if masked:
+        bias[..., t - 29:] = -1e9
+    return bias.contiguous()
+
+
+def flash_costs(bh, n, t, d):
+    """(operations, bytes) of one launch of each flash kernel with a full
+    bias: each input read once, each output written once, the scores
+    counted once per residual row (the least the functions need)."""
+    return {
+        "flash_fwd_bias": (4.0 * bh * t * t * d,
+                           4.0 * (4 * bh * t * d + bh * t + bh * t * t)),
+        "flash_dq_dbias": (4.0 * n * t * t * d + 2.0 * bh * t * t * d,
+                           4.0 * (2 * n * t * d + n * t + n * t * t
+                                  + 4 * bh * t * d + bh * t + bh * t * t)),
+        "flash_dkv_bias": (6.0 * n * t * t * d + 2.0 * bh * t * t * d,
+                           4.0 * (3 * n * t * d + n * t + 3 * bh * t * d
+                                  + bh * t + bh * t * t)),
+    }
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_build():
@@ -203,8 +256,8 @@ def phase_checks(cfg: Wav2Vec2Config):
                     "float32 softmax over 149 keys, another summation order"))
         q, k, v, bias, g = flash_inputs(gen, 1, h, t, d, rows, masked)
         o, lse = fa.flash_fwd_plain(q, k, v, bias, h)
-        dq, dd = fa.flash_dq(q, k, v, o, lse, g, bias, h)
-        dq_p, dd_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
+        dq, dd, _ = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+        dq_p, dd_p, _ = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
         why_b = "float32 backward sums over 149 keys, another summation order"
         errs["flash_dq"] = max(errs["flash_dq"],
                                compare(f"flash_dq N={g.shape[0]} mask={masked}", dq, dq_p, 5e-5, 5e-4, why_b),
@@ -214,6 +267,46 @@ def phase_checks(cfg: Wav2Vec2Config):
         errs["flash_dkv"] = max(errs["flash_dkv"],
                                 compare(f"flash_dkv dk N={g.shape[0]} mask={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
                                 compare(f"flash_dkv dv N={g.shape[0]} mask={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
+    return errs
+
+
+def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig):
+    """K2f, K3b and K4f against their plain versions at the conformer
+    slice's shapes: BH = 16, T = 149, D = 64, N = 149 * 16 = 2,384."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = cfg.frames_for_samples(N_SAMPLES)
+    h, d, t = cfg.num_attention_heads, cfg.head_dim, rows
+    errs = {key: 0.0 for key in ("flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")}
+    why_f = "float32 softmax over 149 keys, another summation order"
+    why_b = "float32 backward sums over 149 keys, another summation order"
+    for masked in (False, True):
+        q, k, v, _, g = flash_inputs(gen, 1, h, t, d, rows, False)
+        bias = rel_pos_bias(gen, q, masked)
+        got, want = fa.flash_fwd(q, k, v, bias, h), fa.flash_fwd_plain(q, k, v, bias, h)
+        for name, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
+            errs["flash_fwd_bias"] = max(errs["flash_fwd_bias"], compare(
+                f"flash_fwd_bias {name} BH={h} T={t} masked={masked}", x, y, 2e-5, 2e-4,
+                why_f))
+        o, lse = want
+        dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+        dq_p, dd_p, dbias_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
+        n = g.shape[0]
+        errs["flash_dq_dbias"] = max(
+            errs["flash_dq_dbias"],
+            compare(f"flash_dq_dbias dq N={n} masked={masked}", dq, dq_p, 5e-5, 5e-4, why_b),
+            compare(f"flash_dq_dbias dd masked={masked}", dd, dd_p, 5e-5, 5e-4, why_b),
+            compare(f"flash_dq_dbias dbias [{n}, {t}, {t}] masked={masked}", dbias, dbias_p,
+                    5e-5, 5e-4, why_b))
+        if masked:
+            check(bool((dbias[..., t - 29:] == 0).all()), "dbias: masked keys not 0")
+        del dq, dd, dbias, dq_p, dbias_p
+        dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)
+        errs["flash_dkv_bias"] = max(
+            errs["flash_dkv_bias"],
+            compare(f"flash_dkv_bias dk N={n} masked={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
+            compare(f"flash_dkv_bias dv N={n} masked={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
+        del q, k, v, g, bias, dk, dv, dk_p, dv_p
     return errs
 
 
@@ -236,15 +329,17 @@ def make_test_set():
     ]
 
 
-def phase_pipeline(cfg: PipelineConfig, params, test_set, data_dir):
-    store = AttributionStore(data_dir)
+def phase_pipeline(label: str, cfg: PipelineConfig, params, test_set, expect):
+    """Drive one path through run_shap_pipeline; every kernel in ``expect``
+    must have launched. Returns the launch counts of the run."""
+    store = AttributionStore(cfg.data_dir)
     reset_launches()
     t0 = time.perf_counter()
     results = run_shap_pipeline(params, cfg, test_set, store=store, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    log(f"pipeline: {len(results)} samples x {NSAMPLES} draws in {wall:.2f} s; "
+    log(f"pipeline {label}: {len(results)} samples x {NSAMPLES} draws in {wall:.2f} s; "
         f"launches {json.dumps(launches)}")
     t_out = cfg.model.frames_for_samples(N_SAMPLES)
     check(len(results) == len(test_set), "pipeline: missing samples")
@@ -261,18 +356,18 @@ def phase_pipeline(cfg: PipelineConfig, params, test_set, data_dir):
         clean = sample["audio"] - sample["noise"]
         eta = float(eta_raw(torch.from_numpy(clean), torch.from_numpy(sample["noise"]),
                             torch.from_numpy(phi), MetricConfig(itm_variant="strict")))
-        log(f"sample {r['index']} {r['type']} snr={r['snr']}: "
+        log(f"sample {label} {r['index']} {r['type']} snr={r['snr']}: "
             f"transcript={r['transcription']!r} confidence={r['confidence']:.6f} "
             f"eta_raw_strict={eta:.6f} wer={wer(sample['text'], r['transcription']):.6f} "
             f"wall_s={r['wall_s']:.3f} phi_absmax={float(np.abs(phi).max()):.6e}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in expect:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {label} path")
     return launches
 
 
-def phase_reference(cfg: PipelineConfig, params, test_set):
-    """phi of one draw through the kernels vs through plain PyTorch on the
-    card at full width, and a narrow model on the card vs the CPU."""
+def reference_draw(label: str, cfg: PipelineConfig, params, test_set):
+    """phi of one full-width draw through the kernels vs the same draw
+    through plain PyTorch on the card."""
     ec = dataclasses.replace(cfg.explainer, nsamples=1)
     x = zero_mean_unit_var(torch.from_numpy(test_set[1]["audio"]).cuda())
     bg = 0.01 * torch.randn((ec.num_background, N_SAMPLES),
@@ -284,10 +379,16 @@ def phase_reference(cfg: PipelineConfig, params, test_set):
     phi_p = expected_phi(make_explained_fn(params, plain_cfg, ec), x, bg,
                          config=ec, draws=draws)
     scale = float(phi_p.abs().max())
-    compare("phi full width, kernels vs plain PyTorch (one draw)", phi_k, phi_p,
-            2e-3 * scale, 0.0, "2e-3 of max|phi|: float32 through 12 layers, "
-            "another summation order in every product")
+    compare(f"phi {label} full width, kernels vs plain PyTorch (one draw)", phi_k, phi_p,
+            2e-3 * scale, 0.0, f"2e-3 of max|phi|: float32 through "
+            f"{cfg.model.num_hidden_layers} layers, another summation order in every product")
 
+
+def phase_reference(cfg: PipelineConfig, params, test_set):
+    """The base path: one full-width draw, kernels vs plain PyTorch, and a
+    narrow model on the card vs the CPU."""
+    reference_draw("base", cfg, params, test_set)
+    ec = dataclasses.replace(cfg.explainer, nsamples=1)
     narrow = Wav2Vec2Config(hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
                             intermediate_size=128, conv_dim=(128, 128, 128),
                             conv_stride=(5, 2, 2), conv_kernel=(10, 3, 2),
@@ -306,6 +407,39 @@ def phase_reference(cfg: PipelineConfig, params, test_set):
             "another summation order on each device")
 
 
+def phase_reference_conformer(cfg: PipelineConfig, params, test_set, data_dir):
+    """The conformer slice: one full-width draw, kernels vs plain PyTorch;
+    and the trained archive (hidden 96, 3 heads of 32) switched to the
+    kernels, through run_shap_pipeline on the card and on the CPU: phi and
+    the greedy transcript."""
+    reference_draw("conformer", cfg, params, test_set)
+    model = dataclasses.replace(load_config(CONFORMER_ARCHIVE), attention_impl="pallas",
+                                conv_impl="pallas")
+    check(isinstance(model, Wav2Vec2ConformerConfig), "archive: not a conformer config")
+    ec = dataclasses.replace(cfg.explainer, nsamples=2)
+    clip = [dict(test_set[1], audio=test_set[1]["audio"][:16_000],
+                 noise=test_set[1]["noise"][:16_000])]
+    out = {}
+    for device in ("cpu", "cuda"):
+        pc = PipelineConfig(model=model, explainer=ec, seed=SEED,
+                            data_dir=f"{data_dir}/archive_{device}")
+        reset_launches()
+        out[device] = run_shap_pipeline(load_params(CONFORMER_ARCHIVE, device=device), pc,
+                                        clip, device=device)[0]
+        if device == "cuda":
+            for name in ("flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias"):
+                check(LAUNCHES[name] > 0, f"archive on the card: {name} not launched")
+    cpu, gpu = out["cpu"], out["cuda"]
+    log(f"archive transcripts: card {gpu['transcription']!r}, CPU {cpu['transcription']!r}; "
+        f"confidence card {gpu['confidence']:.7f} CPU {cpu['confidence']:.7f}")
+    check(gpu["transcription"] == cpu["transcription"], "archive: transcripts differ")
+    phi_cpu = torch.from_numpy(cpu["shap_values"])
+    compare("phi conformer archive (D=32 heads), card vs CPU",
+            torch.from_numpy(gpu["shap_values"]), phi_cpu,
+            2e-3 * float(phi_cpu.abs().max()), 0.0,
+            "2e-3 of max|phi|: float32, another summation order on each device")
+
+
 def _to_cuda(tree):
     if isinstance(tree, dict):
         return {k: _to_cuda(v) for k, v in tree.items()}
@@ -317,7 +451,7 @@ def _to_cuda(tree):
 PROFILE_GROUPS = (
     ("port kernels", ("dgrad_kernel", "flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")),
-    ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft")),
+    ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft", "depthwise")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
 )
 
@@ -362,7 +496,8 @@ def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> None:
         log(f"profile kernel {ms:9.3f} ms/draw {count:6.1f} calls/draw  {key[:100]}")
 
 
-def phase_timing(cfg: PipelineConfig, params, test_set, errs, launches):
+def phase_timing(cfg: PipelineConfig, params, test_set):
+    """The base path's kernels (K1-K4) and the base slice per draw."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     mc = cfg.model
     rows = mc.frames_for_samples(N_SAMPLES)
@@ -414,7 +549,7 @@ def phase_timing(cfg: PipelineConfig, params, test_set, errs, launches):
     # K3, K4: per draw, one launch each per encoder layer, 149 rows folded
     q, k, v, bias, g = flash_inputs(gen, 1, h, t, d, rows, False)
     o, lse = fa.flash_fwd(q, k, v, None, h)
-    _, dd = fa.flash_dq(q, k, v, o, lse, g, None, h)
+    _, dd, _ = fa.flash_dq(q, k, v, o, lse, g, None, h)
     n = g.shape[0]
     qe, ke, ve = (x.reshape(1, h, t, d).expand(rows, h, t, d).contiguous().requires_grad_()
                   for x in (q, k, v))
@@ -441,7 +576,15 @@ def phase_timing(cfg: PipelineConfig, params, test_set, errs, launches):
                          bound_by=b_by, library_ms=layers * lib_bwd)
     del qe, ke, ve, oe
 
-    # the slice per draw: sample 0's explainer, 3 draws after the pipeline run
+    time_slice("base", cfg, params, test_set, gen, out)
+    return out
+
+
+def time_slice(label: str, cfg: PipelineConfig, params, test_set, gen, out) -> None:
+    """Wall per draw of sample 0's explainer (3 draws after the pipeline
+    run), launches per draw and peak device memory; then the profile."""
+    mc = cfg.model
+    rows = mc.frames_for_samples(N_SAMPLES)
     x = zero_mean_unit_var(torch.from_numpy(test_set[0]["audio"]).cuda())
     bg = 0.01 * torch.randn((cfg.explainer.num_background, N_SAMPLES), device="cuda",
                             generator=gen)
@@ -455,31 +598,76 @@ def phase_timing(cfg: PipelineConfig, params, test_set, errs, launches):
     expected_phi(f, x, bg, config=ec, draws=draws)
     torch.cuda.synchronize()
     per_draw = (time.perf_counter() - t0) / 3
-    per_draw_launches = {kname: c / 3 for kname, c in LAUNCHES.items()}
-    log(f"slice: wall per draw {per_draw * 1e3:.1f} ms (3 draws, {N_SAMPLES} samples, "
-        f"T_out={rows}); launches per draw {json.dumps(per_draw_launches)}; "
+    per_draw_launches = {kname: c / 3 for kname, c in LAUNCHES.items() if c}
+    log(f"slice {label}: wall per draw {per_draw * 1e3:.1f} ms (3 draws, {N_SAMPLES} "
+        f"samples, T_out={rows}); launches per draw {json.dumps(per_draw_launches)}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     kernel_sum = sum(v["ms"] for v in out.values())
-    log(f"slice: the four kernels' time per draw {kernel_sum:.1f} ms "
+    log(f"slice {label}: its {len(out)} kernels' time per draw {kernel_sum:.1f} ms "
         f"({100 * kernel_sum / (per_draw * 1e3):.1f}% of the draw's wall)")
     profile_draws(f, x, bg, ec)
 
-    routes = {
-        "conv_dgrad": ("asr_shap_torch/csrc/conv_dgrad.cu", "asr_shap/kernels/conv_dgrad.py:150"),
-        "flash_fwd": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
-        "flash_dq": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
-        "flash_dkv": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
-    }
-    kernels = []
-    for name, (src, replaces) in routes.items():
-        row = out[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        })
-    return kernels
+
+def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
+    """K2f, K3b and K4f at the conformer slice's shapes, and the conformer
+    slice per draw. K1's shapes here are the base path's (the same seven
+    512-channel conv layers), so its row ``k1_row`` is timed once, there."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    mc = cfg.model
+    rows = mc.frames_for_samples(N_SAMPLES)
+    h, d, t = mc.num_attention_heads, mc.head_dim, rows
+    layers = mc.num_hidden_layers
+    q, k, v, _, g = flash_inputs(gen, 1, h, t, d, rows, False)
+    bias = rel_pos_bias(gen, q, False)
+    o, lse = fa.flash_fwd(q, k, v, bias, h)
+    _, dd, _ = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+    n = g.shape[0]
+    q4, k4, v4, b4 = (x.reshape(1, h, t, -1) for x in (q, k, v, bias))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4), 50)
+    # the yardstick of the backward: one SDPA forward and backward with a
+    # float mask that requires grad, over the 149 cotangent rows as a batch
+    qe, ke, ve = (x.expand(rows, h, t, d).contiguous().requires_grad_() for x in (q4, k4, v4))
+    be = b4.expand(rows, h, t, t).contiguous().requires_grad_()
+    g4 = g.reshape(rows, h, t, d)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be), (qe, ke, ve, be), g4), 10)
+    del qe, ke, ve, be
+    costs = flash_costs(h, n, t, d)
+    out = {}
+    for name, fn, pfn, iters, lms, lib_what in (
+        ("flash_fwd_bias", lambda: fa.flash_fwd(q, k, v, bias, h),
+         lambda: fa.flash_fwd_plain(q, k, v, bias, h), 50, lib_fwd,
+         "SDPA forward, float mask"),
+        ("flash_dq_dbias", lambda: fa.flash_dq(q, k, v, o, lse, g, bias, h),
+         lambda: fa.flash_dq_plain(q, k, v, o, lse, g, bias, h), 10, lib_bwd,
+         "SDPA forward+backward, dq+dk+dv+d(mask)"),
+        ("flash_dkv_bias", lambda: fa.flash_dkv(q, k, v, lse, g, dd, bias, h),
+         lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd, bias, h), 10, lib_bwd,
+         "SDPA forward+backward, dq+dk+dv+d(mask)"),
+    ):
+        ms = time_ms(fn, iters)
+        pms = time_ms(pfn, iters)
+        fl, nb = costs[name]
+        b_ms, b_by = bound(fl, nb)
+        log(f"timing {name} BH={h} N={n} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
+            f"library_ms({lib_what})={lms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"TFLOP/s={fl / ms / 1e9:.2f}")
+        out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
+                         bound_by=b_by, library_ms=layers * lms)
+    del q, k, v, g, bias, o, lse, dd
+    time_slice("conformer", cfg, params, test_set, gen, {**out, "conv_dgrad": k1_row})
+    return out
+
+
+def kernel_rows(out, errs, launches):
+    """The JSON line's entries: one per kernel, base path's first."""
+    return [{
+        "name": name, "route": "cuda", "source": ROUTES[name][0],
+        "replaces": ROUTES[name][1], "launches": launches[name],
+        "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    } for name, row in out.items()]
 
 
 def main() -> int:
@@ -489,20 +677,32 @@ def main() -> int:
         return 1
     phase_build()
     model = Wav2Vec2Config(attention_impl="pallas", conv_impl="pallas")
+    conformer = Wav2Vec2ConformerConfig(attention_impl="pallas", conv_impl="pallas")
+    explainer = ExplainerConfig(nsamples=NSAMPLES, method="grad", aggregation="max",
+                                draw_chunk=1, output_chunk=0, num_background=5)
     # TF32 off for matmuls and cuDNN convs: kernels, plain versions and
     # yardsticks all run in float32
     with highest_precision(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
         errs = phase_checks(model)
-        cfg = PipelineConfig(
-            model=model,
-            explainer=ExplainerConfig(nsamples=NSAMPLES, method="grad", aggregation="max",
-                                      draw_chunk=1, output_chunk=0, num_background=5),
-            data_dir=data_dir, seed=SEED)
-        params = init_wav2vec2_params(SEED, model, device="cuda")
+        errs.update(phase_checks_full_bias(conformer))
         test_set = make_test_set()
-        launches = phase_pipeline(cfg, params, test_set, data_dir)
+
+        cfg = PipelineConfig(model=model, explainer=explainer, seed=SEED,
+                             data_dir=f"{data_dir}/base")
+        params = init_wav2vec2_params(SEED, model, device="cuda")
+        launches = phase_pipeline("base", cfg, params, test_set, BASE_KERNELS)
         phase_reference(cfg, params, test_set)
-        kernels = phase_timing(cfg, params, test_set, errs, launches)
+        out = phase_timing(cfg, params, test_set)
+        del params
+
+        ccfg = PipelineConfig(model=conformer, explainer=explainer, seed=SEED,
+                              data_dir=f"{data_dir}/conformer")
+        cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
+        claunches = phase_pipeline("conformer", ccfg, cparams, test_set, CONFORMER_KERNELS)
+        phase_reference_conformer(ccfg, cparams, test_set, data_dir)
+        cout = phase_timing_conformer(ccfg, cparams, test_set, out["conv_dgrad"])
+        kernels = (kernel_rows(out, errs, launches)
+                   + kernel_rows(cout, errs, claunches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

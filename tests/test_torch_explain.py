@@ -19,18 +19,7 @@ from asr_shap_torch.core.params_io import params_from_jax
 from asr_shap_torch.explain.expected_gradients import expected_gradients
 from asr_shap_torch.kernels import LAUNCHES
 from asr_shap_torch.models.heads import make_explained_fn
-from torch_port_configs import narrow_config, port_cfg
-
-
-def _jax_draws(key, total, num_background):
-    """The reference's per-draw (background index, t): fold_in per global
-    draw, then split (expected_gradients.py:88-91, :109)."""
-    idx, ts = [], []
-    for i in range(total):
-        kb, kt = jax.random.split(jax.random.fold_in(key, i))
-        idx.append(int(jax.random.randint(kb, (), 0, num_background)))
-        ts.append(float(jax.random.uniform(kt, (), jnp.float32)))
-    return torch.tensor(idx), torch.tensor(ts, dtype=torch.float32)
+from torch_port_configs import jax_draws, narrow_config, port_cfg
 
 
 def test_phi_matches_reference_with_shared_draws(rng):
@@ -50,7 +39,7 @@ def test_phi_matches_reference_with_shared_draws(rng):
                           port_cfg(cfg), pec)
     before = dict(LAUNCHES)
     out = expected_gradients(f, torch.from_numpy(x), torch.from_numpy(bg),
-                             config=pec, draws=_jax_draws(key, 2, 3))
+                             config=pec, draws=jax_draws(key, 2, 3))
     assert LAUNCHES == before  # the CPU path never launches a kernel
     phi_ref = np.asarray(ref.values)
     assert out.values.shape == phi_ref.shape == (1600, cfg.frames_for_samples(1600))

@@ -133,6 +133,72 @@ def test_flash_vmapped_backward_matches_pallas(rng):
     np.testing.assert_allclose(jac.numpy(), np.asarray(ref), rtol=5e-4, atol=5e-5)
 
 
+def _full_bias(rng, shape, masked_keys=0):
+    """A random score bias; the last ``masked_keys`` keys of batch entry 0
+    get -1e9, as the conformer's rel + mask does on a padded clip."""
+    bias = rng.standard_normal(shape).astype(np.float32)
+    if masked_keys:
+        bias[0, ..., -masked_keys:] = -1e9
+    return bias
+
+
+# full score bias: forward rtol 2e-4 / atol 2e-5, gradients rtol 5e-4 /
+# atol 5e-5, the reference kernel tests' tolerances
+@pytest.mark.parametrize("kind", ["masked", "broadcast"])
+def test_flash_full_bias_matches_pallas(rng, kind):
+    """Forward and dq/dk/dv/d(bias) of a differentiable score bias: a
+    [B, H, T, T] bias with -1e9 entries on batch entry 0 (entry 1 is a
+    plain full bias), and a [1, H, T, T] bias whose cotangent must come
+    back in its own shape."""
+    b, h, t, d = 2, 2, 40, 32
+    q, k, v = _qkv(rng, b, h, t, d)
+    shape = (1, h, t, t) if kind == "broadcast" else (b, h, t, t)
+    bias = _full_bias(rng, shape, masked_keys=13 if kind == "masked" else 0)
+
+    def jloss(q_, k_, v_, b_):
+        o = jax_flash(q_, k_, v_, b_, interpret=True)
+        return jnp.sum(jnp.sin(o)), o
+
+    jargs = tuple(map(jnp.asarray, (q, k, v, bias)))
+    ref, ref_out = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3), has_aux=True))(*jargs)
+    tq, tk, tv, tb = (_t(a).requires_grad_() for a in (q, k, v, bias))
+    out = fa.flash_attention(tq, tk, tv, tb)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), rtol=2e-4, atol=2e-5)
+    torch.sin(out).sum().backward()
+    assert tb.grad.shape == bias.shape
+    for got, want in zip((tq.grad, tk.grad, tv.grad, tb.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4, atol=5e-5)
+    if kind == "masked":
+        assert torch.count_nonzero(tb.grad[0, ..., -13:]) == 0
+
+
+def test_flash_vmapped_backward_with_dbias_matches_pallas(rng):
+    """The explainer's batched VJP through a full bias: the cotangent rows
+    fold into the kernels' leading dim through FlashBackward's rule, and
+    d(bias) comes back with the vmapped axis first, [V, B, H, T, T].
+    Tolerance rtol 5e-4 / atol 5e-5, as the reference kernel tests."""
+    b, h, t, d = 1, 2, 40, 32
+    q, k, v = _qkv(rng, b, h, t, d)
+    bias = _full_bias(rng, (b, h, t, t), masked_keys=9)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+
+    @jax.jit  # one compiled program: the eager interpret path costs seconds
+    def jac_ref(x, b_):
+        jf = lambda x_, bb: jax_flash(jq + x_, jk, jv, bb, interpret=True).sum(axis=(0, 1, 3))
+        _, jvjp = jax.vjp(jf, x, b_)
+        return jax.vmap(jvjp)(jnp.eye(t))
+
+    ref = jac_ref(jnp.zeros_like(jq), jnp.asarray(bias))
+
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    f = lambda x, b_: fa.flash_attention(tq + x, tk, tv, b_).sum(dim=(0, 1, 3))
+    _, vjp_fn = torch.func.vjp(f, torch.zeros_like(tq), _t(bias))
+    jac = torch.func.vmap(vjp_fn)(torch.eye(t))
+    assert jac[1].shape == (t, b, h, t, t)
+    for got, want in zip(jac, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4, atol=5e-5)
+
+
 def test_flash_plain_kernels_fold_cotangent_rows(rng):
     """dq/dkv with V cotangents per residual row equal V separate calls."""
     bh, t, d, heads = 4, 33, 32, 2
@@ -141,11 +207,12 @@ def test_flash_plain_kernels_fold_cotangent_rows(rng):
     bias = _t(_mask(t, [t, 20]))[:, 0, 0, :]
     o, lse = fa.flash_fwd(q, k, v, bias, heads)
     g = _t(rng.standard_normal((3 * bh, t, d)))
-    dq, dd = fa.flash_dq(q, k, v, o, lse, g, bias, heads)
+    dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, heads)
+    assert dbias is None  # a mask has no d(bias) output
     dk, dv = fa.flash_dkv(q, k, v, lse, g, dd, bias, heads)
     for i in range(3):
         gi = g[i * bh:(i + 1) * bh]
-        dq_i, dd_i = fa.flash_dq(q, k, v, o, lse, gi, bias, heads)
+        dq_i, dd_i, _ = fa.flash_dq(q, k, v, o, lse, gi, bias, heads)
         dk_i, dv_i = fa.flash_dkv(q, k, v, lse, gi, dd_i, bias, heads)
         for got, want in ((dq, dq_i), (dk, dk_i), (dv, dv_i)):
             torch.testing.assert_close(got[i * bh:(i + 1) * bh], want)
@@ -213,5 +280,10 @@ def test_cpu_path_counts_no_launches(rng):
     q, k, v = (_t(a) for a in _qkv(rng, 1, 2, 16, 32))
     fa.flash_attention(q, k, v)
     assert LAUNCHES == before
-    with pytest.raises(NotImplementedError):  # K3b: full score bias not ported
-        fa.flash_attention(q, k, v, torch.zeros(1, 2, 16, 16))
+    # a full score bias runs its plain versions on the CPU, forward and
+    # backward with d(bias), and counts no launch either
+    q.requires_grad_()
+    bias = _t(rng.standard_normal((1, 2, 16, 16))).requires_grad_()
+    fa.flash_attention(q, k, v, bias).sum().backward()
+    assert bias.grad.shape == bias.shape and torch.isfinite(bias.grad).all()
+    assert LAUNCHES == before

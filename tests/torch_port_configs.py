@@ -1,10 +1,16 @@
-"""Configurations shared by the port's parity tests (tests/test_torch_*.py).
-Imported by module name: pytest puts this directory on sys.path for the
-test modules beside it."""
+"""Configurations and helpers shared by the port's parity tests
+(tests/test_torch_*.py). Imported by module name: pytest puts this
+directory on sys.path for the test modules beside it."""
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
 from asr_shap.core.config import Wav2Vec2Config as JaxWav2Vec2Config
+from asr_shap.core.config import Wav2Vec2ConformerConfig as JaxWav2Vec2ConformerConfig
 from asr_shap_torch.core import config as port_config
 
 
@@ -19,6 +25,36 @@ def narrow_config(**kw):
         attention_impl="pallas", conv_impl="pallas", **kw)
 
 
+def narrow_conformer_config(**kw):
+    """The rel-pos conformer at narrow widths: 2 layers, 2 heads of 32,
+    conv widths of 128 (the dgrad kernel's Function is on the path), conv
+    bias, layer-norm feature encoder, depthwise kernel 7, kernel impls."""
+    return JaxWav2Vec2ConformerConfig(**{
+        **dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+               intermediate_size=128, conv_dim=(128, 128, 128), conv_stride=(5, 2, 2),
+               conv_kernel=(10, 3, 2), feat_proj_dim=128, conv_depthwise_kernel_size=7,
+               attention_impl="pallas", conv_impl="pallas"),
+        **kw})
+
+
 def port_cfg(cfg):
-    """The port's twin of a reference Wav2Vec2Config."""
-    return port_config.Wav2Vec2Config(**dataclasses.asdict(cfg))
+    """The port's twin of a reference model config (same class name)."""
+    return getattr(port_config, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+def jax_draws(key, total, num_background):
+    """The reference's per-draw (background index, t): fold_in per global
+    draw, then split (asr_shap/explain/expected_gradients.py:88-91, :109),
+    as tensors the port's explainer takes. One jitted program: the same
+    values as the reference's per-draw calls."""
+
+    @jax.jit
+    def draws(k):
+        kb, kt = jax.vmap(lambda i: jax.random.split(jax.random.fold_in(k, i)))(
+            jnp.arange(total)).T
+        return (jax.vmap(lambda kk: jax.random.randint(kk, (), 0, num_background))(kb),
+                jax.vmap(lambda kk: jax.random.uniform(kk, (), jnp.float32))(kt))
+
+    idx, ts = draws(key)
+    return (torch.from_numpy(np.array(idx, np.int64)),
+            torch.from_numpy(np.array(ts, np.float32)))
