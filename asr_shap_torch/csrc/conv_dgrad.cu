@@ -9,141 +9,251 @@
 // ybar [B, T_out, C_out], w [K, C_in, C_out], xbar [B, T_in, C_in], float32.
 // Every row t < T_in is written (rows no tap reaches are zero).
 //
-// Bound on the H100: float32 FMA throughput. Per call it does
-// 2*B*T_out*K*C_in*C_out operations on (B*T_out*C_out + B*T_in*C_in)*4 bytes,
-// far above the card's float32 operations-per-byte balance. Design: a tiled
-// SIMT GEMM. A block owns 128 output rows (b, v) of one phase r and 128 input
-// channels; the reduction runs over (tap d, C_out) in steps of 8. Each thread
-// keeps an 8x8 tile of sums in registers (two 4-row by two 4-channel
-// sub-tiles, so its operands come from shared memory as 16-byte loads).
-// Shared memory is double-buffered: the next step's operands are loaded
-// from device memory into registers and stored to the other buffer while
-// the current step computes, one barrier per step. The halo rows v - d are
-// read straight from device memory, out-of-range rows are loaded as zeros,
-// and the phase interleave is the store address.
+// Bound on the H100: tensor-core operations. Per phase r the sum is a GEMM
+// with M = B*V rows (b, v), N = C_in and a reduction over (tap d, C_out),
+// A = the ybar rows and B = w[k] as [C_in, C_out], both K-major. Per call it
+// does 2*B*T_out*K*C_in*C_out operations on (B*T_out*C_out + B*T_in*C_in)*4
+// bytes. The products run on the tensor cores in 3xTF32: each operand x is
+// split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and the sum takes
+// lo*hi + hi*lo, then hi*hi (lo*lo is dropped). The tensor cores round
+// their float32 sums toward zero, so each 8-wide step's three products
+// start from a zero partial sum, which a float32 add (round to nearest)
+// then adds to the running sum: on the card this keeps the result as close
+// to float64 as a float32 sum (chip_smoke.py checks it against float64
+// beside the float32 plain version). Three TF32 products per float32
+// product make the bound 3 * ops / 495 TFLOP/s: 13.2 ms per draw of the
+// Wav2Vec2 feature encoder (149 cotangent rows, C = 512), against 32.5 ms
+// for float32 FMAs.
+//
+// Design: mma.sync.m16n8k8 TF32 with register fragments. A block owns 128
+// rows (b, v) of one phase r and 128 input channels; its four warps each own
+// a 64 x 64 tile of sums in registers. The blocks of one row tile (all
+// channel tiles and phases) are launched next to each other, so its ybar
+// rows come from device memory about once and from L2 after. The reduction
+// runs in steps of 32 over (d, C_out) through a 3-stage ring of
+// shared-memory tiles filled by 16-byte cp.async copies; a halo row v - d outside [0, T_out), or a row
+// past B*V, arrives as the copy's zero fill. Tiles span clips, as the rows
+// (b, v) run on: only the last tile of a phase has rows to spare. Tiles are
+// stored with their 16-byte chunks XOR-swizzled by row, so the fragment
+// loads are free of bank conflicts. The hi/lo split is done in registers on
+// each fragment with integer rounding (bit-identical to cvt.rna.tf32.f32).
+// The three products of one partial sum depend on each other, so they are
+// issued pass by pass over 4 partials, not back to back.
+// Sums are stored from registers at the phase-interleaved address, in
+// 16-byte stores after a swap between neighbouring lanes.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;  // output rows (b, v) per block
-constexpr int BN = 128;  // input channels per block
-constexpr int BK = 8;    // reduction step over C_out
-constexpr int THREADS = 256;
+constexpr int BM = 128;     // output rows (b, v) per block
+constexpr int BN = 128;     // input channels per block
+constexpr int BK = 32;      // reduction step over C_out
+constexpr int STAGES = 3;   // shared-memory ring
+constexpr int THREADS = 128;
+constexpr int WM = 64, WN = 64;  // warp tile: warps 2 x 2
+constexpr int MI = WM / 16, NI = WN / 8;
+constexpr int TILE_FLOATS = BM * BK;  // one operand tile (BM == BN)
+constexpr size_t SMEM_BYTES = (size_t)STAGES * 2 * TILE_FLOATS * sizeof(float);
 
-__global__ void __launch_bounds__(THREADS)
+// Offset of (row, col) in a [rows][BK] tile whose 16-byte chunks are
+// XOR-swizzled by the row's low three bits.
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * BK + ((((col >> 2) ^ row) & 7) << 2) + (col & 3);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool valid) {
+  const int n = valid ? 16 : 0;  // 0 bytes read: the 16 bytes are zero filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+// Round to TF32 (10 mantissa bits), to nearest with ties away from zero:
+// the same bits as cvt.rna.tf32.f32, on the integer pipe.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 dgrad_kernel(const float* __restrict__ ybar, const float* __restrict__ w,
              float* __restrict__ xbar, int B, int T_out, int T_in, int C_out,
              int C_in, int K, int S, int V) {
-  __shared__ __align__(16) float As[2][BK][BM];  // ybar rows, transposed
-  __shared__ __align__(16) float Bs[2][BK][BN];  // w[k] rows, transposed
+  extern __shared__ __align__(16) float smem[];  // [STAGES][A tile, B tile]
+  __shared__ int2 rows_bv[BM];  // (b * T_out, v) of each A row; v < 0: no row
 
-  const int r = blockIdx.z;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  // The blocks of one row tile (every channel tile and phase) are
+  // consecutive, so they run together and read its ybar rows from L2.
+  const int per_tile = (C_in / BN) * S;
+  const long long m0 = (long long)(blockIdx.x / per_tile) * BM;
+  const int r = blockIdx.x % per_tile / (C_in / BN);
+  const int n0 = blockIdx.x % (C_in / BN) * BN;
   const long long M = (long long)B * V;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // channels tx*4 + {0..3} and 64 + tx*4 + {0..3}
-  const int ty = tid / 16;  // rows     ty*4 + {0..3} and 64 + ty*4 + {0..3}
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * WM, wn = (warp & 1) * WN;
 
-  // Loader: each thread moves one float4 of A and one of B per step; two
-  // neighbouring threads cover the 32 contiguous bytes of one row.
-  const int lrow = tid >> 1;       // 0..127
-  const int lcol = (tid & 1) * 4;  // 0 or 4
-  const long long am = m0 + lrow;
-  const bool arow_ok = am < M;
-  const int ab = arow_ok ? (int)(am / V) : 0;
-  const int av = arow_ok ? (int)(am % V) : 0;
+  for (int i = tid; i < BM; i += THREADS) {
+    const long long m = m0 + i;
+    rows_bv[i] = m < M ? make_int2((int)(m / V) * T_out, (int)(m % V))
+                       : make_int2(0, -(1 << 30));
+  }
+  __syncthreads();
+
+  // Loader: thread tid moves chunk (tid & 7) of rows (tid >> 3) + 16 * i.
+  constexpr int LROWS = BM * (BK / 4) / THREADS;  // 8 rows per thread
+  const int lchunk = tid & 7;
+  const int lrow0 = tid >> 3;
 
   const int ntaps = r < K ? (K - 1 - r) / S + 1 : 0;
   const int steps_per_tap = C_out / BK;
   const int nsteps = ntaps * steps_per_tap;
+  const uint32_t smem0 = (uint32_t)__cvta_generic_to_shared(smem);
 
-  float4 a_next = make_float4(0.f, 0.f, 0.f, 0.f), b_next = a_next;
-  auto load = [&](int step) {
+  auto load = [&](int step, int slot) {
     const int d = step / steps_per_tap;
-    const int co0 = (step % steps_per_tap) * BK;
+    const int co0 = (step % steps_per_tap) * BK + lchunk * 4;
     const int k = d * S + r;
-    const int u = av - d;
-    a_next = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (arow_ok && u >= 0 && u < T_out) {
-      a_next = *reinterpret_cast<const float4*>(
-          ybar + ((long long)ab * T_out + u) * C_out + co0 + lcol);
+    const uint32_t a_s = smem0 + (uint32_t)(slot * 2 * TILE_FLOATS) * 4u;
+    const uint32_t b_s = a_s + (uint32_t)TILE_FLOATS * 4u;
+#pragma unroll
+    for (int i = 0; i < LROWS; ++i) {
+      const int row = lrow0 + 16 * i;
+      const int2 bv = rows_bv[row];
+      const int u = bv.y - d;
+      const bool ok = u >= 0 && u < T_out;
+      const float* src = ok ? ybar + ((long long)bv.x + u) * C_out + co0 : ybar;
+      cp_async16(a_s + (uint32_t)swz(row, lchunk * 4) * 4u, src, ok);
+      cp_async16(b_s + (uint32_t)swz(row, lchunk * 4) * 4u,
+                 w + ((long long)k * C_in + n0 + row) * C_out + co0, true);
     }
-    b_next = *reinterpret_cast<const float4*>(
-        w + ((long long)k * C_in + n0 + lrow) * C_out + co0 + lcol);
-  };
-  auto store = [&](int buf) {
-    As[buf][lcol + 0][lrow] = a_next.x;
-    As[buf][lcol + 1][lrow] = a_next.y;
-    As[buf][lcol + 2][lrow] = a_next.z;
-    As[buf][lcol + 3][lrow] = a_next.w;
-    Bs[buf][lcol + 0][lrow] = b_next.x;
-    Bs[buf][lcol + 1][lrow] = b_next.y;
-    Bs[buf][lcol + 2][lrow] = b_next.z;
-    Bs[buf][lcol + 3][lrow] = b_next.w;
   };
 
-  float acc[8][8];
+  float acc[MI][NI][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
-  if (nsteps > 0) {
-    load(0);
-    store(0);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nsteps) load(s, s);
+    asm volatile("cp.async.commit_group;\n" ::);
   }
-  __syncthreads();
+
   for (int step = 0; step < nsteps; ++step) {
-    const int cur = step & 1;
-    if (step + 1 < nsteps) load(step + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    if (step + 1 < nsteps) store(cur ^ 1);
-    __syncthreads();
-  }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+    __syncthreads();  // the tile of `step` is in; every warp is done with step - 1
+    const int next = step + STAGES - 1;
+    if (next < nsteps) load(next, next % STAGES);
+    asm volatile("cp.async.commit_group;\n" ::);
 
+    const float* As = smem + (step % STAGES) * 2 * TILE_FLOATS;
+    const float* Bs = As + TILE_FLOATS;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-    const int b = (int)(m / V);
-    const int t = (int)(m % V) * S + r;
-    if (t >= T_in) continue;
-    float* out = xbar + ((long long)b * T_in + t) * C_in + n0;
-    *reinterpret_cast<float4*>(out + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(out + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ahi[MI][4], alo[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int row = wm + i * 16 + g;
+        split(As[swz(row, kk + t)], ahi[i][0], alo[i][0]);
+        split(As[swz(row + 8, kk + t)], ahi[i][1], alo[i][1]);
+        split(As[swz(row, kk + t + 4)], ahi[i][2], alo[i][2]);
+        split(As[swz(row + 8, kk + t + 4)], ahi[i][3], alo[i][3]);
+      }
+      // One channel tile at a time: its three products for this 8-wide step
+      // go into a partial sum that starts at zero, pass by pass over the MI
+      // partials (an mma waits for the last one on its accumulator), and
+      // the partial is then added to the sum with a float32 add. The tensor
+      // cores round their sum toward zero, so adding small products to the
+      // large running sum inside the mma would lose part of each of them,
+      // always in the same direction.
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        uint32_t bhi[2], blo[2];
+        const int col = wn + j * 8 + g;
+        split(Bs[swz(col, kk + t)], bhi[0], blo[0]);
+        split(Bs[swz(col, kk + t + 4)], bhi[1], blo[1]);
+        float part[MI][4] = {};
+#pragma unroll
+        for (int i = 0; i < MI; ++i) mma_tf32(part[i], alo[i], bhi[0], bhi[1]);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) mma_tf32(part[i], ahi[i], blo[0], blo[1]);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) mma_tf32(part[i], ahi[i], bhi[0], bhi[1]);
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][c];
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  // Epilogue. Lane t holds rows g and g + 8, channels 2t and 2t + 1 of each
+  // 8-channel tile; neighbouring lanes swap halves so that an even lane
+  // stores 4 channels of row g and an odd lane 4 channels of row g + 8.
+  const bool odd = t & 1;
+  const int ccol = wn + 2 * (t & ~1);
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const long long m = m0 + wm + i * 16 + g + (odd ? 8 : 0);
+    float* out = nullptr;
+    if (m < M) {
+      const int b = (int)(m / V);
+      const int tt = (int)(m % V) * S + r;
+      if (tt < T_in) out = xbar + ((long long)b * T_in + tt) * C_in + n0 + ccol;
+    }
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const float* c = acc[i][j];
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+      if (out != nullptr) {
+        *reinterpret_cast<float4*>(out + j * 8) =
+            odd ? make_float4(r0, r1, c[2], c[3]) : make_float4(c[0], c[1], r0, r1);
+      }
+    }
   }
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). ybar, w and xbar must
-// be 16-byte aligned; C_in a multiple of 128 and C_out of 8.
+// be 16-byte aligned; C_in and C_out multiples of 128.
 extern "C" int conv1d_dgrad_f32(const float* ybar, const float* w, float* xbar,
                                 int B, int T_out, int T_in, int C_out, int C_in,
                                 int K, int S, void* stream) {
   if (C_in % BN != 0 || C_out % BK != 0 || S < 1 || K < 1 || B < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
   const int V = (T_in + S - 1) / S;
   const long long M = (long long)B * V;
-  dim3 grid((unsigned)((M + BM - 1) / BM), C_in / BN, S);
-  dgrad_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  const long long blocks = (M + BM - 1) / BM * (C_in / BN) * S;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dgrad_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       ybar, w, xbar, B, T_out, T_in, C_out, C_in, K, S, V);
   return (int)cudaGetLastError();
 }

@@ -25,20 +25,27 @@
 //     dbias [N, T, T], one plane per cotangent row.
 // Bias entries of -1e9 (padded keys) give probabilities of exactly 0.
 //
-// Bound on the H100: float32 FMA throughput. Per residual row pair the
-// backward does 14*T*T*D operations on O(T*D) bytes (T = 149, D = 64 on the
-// main path), so operations bound it; the forward is a few MFLOP and is
-// bound by its launch. Design: one block of 256 threads per (row n, 64-row
-// tile) of the blocked axis, a loop over 64-row tiles of the other axis
-// inside the block (the TPU's sequential grid axis has no Hopper
-// counterpart). Scores and probabilities live in registers (4x4 per thread)
-// and, where a second product needs them in another thread, in shared
-// memory; they never reach device memory. The forward uses the online
-// softmax. The dq kernel also computes dd = rowsum(g * o) for its rows and
-// writes it for the dk/dv kernel, which runs after it on the same stream.
+// Bound on the H100: float32 FMA throughput for the backward. Per residual
+// row pair it does 14*T*T*D operations on O(T*D) bytes (T = 149, D = 64 on
+// the main path), so operations bound it. Design of K3/K4: one block of 256
+// threads per (row n, 64-row tile) of the blocked axis, a loop over 64-row
+// tiles of the other axis inside the block (the TPU's sequential grid axis
+// has no Hopper counterpart). Scores and probabilities live in registers
+// (4x4 per thread) and, where a second product needs them in another
+// thread, in shared memory; they never reach device memory. The dq kernel
+// also computes dd = rowsum(g * o) for its rows and writes it for the dk/dv
+// kernel, which runs after it on the same stream.
 //
-// Full bias: K2f and K3b read bias[res, q, k] straight from device memory,
-// 16 neighbouring keys per half warp. K3b stores each ds tile once, from
+// The forward (K2, K2f) is a few MFLOP per launch (about 1 us of the card's
+// float32 rate), so its time is latency: loading the head's K and V, and
+// the chain of products and the softmax within one warp. Its design (see
+// the K2 section) keeps the whole key row in shared memory, runs both
+// products on the tensor cores in 3xTF32 and splits each 16 query rows'
+// keys over eight warps, so that each warp's chain is an eighth as long.
+//
+// Full bias: K3b reads bias[res, q, k] straight from device memory, 16
+// neighbouring keys per half warp (K2f reads its lanes' entries into
+// registers while its keys load). K3b stores each ds tile once, from
 // registers, in the same pattern: its N * T * T floats of d(bias) are the
 // one output that is not O(T * D), 212 MB per launch on the conformer path,
 // 0.06 ms of the card's memory rate against 0.2 ms of operations. K4f walks
@@ -48,13 +55,13 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int TILE = 64;
 constexpr int LD = TILE + 1;  // padded leading dimension: no bank conflicts
 constexpr int THREADS = 256;
-constexpr float NEG = -1e30f;
 
 // Copy rows [row0, row0 + 64) of a row-major [T, D] matrix into a transposed
 // shared tile dst[d * LD + row], scaled; rows past T are zero.
@@ -66,12 +73,6 @@ __device__ __forceinline__ void load_t(float* dst, const float* src, int row0,
     const int t = row0 + row;
     dst[d * LD + row] = t < T ? src[(long long)t * D + d] * scale : 0.f;
   }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
 }
 
 __device__ __forceinline__ float half_warp_sum(float x) {
@@ -97,106 +98,294 @@ __device__ __forceinline__ float bias_at(const float* b, int row, int col, int T
 }
 
 // ------------------------------------------------------------------ K2
+//
+// The TPU kernel takes the whole padded key row of K and V at once and runs
+// a single-pass softmax; so does this one. A block holds the head's keys and
+// values in shared memory (up to FWD_CHUNK = 192 rows at a time, loaded with
+// 16-byte cp.async copies, rows past T zero filled), and its query rows,
+// copied the same way. Each 16 query rows of the block belong to
+// FWD_SPLITS = 8 warps, and each of those warps takes an eighth of the key
+// tiles: the chain of dependent work a warp runs (Q.K^T over its keys, the
+// exponentials, P.V) is an eighth of the row's, which is what sets the
+// time of a launch this small. A full bias is
+// read into registers while the keys are on their way. Q.K^T and P.V run on
+// the tensor cores in 3xTF32 (mma.sync.m16n8k8, hi/lo split in registers,
+// as K1); the three products of a group of accumulators are issued pass by
+// pass, so no mma waits on the one before. Unlike K1's, the sums here are
+// short (8 steps over D, at most 3 key tiles per warp and chunk), so they
+// accumulate in the mma itself: its rounding toward zero costs a few ulp,
+// well inside the checks' tolerance. A warp's scores stay in registers: its row max and sum come
+// from the four lanes of a quad, and P feeds P.V from the registers it was
+// computed in, because the score tile's accumulator layout equals the
+// A-fragment layout once the keys of each 8-key step are taken in the order
+// 0, 2, 4, 6, 1, 3, 5, 7 (the V fragments are read in the same order). The
+// warps of a row group then meet in shared memory: with each warp's row max
+// m_w, sum l_w and unnormalised O_w, o = sum_w e^(m_w - M) O_w / L and
+// lse = M + log L, where M = max_w m_w and L = sum_w e^(m_w - M) l_w. A row
+// longer than FWD_CHUNK keys (not on the main path, where T = 149 fits one
+// chunk) is walked in chunks with the online rescale between them. The
+// block's row count is the caller's: 16 or 32.
+
+constexpr int FWD_KT = 24;      // 8-key tiles per chunk
+constexpr int FWD_CHUNK = 8 * FWD_KT;
+constexpr int FWD_SPLITS = 8;   // warps per 16 query rows
+constexpr int FWD_MAX_GROUPS = 2;  // 16-row groups per block
+constexpr int FWD_MAX_THREADS = 32 * FWD_SPLITS * FWD_MAX_GROUPS;
+
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  // cvt.rna.tf32.f32's bits (nearest, ties away from zero), on the integer pipe
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows [row0, row0 + rows) of a row-major [T, D] matrix into shared rows of
+// stride D + 4 floats, 16 bytes per copy; rows past T are zero filled.
+template <int D>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src, int row0, int rows,
+                                        int T) {
+  constexpr int CH = D / 4;
+  const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(dst);
+  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+    const int row = idx / CH, c = idx % CH;
+    const bool ok = row0 + row < T;
+    const float* p = ok ? src + (long long)(row0 + row) * D + c * 4 : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     s0 + (uint32_t)(row * (D + 4) + c * 4) * 4u),
+                 "l"(p), "r"(ok ? 16 : 0));
+  }
+}
+
+// Shared memory of one launch: K and V of a chunk, the block's q rows, then
+// each warp's partial O [16][D + 4], row max [16] and row sum [16].
+template <int D>
+__host__ __device__ constexpr int fwd_part_floats() { return 16 * (D + 4) + 32; }
+
+template <int D>
+__host__ __device__ constexpr size_t fwd_smem_bytes(int groups) {
+  return ((size_t)2 * FWD_CHUNK * (D + 4) + (size_t)groups * 16 * (D + 4) +
+          (size_t)groups * FWD_SPLITS * fwd_part_floats<D>()) * sizeof(float);
+}
+
 template <int D, bool FULL>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ bias,
                  float* __restrict__ o, float* __restrict__ lse, int T, int H,
                  float scale) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* qT = smem;           // [D][LD]
-  float* kT = qT + D * LD;    // [D][LD]
-  float* vT = kT + D * LD;    // [D][LD]
-  float* ps = vT + D * LD;    // [TILE][LD]
+  constexpr int LDS = D + 4;  // shared row stride: conflict-free fragments
+  constexpr int KS = D / 8;   // 8-wide steps over D (4 or 8)
+  constexpr int CHUNK = FWD_CHUNK;
+  constexpr int SPLITS = FWD_SPLITS;
+  constexpr int KTW = FWD_KT / SPLITS;  // key tiles of one warp per chunk
+  static_assert(FWD_KT % SPLITS == 0, "key tiles split evenly over the warps");
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;               // [CHUNK][LDS]
+  float* vs = ks + CHUNK * LDS;   // [CHUNK][LDS]
+  const int groups = blockDim.x / (32 * SPLITS);
+  float* qs = vs + CHUNK * LDS;   // [groups * 16][LDS]
+  float* parts = qs + groups * 16 * LDS;
 
   const int n = blockIdx.x;
-  const int q0 = blockIdx.y * TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = warp / SPLITS, split = warp % SPLITS;
+  const int q0 = (blockIdx.y * groups + grp) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + g;  // this lane's rows: r0 and r0 + 8
   const long long base = (long long)n * T * D;
   const float* brow = bias_base<FULL>(bias, n, H, T);
+  const float* bias_r0 = FULL ? brow + (long long)min(r0, T - 1) * T : brow;
+  const float* bias_r1 = FULL ? brow + (long long)min(r0 + 8, T - 1) * T : brow;
 
-  load_t<D>(qT, q + base, q0, T, scale);
-  float m_i[4], l_i[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+  // the block's q rows arrive with the first chunk's keys
+  cp_rows<D>(qs, q + base, blockIdx.y * groups * 16, groups * 16, T);
+  float qa[KS][4];  // A fragments of the group's scaled q rows
 
-  for (int kv0 = 0; kv0 < T; kv0 += TILE) {
-    __syncthreads();
-    load_t<D>(kT, k + base, kv0, T, 1.f);
-    load_t<D>(vT, v + base, kv0, T, 1.f);
-    __syncthreads();
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  float acc[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
-    float s[4][4];
+  for (int kv0 = 0; kv0 < T; kv0 += CHUNK) {
+    const int rows = min(CHUNK, (T - kv0 + 7) & ~7);
+    const int nt = rows / 8;
+    const int j0 = split * KTW;  // this warp's first key tile
+    if (kv0 > 0) __syncthreads();  // every warp is done with the last chunk
+    cp_rows<D>(ks, k + base, kv0, rows, T);
+    asm volatile("cp.async.commit_group;\n" ::);
+    cp_rows<D>(vs, v + base, kv0, rows, T);
+    asm volatile("cp.async.commit_group;\n" ::);
+    // this warp's bias (or -inf past T), read while the copies run
+    float bb[KTW][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int jj = 0; jj < KTW; ++jj)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
+      for (int c = 0; c < 4; ++c) {
+        const int col = kv0 + (j0 + jj) * 8 + 2 * t + (c & 1);
+        const float* b = (c >> 1) ? bias_r1 : bias_r0;
+        bb[jj][c] = col >= T ? -INFINITY : b == nullptr ? 0.f : b[col];
+      }
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();  // keys (and q) in; values may still be on their way
+    if (kv0 == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qT[d * LD + ty + 16 * i];
+      for (int st = 0; st < KS; ++st)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = kT[d * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int c = 0; c < 4; ++c)
+          qa[st][c] = qs[(grp * 16 + g + (c & 1) * 8) * LDS + st * 8 + t + (c >> 1) * 4] * scale;
     }
+
+    // scores s[jj]: rows g, g + 8 x keys 8(j0 + jj) + 2t, + 1
+    float s[KTW][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = kv0 + tx + 16 * j;
+    for (int jj = 0; jj < KTW; ++jj)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = min(q0 + ty + 16 * i, T - 1);  // rows past T are dropped
-        s[i][j] = col < T ? s[i][j] + bias_at<FULL>(brow, row, col, T) : NEG;
+      for (int c = 0; c < 4; ++c) s[jj][c] = 0.f;
+#pragma unroll
+    for (int st = 0; st < KS; ++st) {
+      uint32_t ahi[4], alo[4], bh[KTW][2], bl[KTW][2];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) split_tf32(qa[st][c], ahi[c], alo[c]);
+#pragma unroll
+      for (int jj = 0; jj < KTW; ++jj) {
+        const float* kr = ks + ((j0 + jj) * 8 + g) * LDS + st * 8 + t;
+        if (j0 + jj < nt) {
+          split_tf32(kr[0], bh[jj][0], bl[jj][0]);
+          split_tf32(kr[4], bh[jj][1], bl[jj][1]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < KTW; ++jj)
+        if (j0 + jj < nt) mma_tf32(s[jj], alo, bh[jj][0], bh[jj][1]);
+#pragma unroll
+      for (int jj = 0; jj < KTW; ++jj)
+        if (j0 + jj < nt) mma_tf32(s[jj], ahi, bl[jj][0], bl[jj][1]);
+#pragma unroll
+      for (int jj = 0; jj < KTW; ++jj)
+        if (j0 + jj < nt) mma_tf32(s[jj], ahi, bh[jj][0], bh[jj][1]);
+    }
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jj = 0; jj < KTW; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float x = j0 + jj < nt ? s[jj][c] + bb[jj][c] : -INFINITY;
+        s[jj][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
     }
+    // a warp whose keys all lie past T keeps m = -inf and adds nothing
+    float rs[2] = {0.f, 0.f}, alpha[2], m_use[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * LD + tx + 16 * j] = p;
-        rs += p;
-      }
-      l_i[i] = l_i[i] * alpha + half_warp_sum(rs);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_i[h], quad_max(mx[h]));
+      m_use[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = expf(m_i[h] - m_use[h]);
+      m_i[h] = m_new;
     }
-    __syncthreads();
-    for (int jj = 0; jj < TILE; ++jj) {
-      float pv[4], vv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * LD + jj];
+    for (int jj = 0; jj < KTW; ++jj)
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = vT[(tx + 16 * c) * LD + jj];
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[jj][c] - m_use[c >> 1]);  // exp(-inf) = 0
+        s[jj][c] = p;
+        rs[c >> 1] += p;
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int h = 0; h < 2; ++h) l_i[h] = l_i[h] * alpha[h] + quad_sum(rs[h]);
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    for (int jd = 0; jd < KS; ++jd)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[jd][c] *= alpha[c >> 1];
+
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();  // values in
+    // P.V: the k index t of an 8-key step is key 2t, index t + 4 key 2t + 1
+#pragma unroll
+    for (int jj = 0; jj < KTW; ++jj) {
+      if (j0 + jj < nt) {
+        uint32_t ahi[4], alo[4];
+        const float pa[4] = {s[jj][0], s[jj][2], s[jj][1], s[jj][3]};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split_tf32(pa[c], ahi[c], alo[c]);
+        const float* vr = vs + ((j0 + jj) * 8 + 2 * t) * LDS + g;
+#pragma unroll
+        for (int d0 = 0; d0 < KS; d0 += 4) {  // 4 accumulators per pass
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            split_tf32(vr[(d0 + i) * 8], bh[i][0], bl[i][0]);
+            split_tf32(vr[LDS + (d0 + i) * 8], bh[i][1], bl[i][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], alo, bh[i][0], bh[i][1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], ahi, bl[i][0], bl[i][1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], ahi, bh[i][0], bh[i][1]);
+        }
+      }
     }
   }
 
+  // the row group's warps meet: partial O, row max and row sum of each
+  float* mine = parts + warp * fwd_part_floats<D>();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= T) continue;
-    const float inv = 1.f / l_i[i];
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[base + (long long)t * D + tx + 16 * c] = acc[i][c] * inv;
-    if (tx == 0) lse[(long long)n * T + t] = m_i[i] + logf(l_i[i]);
+    for (int jd = 0; jd < KS; ++jd)
+      *reinterpret_cast<float2*>(mine + (g + 8 * h) * LDS + jd * 8 + 2 * t) =
+          make_float2(acc[jd][2 * h], acc[jd][2 * h + 1]);
+    if (t == 0) {
+      mine[16 * LDS + g + 8 * h] = m_i[h];
+      mine[16 * LDS + 16 + g + 8 * h] = l_i[h];
+    }
+  }
+  __syncthreads();
+  const float* grp_parts = parts + grp * SPLITS * fwd_part_floats<D>();
+  for (int idx = split * 32 + lane; idx < 16 * D; idx += 32 * SPLITS) {
+    const int row = idx / D, col = idx % D;
+    if (q0 + row >= T) break;  // idx only grows: later rows are past T too
+    float mw[SPLITS], m_all = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < SPLITS; ++w) {
+      mw[w] = grp_parts[w * fwd_part_floats<D>() + 16 * LDS + row];
+      m_all = fmaxf(m_all, mw[w]);
+    }
+    float l_all = 0.f, o_all = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPLITS; ++w) {
+      const float* pw = grp_parts + w * fwd_part_floats<D>();
+      const float e = expf(mw[w] - m_all);  // 0 for a warp with no key
+      l_all += e * pw[16 * LDS + 16 + row];
+      o_all += e * pw[row * LDS + col];
+    }
+    o[base + (long long)(q0 + row) * D + col] = o_all / l_all;
+    if (col == 0) lse[(long long)n * T + q0 + row] = m_all + logf(l_all);
   }
 }
 
@@ -458,33 +647,40 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Raise the kernel's dynamic shared-memory limit to `smem` bytes. Each
+// launcher keeps its own `ready` flag, so this runs once per kernel.
 template <typename Kernel>
-int launch_prep(Kernel kernel, size_t smem) {
+int launch_prep(Kernel kernel, size_t smem, bool& ready) {
+  if (ready) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  ready = err == cudaSuccess;
   return (int)err;
 }
 
 template <int D, bool FULL>
 int fwd_launch(const float* q, const float* k, const float* v, const float* bias,
-               float* o, float* lse, int BH, int T, int H, float scale,
+               float* o, float* lse, int BH, int T, int H, int groups, float scale,
                cudaStream_t stream) {
-  dim3 grid(BH, (T + TILE - 1) / TILE);
-  const size_t smem = (size_t)(3 * D * LD + TILE * LD) * sizeof(float);
-  int err = launch_prep(flash_fwd_kernel<D, FULL>, smem);
+  dim3 grid(BH, (T + 16 * groups - 1) / (16 * groups));
+  static bool ready = false;
+  int err = launch_prep(flash_fwd_kernel<D, FULL>, fwd_smem_bytes<D>(FWD_MAX_GROUPS), ready);
   if (err) return err;
-  flash_fwd_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, bias, o, lse, T, H, scale);
+  flash_fwd_kernel<D, FULL><<<grid, 32 * FWD_SPLITS * groups, fwd_smem_bytes<D>(groups),
+                              stream>>>(q, k, v, bias, o, lse, T, H, scale);
   return (int)cudaGetLastError();
 }
 
 template <bool FULL>
 int fwd(const float* q, const float* k, const float* v, const float* bias,
-        float* o, float* lse, int BH, int T, int D, int H, float scale,
+        float* o, float* lse, int BH, int T, int D, int H, int rows, float scale,
         void* stream) {
   if (BH < 1 || T < 1 || (FULL && bias == nullptr)) return (int)cudaErrorInvalidValue;
+  if (rows != 16 && rows != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64) return fwd_launch<64, FULL>(q, k, v, bias, o, lse, BH, T, H, scale, st);
-  if (D == 32) return fwd_launch<32, FULL>(q, k, v, bias, o, lse, BH, T, H, scale, st);
+  const int groups = rows / 16;
+  if (D == 64) return fwd_launch<64, FULL>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
+  if (D == 32) return fwd_launch<32, FULL>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -495,7 +691,8 @@ int dq_launch(const float* q, const float* k, const float* v, const float* o,
               cudaStream_t stream) {
   dim3 grid(N, (T + TILE - 1) / TILE);
   const size_t smem = (size_t)(4 * D * LD + TILE * LD) * sizeof(float);
-  int err = launch_prep(flash_dq_kernel<D, FULL>, smem);
+  static bool ready = false;
+  int err = launch_prep(flash_dq_kernel<D, FULL>, smem, ready);
   if (err) return err;
   flash_dq_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, g, bias, dq, dd, dbias, T, H, BH, scale);
   return (int)cudaGetLastError();
@@ -520,7 +717,8 @@ int dkv_launch(const float* q, const float* k, const float* v, const float* lse,
                cudaStream_t stream) {
   dim3 grid(N, (T + TILE - 1) / TILE);
   const size_t smem = (size_t)(4 * D * LD + 2 * TILE * LD + 2 * TILE) * sizeof(float);
-  int err = launch_prep(flash_dkv_kernel<D, FULL>, smem);
+  static bool ready = false;
+  int err = launch_prep(flash_dkv_kernel<D, FULL>, smem, ready);
   if (err) return err;
   flash_dkv_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, scale);
   return (int)cudaGetLastError();
@@ -542,18 +740,20 @@ int dkv(const float* q, const float* k, const float* v, const float* lse,
 
 // Each entry point returns the CUDA error of its launch (0 on success).
 // D must be 32 or 64. bias: null or a [B, T] key mask for K2-K4, a [BH, T, T]
-// full score bias for the *_bias / *_dbias entry points.
+// full score bias for the *_bias / *_dbias entry points. The forward's
+// `rows` is its query rows per block: 16 or 32.
 
 extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
                              const float* bias, float* o, float* lse, int BH,
-                             int T, int D, int H, float scale, void* stream) {
-  return fwd<false>(q, k, v, bias, o, lse, BH, T, D, H, scale, stream);
+                             int T, int D, int H, int rows, float scale, void* stream) {
+  return fwd<false>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
 }
 
 extern "C" int flash_fwd_bias_f32(const float* q, const float* k, const float* v,
                                   const float* bias, float* o, float* lse, int BH,
-                                  int T, int D, int H, float scale, void* stream) {
-  return fwd<true>(q, k, v, bias, o, lse, BH, T, D, H, scale, stream);
+                                  int T, int D, int H, int rows, float scale,
+                                  void* stream) {
+  return fwd<true>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
 }
 
 extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,

@@ -17,7 +17,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,6 +38,10 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# The current stream's handle as an int, without building a torch.cuda.Stream
+# (CUDA builds of torch have it; the CPU build never launches).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def reset_launches() -> None:
@@ -105,15 +111,27 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def c_function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+def c_function(lib_name: str, fn_name: str,
+               argtypes: Sequence[type]) -> ctypes._CFuncPtr:
     """``fn_name`` of library ``lib_name`` (built and loaded first if
-    needed), declared to take ``argtypes`` and return the int CUDA error."""
+    needed), declared to take ``argtypes`` and return the int CUDA error.
+    Resolved once: later calls return the cached entry point."""
+    fn = _entries.get((lib_name, fn_name))
+    if fn is not None:
+        return fn
     lib = _loaded.get(lib_name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all([lib_name])[lib_name]))
         _loaded[lib_name] = lib
     fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    _entries[(lib_name, fn_name)] = fn
     return fn
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on the CUDA device of ``t``."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -10,12 +10,23 @@ Replaces the Pallas TPU kernel ``asr_shap/kernels/conv_dgrad.py``
 over the taps d with ``d*s + r < K`` and ``0 <= v - d < T_out``; rows with
 no valid tap are zero. On Wav2Vec2's feature encoder (C = 512,
 (K, s) in {(3, 2), (2, 2)}) with the explainer's T_out cotangent rows folded
-into the batch it is a float32 GEMM of 2*B*T_out*K*C_in*C_out operations
-over a few bytes per operation, so the card's float32 FMA rate bounds it.
-The kernel is a shared-memory tiled SIMT GEMM: one block per
-(128 output rows, 128 input channels, phase r), each thread an 8x8
-register tile; it reads the halo rows ``v - d`` straight from device memory
-and masks the edges, and the phase interleave is its store address.
+into the batch it is a GEMM per phase r of 2*B*T_out*K*C_in*C_out operations
+in all over a few bytes per operation, so operations bound it. The kernel
+runs them on the tensor cores in 3xTF32: each operand is split into
+``hi, lo = tf32_split(x)`` and the sum takes lo*hi + hi*lo, then hi*hi.
+Each 8-wide step's products start from a zero partial sum that a float32
+add then takes into the running sum, since the tensor cores round their
+sums toward zero; so the result keeps float32's accuracy
+(``tests/test_torch_kernels.py`` holds an emulation of the split to
+float64; ``chip_smoke.py`` holds the kernel to float64 on the card, beside
+the float32 plain version). Its bound is then three TF32
+products per float32 product at the card's 495 TFLOP/s TF32 rate, 13.2 ms
+per draw of the base path, against 32.5 ms for float32 FMAs. Design:
+``mma.sync`` m16n8k8 TF32 with the split in registers, one block per
+(128 rows (b, v), 128 input channels, phase r), a 3-stage ring of
+shared-memory tiles filled by ``cp.async``, whose zero fill supplies the
+halo rows ``v - d`` outside the clip; the phase interleave is the store
+address (see the source note).
 
 The forward of the eligible layers stays ``F.conv1d``, as the reference
 leaves it to ``lax.conv``. ``ConvDgrad`` carries a ``vmap`` rule that folds
@@ -27,6 +38,7 @@ batched tensor, so the rule is what makes the batched VJP possible.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +68,23 @@ def conv1d_dgrad_plain(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
     return xbar
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: the rounding the kernels apply to each operand of a
+    tensor-core product, bit for bit that of ``cvt.rna.tf32.f32``
+    (``(bits + 0x1000) & ~0x1FFF`` on the float32 bits)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32_round(x) and lo = tf32_round(x - hi): the
+    kernels' 3xTF32 operands, whose products lo*hi + hi*lo + hi*hi stand for
+    one float32 product (lo*lo is dropped)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
 def _check(ybar: torch.Tensor, kernel: torch.Tensor, stride: int, t_in: int):
     if ybar.ndim != 3 or kernel.ndim != 3:
         raise ValueError("conv1d_dgrad: ybar [B, T_out, C_out] and kernel "
@@ -68,6 +97,9 @@ def _check(ybar: torch.Tensor, kernel: torch.Tensor, stride: int, t_in: int):
                          f"from T_in={t_in}, K={k_taps}, stride={stride}")
     if ybar.device != kernel.device:
         raise ValueError("conv1d_dgrad: ybar and kernel on different devices")
+
+
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 
 def conv1d_dgrad(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
@@ -96,11 +128,9 @@ def conv1d_dgrad(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
     out = torch.empty((b, t_in, c_in), device=ybar.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    fn = _build.c_function("conv_dgrad", "conv1d_dgrad_f32",
-                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn = _build.c_function("conv_dgrad", "conv1d_dgrad_f32", _ARGTYPES)
     rc = fn(ybar.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t_out, t_in,
-            c_out, c_in, k_taps, stride,
-            torch.cuda.current_stream(ybar.device).cuda_stream)
+            c_out, c_in, k_taps, stride, _build.stream_of(ybar))
     if rc != 0:
         raise RuntimeError(f"conv1d_dgrad: kernel launch failed (CUDA error {rc})")
     _build.LAUNCHES["conv_dgrad"] += 1

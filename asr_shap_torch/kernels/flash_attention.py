@@ -17,6 +17,12 @@ vmapped cotangent rows into the batch, so K3 and K4 see about 1,800
 14*T*T*D operations per pair on O(T*D) bytes, so the card's float32 FMA
 rate bounds them. Each kernel keeps its scores and probabilities in
 registers and shared memory, never in device memory (see the source note).
+The forward is a few MFLOP per launch, so its time is latency: K2 holds the
+head's whole key row in shared memory, runs a single-pass softmax and both
+products on the tensor cores in 3xTF32 (the rounding of
+``conv_dgrad.tf32_split``), 16 or 32 query rows per block and
+the keys of each 16 rows split over eight warps, whose partial softmax
+sums meet in shared memory; ``fwd_block_rows`` picks the rows per block.
 The forward residuals (q, k, v, o, lse) are stored once; cotangent row n
 reads residual row ``n % (B*H)``, so folding the rows in copies nothing.
 
@@ -36,6 +42,22 @@ from asr_shap_torch.kernels import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# each entry point's C signature (csrc/flash_attention.cu)
+_ARGTYPES = {
+    "flash_fwd_f32": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "flash_fwd_bias_f32": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "flash_dq_f32": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    "flash_dq_dbias_f32": (_P,) * 10 + (_I,) * 5 + (_F, _P),
+    "flash_dkv_f32": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    "flash_dkv_bias_f32": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+}
+# K2's query rows per block: 16 or 32 (the keys of each 16 rows are split
+# over 8 warps). The fewest rows whose grid still fits one wave on the
+# card's SMs was the fastest on the H100 (PERF.md): 16 for BH = 12,
+# T = 149; 32 for BH = 16.
+FWD_ROWS = (16, 32)
+_sm_count: dict = {}
 
 
 # ------------------------------------------------------------ plain versions
@@ -112,51 +134,54 @@ def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
     n = bh if g is None else g.shape[0]
     if bh % heads or n % bh:
         raise ValueError(f"flash attention: BH={bh}, N={n} and H={heads} do not divide")
-    expected = {"k": (k, (bh, t, d)), "v": (v, (bh, t, d)), "o": (o, (bh, t, d)),
-                "lse": (lse, (bh, t)), "g": (g, (n, t, d)), "dd": (dd, (n, t)),
-                "bias": (bias, (bh, t, t) if _is_full(bias) else (bh // heads, t))}
-    tensors = [q]
-    for name, (x, shape) in expected.items():
+    # is_cuda and get_device() are the cheap queries: this runs per launch
+    cuda = q.is_cuda
+    if not cuda and q.device.type != "cpu":
+        raise ValueError(f"flash attention: unsupported device {q.device}")
+    dev = q.get_device()
+    for name, x, shape in (
+            ("q", q, (bh, t, d)), ("k", k, (bh, t, d)), ("v", v, (bh, t, d)),
+            ("o", o, (bh, t, d)), ("lse", lse, (bh, t)), ("g", g, (n, t, d)),
+            ("dd", dd, (n, t)),
+            ("bias", bias, (bh, t, t) if _is_full(bias) else (bh // heads, t))):
         if x is None:
             continue
-        if tuple(x.shape) != shape:
+        if x.shape != shape:
             raise ValueError(f"flash attention: {name} has shape {tuple(x.shape)}, "
                              f"expected {shape}")
-        if x.device != q.device:
+        if (x.is_cuda != cuda or x.get_device() != dev) if cuda else x.device != q.device:
             raise ValueError("flash attention: tensors on different devices")
-        tensors.append(x)
-    if q.device.type == "cpu":
-        return True
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: unsupported device {q.device}")
-    for x in tensors:
-        if x.dtype != torch.float32:
+        if cuda and x.dtype != torch.float32:
             raise NotImplementedError("flash attention: the CUDA kernels take "
                                       "float32 only (bf16 is not ported yet)")
-        if not x.is_contiguous():
+        if cuda and not x.is_contiguous():
             raise ValueError("flash attention: contiguous tensors expected")
-    if d not in (32, 64):
+    if cuda and d not in (32, 64):
         raise ValueError(f"flash attention: head dim {d} not in (32, 64)")
-    return False
+    return not cuda
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _launch(name: str, counter: str, ptrs, ints, scale: float, stream: int) -> None:
-    """Call entry point ``name`` of the flash library and count the launch
-    under ``counter``; raise on a CUDA error."""
-    fn = _build.c_function("flash_attention", name,
-                           [_P] * len(ptrs) + [_I] * len(ints) + [ctypes.c_float, _P])
-    rc = fn(*ptrs, *ints, scale, stream)
+def _launch(name: str, counter: str, *args) -> None:
+    """Call entry point ``name`` of the flash library (resolved once) with
+    ``args`` and count the launch under ``counter``; raise on a CUDA error."""
+    rc = _build.c_function("flash_attention", name, _ARGTYPES[name])(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
     _build.LAUNCHES[counter] += 1
+
+
+def fwd_block_rows(q: torch.Tensor) -> int:
+    """K2's rows per block for q [BH, T, D] on its card: 16 if BH x
+    ceil(T / 16) blocks fit one wave of its SMs, else 32."""
+    dev = q.get_device()
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 16 if q.shape[0] * -(-q.shape[1] // 16) <= sms else 32
 
 
 def flash_fwd(q, k, v, bias, heads):
@@ -164,13 +189,20 @@ def flash_fwd(q, k, v, bias, heads):
     [BH, T, T] -> (o, lse [BH, T])."""
     if _check(q, k, v, bias, heads):
         return flash_fwd_plain(q, k, v, bias, heads)
+    return _fwd_launch(q, k, v, bias, heads, fwd_block_rows(q))
+
+
+def _fwd_launch(q, k, v, bias, heads, rows: int):
+    """Launch K2 (K2f) on checked CUDA inputs with ``rows`` (16 or 32) query
+    rows per block."""
     bh, t, d = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((bh, t), device=q.device, dtype=torch.float32)
+    lse = q.new_empty((bh, t))
     name, counter = (("flash_fwd_bias_f32", "flash_fwd_bias") if _is_full(bias)
                      else ("flash_fwd_f32", "flash_fwd"))
-    _launch(name, counter, [_ptr(x) for x in (q, k, v, bias, o, lse)],
-            [bh, t, d, heads], d ** -0.5, _stream(q))
+    _launch(name, counter, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            o.data_ptr(), lse.data_ptr(), bh, t, d, heads, rows, d ** -0.5,
+            _build.stream_of(q))
     return o, lse
 
 
@@ -188,11 +220,11 @@ def flash_dq(q, k, v, o, lse, g, bias, heads):
     dbias = None
     if _is_full(bias):
         dbias = torch.empty((n, t, t), device=g.device, dtype=torch.float32)
-        _launch("flash_dq_dbias_f32", "flash_dq_dbias", ptrs + [_ptr(dbias)],
-                [n, bh, t, d, heads], d ** -0.5, _stream(q))
+        _launch("flash_dq_dbias_f32", "flash_dq_dbias", *ptrs, dbias.data_ptr(),
+                n, bh, t, d, heads, d ** -0.5, _build.stream_of(q))
     else:
-        _launch("flash_dq_f32", "flash_dq", ptrs, [n, bh, t, d, heads], d ** -0.5,
-                _stream(q))
+        _launch("flash_dq_f32", "flash_dq", *ptrs, n, bh, t, d, heads, d ** -0.5,
+                _build.stream_of(q))
     return dq, dd, dbias
 
 
@@ -207,8 +239,8 @@ def flash_dkv(q, k, v, lse, g, dd, bias, heads):
     dv = torch.empty_like(g)
     name, counter = (("flash_dkv_bias_f32", "flash_dkv_bias") if _is_full(bias)
                      else ("flash_dkv_f32", "flash_dkv"))
-    _launch(name, counter, [_ptr(x) for x in (q, k, v, lse, g, dd, bias, dk, dv)],
-            [n, bh, t, d, heads], d ** -0.5, _stream(q))
+    _launch(name, counter, *[_ptr(x) for x in (q, k, v, lse, g, dd, bias, dk, dv)],
+            n, bh, t, d, heads, d ** -0.5, _build.stream_of(q))
     return dk, dv
 
 

@@ -15,7 +15,9 @@ own lines:
    asr_shap_torch/csrc with nvcc, one process per source, all at once;
 2. hold each kernel against its plain PyTorch version on the card, float32,
    at its path's shapes, with the tolerance stated beside it (the full-bias
-   kernels with a rel-pos-like bias, and with the same bias masked);
+   kernels with a rel-pos-like bias, and with the same bias masked; the
+   flash forward also at 100 and 500 keys; K1 and its plain version also
+   against float64);
 3. drive each path: run_shap_pipeline on a 48,000-sample clip and its 5 dB
    white-noise mix, 4 expected-gradients draws each, with the launch counts
    set to 0 just before and read just after; check phi, the store and the
@@ -27,12 +29,17 @@ own lines:
    archive artifacts/params_synthetic_conformer.npz through the pipeline,
    phi and transcript);
 5. time each kernel with CUDA events beside its bound, its plain version and
-   one library call; time each path per draw, with its peak device memory,
-   then profile two more draws (torch.profiler: device busy share, time by
-   kernel group). A kernel's times in the JSON line are per draw of its
-   path: the sum over the launches one draw makes (K1 once per eligible
-   conv layer, the flash kernels once per encoder layer); its "launches" is
-   the count from its path's pipeline run of phase 3.
+   one library call (K2 and K2f also by device time under torch.profiler,
+   and at 16 and 32 query rows per block); time each path per draw,
+   with its peak device memory, then profile two more draws (torch.profiler:
+   device busy share, time by kernel group). A kernel's times in the JSON
+   line are per draw of its path: the sum over the launches one draw makes
+   (K1 once per eligible conv layer, the flash kernels once per encoder
+   layer); its "launches" is the count from its path's pipeline run of
+   phase 3. K1 and the flash forward (K2, K2f) run on the tensor cores in
+   3xTF32, so their bound is three TF32 products per float32 product at
+   the TF32 peak, or their bytes ("operations (3xTF32)" or "bytes"); the
+   log gives their float32 FMA bound beside it.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -93,9 +100,14 @@ ROUTES = {
     "flash_dkv_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
 }
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# the host-clocked times of the flash forward and its yardsticks are one
+# mean of 50 calls each (the JSON line's); the least of this many such
+# means is logged beside them, as host time varies on a shared host
+HOST_REPEATS = 5
 
 
 def log(msg: str) -> None:
@@ -116,17 +128,55 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def bound_3xtf32(flops: float, nbytes: float):
+    """The bound of a GEMM run in 3xTF32: three TF32 products per float32
+    product at the tensor cores' TF32 peak, or the bytes."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations (3xTF32)") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ms(fn, iters: int, warmup: int = 2, repeats: int = 1) -> float:
+    """Mean time per call of ``iters`` calls between two CUDA events; with
+    ``repeats`` > 1 the least of that many such means (for calls whose time
+    is the host's, which varies from run to run on a shared host)."""
     for _ in range(warmup):
         fn()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def device_ms(fn, kernel: str, iters: int = 50, tries: int = 3) -> float:
+    """Device time per launch of the kernels whose name holds ``kernel``,
+    from torch.profiler over ``iters`` calls of ``fn`` after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+                total += e.self_device_time_total
+                count += e.count
+        # the profiler may drop some of its window's device records:
+        # average what it saw, and profile again if it saw under half
+        if count >= iters // 2:
+            return total / count / 1e3
+        log(f"profiler saw {count} launches of {kernel} of {iters}; profiling again")
+    raise CheckFailed(f"profiler saw under half the launches of {kernel} in {tries} tries")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -223,29 +273,92 @@ def phase_build():
     return smi
 
 
+def k1_float64_check(gen, b, k, s, ci, co, ti, to) -> dict:
+    """K1 and its float32 plain version against the plain version in
+    float64, at one main-path shape: the accuracy of 3xTF32 on the card's
+    tensor cores beside float32's. Each is held to K1's tolerance, and K1
+    to at most twice the plain version's error."""
+    ybar, w = k1_inputs(gen, b, k, ci, co, to)
+    want = k1.conv1d_dgrad_plain(ybar.double(), w.double(), s, ti)
+    errs = {}
+    for key, got in (("kernel", k1.conv1d_dgrad(ybar, w, s, ti)),
+                     ("plain", k1.conv1d_dgrad_plain(ybar, w, s, ti))):
+        errs[key] = compare(f"conv_dgrad B={b} K={k} s={s} T_out={to}: {key} (float32) "
+                            f"vs float64", got.double(), want, 5e-4, 1e-4,
+                            "K1's tolerance, against the exact sum")
+        del got
+    log(f"conv_dgrad vs float64: kernel {errs['kernel']:.3e}, float32 plain "
+        f"{errs['plain']:.3e} (ratio {errs['kernel'] / errs['plain']:.2f})")
+    # as the CPU test holds the 3xTF32 emulation: at most 2x float32's error
+    check(errs["kernel"] <= 2 * errs["plain"],
+          "conv_dgrad: 3xTF32 error over 2x float32's against float64")
+    return errs
+
+
+def check_fwd_lengths(gen, h: int, d: int, full: bool) -> float:
+    """K2 (``full``: K2f) at both block heights against its plain version at
+    T = 100 (one partial chunk; some warps hold no key) and T = 500 (three
+    chunks of keys, so the online rescale runs), with the first 200 keys
+    and the last 29 masked to -1e9 (for the full bias, on every other query
+    row): a row's first chunk is all masked, so its rescale factor is 0."""
+    err = 0.0
+    name = "flash_fwd_bias" if full else "flash_fwd"
+    for t in (100, 500):
+        q, k, v, bias, _ = flash_inputs(gen, 1, h, t, d, 1, not full)
+        if full:
+            bias = rel_pos_bias(gen, q, True)
+            bias[:, ::2, :200] = -1e9
+        else:
+            bias[:, :200] = -1e9
+        want = fa.flash_fwd_plain(q, k, v, bias, h)
+        for rows in fa.FWD_ROWS:
+            fa._check(q, k, v, bias, h)
+            got = fa._fwd_launch(q, k, v, bias, h, rows)
+            for part, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
+                err = max(err, compare(
+                    f"{name} {part} BH={h} T={t} rows/block={rows} masked", x, y, 2e-5, 2e-4,
+                    f"float32 softmax over {t} keys, another summation order"))
+    return err
+
+
 def phase_checks(cfg: Wav2Vec2Config):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {}
     rows = cfg.frames_for_samples(N_SAMPLES)  # 149 cotangent rows per draw
-    why = "float32 sums of up to 1,536 products, another summation order"
-    k_err = 0.0
+    why = ("3xTF32 products summed in float32 over up to 1,024 terms against "
+           "float32 FMAs, another summation order")
+    k_err = k_err_scaled = 0.0
     shapes = k1_main_shapes(cfg, rows)
-    cases = [(rows, k, s, ci, co, ti, to) for (k, s, ci, co, ti, to) in
-             (shapes[0], shapes[-1])]
-    cases += [(5, 3, 2, 512, 512, 1000, 499),    # ragged rows, a trailing zero row
-              (4, 5, 3, 256, 128, 802, 266)]     # non-dividing K/s, C_in != C_out
-    for b, k, s, ci, co, ti, to in cases:
+    # every main-path layer shape; the first again with ybar at 1e3 scale,
+    # so that the lo parts of the 3xTF32 split carry weight
+    cases = [(rows, k, s, ci, co, ti, to, 1.0) for (k, s, ci, co, ti, to) in shapes]
+    cases += [(rows,) + shapes[0] + (1e3,),
+              (5, 3, 2, 512, 512, 1000, 499, 1.0),    # ragged rows, a trailing zero row
+              (4, 5, 3, 256, 128, 802, 266, 1.0)]     # non-dividing K/s, C_in != C_out
+    for b, k, s, ci, co, ti, to, scale in cases:
         ybar, w = k1_inputs(gen, b, k, ci, co, to)
+        ybar *= scale
         got = k1.conv1d_dgrad(ybar, w, s, ti)
         want = k1.conv1d_dgrad_plain(ybar, w, s, ti)
-        k_err = max(k_err, compare(f"conv_dgrad B={b} K={k} s={s} C={ci}x{co} "
-                                   f"T_out={to}", got, want, 5e-4, 1e-4, why))
+        err = compare(f"conv_dgrad B={b} K={k} s={s} C={ci}x{co} T_out={to} "
+                      f"ybar scale {scale:g}", got, want, 5e-4 * scale, 1e-4,
+                      why + ("" if scale == 1 else "; atol scaled with ybar"))
+        if scale == 1:
+            k_err = max(k_err, err)
+        k_err_scaled = max(k_err_scaled, err / scale)
         del ybar, w, got, want
     errs["conv_dgrad"] = k_err
+    f64 = k1_float64_check(gen, rows, *shapes[0])
+    # the JSON line's extra fields for K1: the largest error over ybar's
+    # scale (the 1e3 case's included), and both float32 errors vs float64
+    extra = {"conv_dgrad": {"max_abs_err_over_scale": k_err_scaled,
+                            "err_vs_float64": f64["kernel"],
+                            "plain_err_vs_float64": f64["plain"]}}
 
     h, d, t = cfg.num_attention_heads, cfg.head_dim, rows
     for key in ("flash_fwd", "flash_dq", "flash_dkv"):
         errs[key] = 0.0
+    errs["flash_fwd"] = check_fwd_lengths(gen, h, d, False)
     for masked in (False, True):
         for b in (1, 5):
             q, k, v, bias, _ = flash_inputs(gen, b, h, t, d, 1, masked)
@@ -267,7 +380,7 @@ def phase_checks(cfg: Wav2Vec2Config):
         errs["flash_dkv"] = max(errs["flash_dkv"],
                                 compare(f"flash_dkv dk N={g.shape[0]} mask={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
                                 compare(f"flash_dkv dv N={g.shape[0]} mask={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
-    return errs
+    return errs, extra
 
 
 def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig):
@@ -277,6 +390,7 @@ def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig):
     rows = cfg.frames_for_samples(N_SAMPLES)
     h, d, t = cfg.num_attention_heads, cfg.head_dim, rows
     errs = {key: 0.0 for key in ("flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")}
+    errs["flash_fwd_bias"] = check_fwd_lengths(gen, h, d, True)
     why_f = "float32 softmax over 149 keys, another summation order"
     why_b = "float32 backward sums over 149 keys, another summation order"
     for masked in (False, True):
@@ -379,9 +493,11 @@ def reference_draw(label: str, cfg: PipelineConfig, params, test_set):
     phi_p = expected_phi(make_explained_fn(params, plain_cfg, ec), x, bg,
                          config=ec, draws=draws)
     scale = float(phi_p.abs().max())
-    compare(f"phi {label} full width, kernels vs plain PyTorch (one draw)", phi_k, phi_p,
-            2e-3 * scale, 0.0, f"2e-3 of max|phi|: float32 through "
-            f"{cfg.model.num_hidden_layers} layers, another summation order in every product")
+    err = compare(f"phi {label} full width, kernels vs plain PyTorch (one draw)", phi_k,
+                  phi_p, 2e-3 * scale, 0.0, f"2e-3 of max|phi|: float32 through "
+                  f"{cfg.model.num_hidden_layers} layers, another summation order in "
+                  f"every product")
+    log(f"phi {label}: max_abs_err / max|phi| = {err / scale:.3e} (max|phi| {scale:.6e})")
 
 
 def phase_reference(cfg: PipelineConfig, params, test_set):
@@ -519,32 +635,40 @@ def phase_timing(cfg: PipelineConfig, params, test_set):
             y_nct, x_nct, w_oik, None, [s], [0], [1], False, [0], 1,
             [True, False, False]), iters)
         fl, nb = k1_cost(rows, k, s, ci, co, ti, to)
-        b_ms, b_by = bound(fl, nb)
+        b_ms, b_by = bound_3xtf32(fl, nb)
         log(f"timing conv_dgrad B={rows} K={k} s={s} T_out={to}: ms={ms:.4f} "
             f"plain_ms={pms:.4f} library_ms={lms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"TFLOP/s={fl / ms / 1e9:.2f}")
+            f"fma_bound_ms={bound(fl, nb)[0]:.4f} TFLOP/s={fl / ms / 1e9:.2f}")
         for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
                          ("flops", fl), ("bytes", nb)):
             tot[key] += val
         del ybar, w, x_nct, y_nct, w_oik
-    b_ms, b_by = bound(tot["flops"], tot["bytes"])
+    b_ms, b_by = bound_3xtf32(tot["flops"], tot["bytes"])
+    log(f"timing conv_dgrad per draw: ms={tot['ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+        f"fma_bound_ms={bound(tot['flops'], tot['bytes'])[0]:.4f}")
     out["conv_dgrad"] = dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
-                             bound_by=b_by, library_ms=tot["library_ms"])
+                             bound_by=b_by, library_ms=tot["library_ms"], device_ms=None)
 
     # K2: per draw, one launch per encoder layer at B*H = 12
+    # host-clocked times first: a torch.profiler session leaves later
+    # launches a few microseconds slower on the host
     q, k, v, bias, _ = flash_inputs(gen, 1, h, t, d, 1, False)
-    ms = time_ms(lambda: fa.flash_fwd(q, k, v, None, h), 50)
-    pms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, None, h), 50)
+    ms, ms_best = host_ms(lambda: fa.flash_fwd(q, k, v, None, h))
+    pms, pms_best = host_ms(lambda: fa.flash_fwd_plain(q, k, v, None, h))
     q4, k4, v4 = (x.reshape(1, h, t, d) for x in (q, k, v))
-    lms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+    lms, lms_best = host_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    sweep_fwd_rows("flash_fwd", q, k, v, None, h)
+    dms = device_ms(lambda: fa.flash_fwd(q, k, v, None, h), "flash_fwd_kernel")
     bh = h
     fl = 4.0 * bh * t * t * d
     nb = 4.0 * (4 * bh * t * d + bh * t)
-    b_ms, b_by = bound(fl, nb)
-    log(f"timing flash_fwd BH={bh} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
-        f"library_ms={lms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    b_ms, b_by = bound_3xtf32(fl, nb)
+    log(f"timing flash_fwd BH={bh} T={t} rows/block={fa.fwd_block_rows(q)}: ms={ms:.4f} "
+        f"device_ms={dms:.5f} plain_ms={pms:.4f} library_ms={lms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by}) fma_bound_ms={bound(fl, nb)[0]:.5f}; best of "
+        f"{HOST_REPEATS}: ms={ms_best:.4f} plain_ms={pms_best:.4f} library_ms={lms_best:.4f}")
     out["flash_fwd"] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
-                            bound_by=b_by, library_ms=layers * lms)
+                            bound_by=b_by, library_ms=layers * lms, device_ms=layers * dms)
 
     # K3, K4: per draw, one launch each per encoder layer, 149 rows folded
     q, k, v, bias, g = flash_inputs(gen, 1, h, t, d, rows, False)
@@ -573,11 +697,38 @@ def phase_timing(cfg: PipelineConfig, params, test_set):
             f"library_ms(SDPA backward, dq+dk+dv)={lib_bwd:.4f} bound_ms={b_ms:.4f} "
             f"({b_by}) TFLOP/s={fl / ms / 1e9:.2f}")
         out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
-                         bound_by=b_by, library_ms=layers * lib_bwd)
+                         bound_by=b_by, library_ms=layers * lib_bwd, device_ms=None)
     del qe, ke, ve, oe
 
     time_slice("base", cfg, params, test_set, gen, out)
     return out
+
+
+def host_ms(fn):
+    """(one mean of 50 calls, the least of HOST_REPEATS such means): the
+    first is the JSON line's ``ms``, the second is logged beside it."""
+    return time_ms(fn, 50), time_ms(fn, 50, repeats=HOST_REPEATS)
+
+
+def sweep_fwd_rows(name: str, q, k, v, bias, h) -> None:
+    """K2 (or K2f) at each block height of fa.FWD_ROWS: host-clocked and device
+    time per launch, each checked against the plain version first."""
+    want = fa.flash_fwd_plain(q, k, v, bias, h)
+    log(f"timing {name}: {fa.fwd_block_rows(q)} rows per block chosen for BH={q.shape[0]} "
+        f"T={q.shape[1]} on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    fa._check(q, k, v, bias, h)
+    fns = {rows: (lambda rows=rows: fa._fwd_launch(q, k, v, bias, h, rows))
+           for rows in fa.FWD_ROWS}
+    for rows, fn in fns.items():
+        for x, y in zip(fn(), want):
+            compare(f"{name} rows/block={rows}", x, y, 2e-5, 2e-4,
+                    "float32 softmax over 149 keys, another summation order")
+    # every host-clocked time before the first profiler session
+    host = {rows: host_ms(fn) for rows, fn in fns.items()}
+    for rows, fn in fns.items():
+        log(f"timing {name} rows/block={rows}: ms={host[rows][0]:.5f} (best of "
+            f"{HOST_REPEATS}: {host[rows][1]:.5f}) device_ms="
+            f"{device_ms(fn, 'flash_fwd_kernel'):.5f} (per launch)")
 
 
 def time_slice(label: str, cfg: PipelineConfig, params, test_set, gen, out) -> None:
@@ -623,7 +774,11 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
     _, dd, _ = fa.flash_dq(q, k, v, o, lse, g, bias, h)
     n = g.shape[0]
     q4, k4, v4, b4 = (x.reshape(1, h, t, -1) for x in (q, k, v, bias))
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4), 50)
+    # the forward's host-clocked times before its profiler sessions
+    fwd = lambda: fa.flash_fwd(q, k, v, bias, h)  # noqa: E731
+    fwd_host = host_ms(fwd), host_ms(lambda: fa.flash_fwd_plain(q, k, v, bias, h))
+    lib_fwd, lib_fwd_best = host_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4))
     # the yardstick of the backward: one SDPA forward and backward with a
     # float mask that requires grad, over the 149 cotangent rows as a batch
     qe, ke, ve = (x.expand(rows, h, t, d).contiguous().requires_grad_() for x in (q4, k4, v4))
@@ -633,11 +788,11 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
         F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be), (qe, ke, ve, be), g4), 10)
     del qe, ke, ve, be
     costs = flash_costs(h, n, t, d)
+    sweep_fwd_rows("flash_fwd_bias", q, k, v, bias, h)
+    fwd_dms = device_ms(fwd, "flash_fwd_kernel")
     out = {}
     for name, fn, pfn, iters, lms, lib_what in (
-        ("flash_fwd_bias", lambda: fa.flash_fwd(q, k, v, bias, h),
-         lambda: fa.flash_fwd_plain(q, k, v, bias, h), 50, lib_fwd,
-         "SDPA forward, float mask"),
+        ("flash_fwd_bias", None, None, 50, lib_fwd, "SDPA forward, float mask"),
         ("flash_dq_dbias", lambda: fa.flash_dq(q, k, v, o, lse, g, bias, h),
          lambda: fa.flash_dq_plain(q, k, v, o, lse, g, bias, h), 10, lib_bwd,
          "SDPA forward+backward, dq+dk+dv+d(mask)"),
@@ -645,28 +800,40 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
          lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd, bias, h), 10, lib_bwd,
          "SDPA forward+backward, dq+dk+dv+d(mask)"),
     ):
-        ms = time_ms(fn, iters)
-        pms = time_ms(pfn, iters)
         fl, nb = costs[name]
-        b_ms, b_by = bound(fl, nb)
+        if name == "flash_fwd_bias":
+            # the forward runs on the tensor cores in 3xTF32, like K1
+            (ms, ms_best), (pms, pms_best) = fwd_host
+            b_ms, b_by = bound_3xtf32(fl, nb)
+            dms = fwd_dms
+            more = (f" device_ms={dms:.5f} fma_bound_ms={bound(fl, nb)[0]:.5f}; best of "
+                    f"{HOST_REPEATS}: ms={ms_best:.4f} plain_ms={pms_best:.4f} "
+                    f"library_ms={lib_fwd_best:.4f}")
+        else:
+            ms, pms = time_ms(fn, iters), time_ms(pfn, iters)
+            b_ms, b_by = bound(fl, nb)
+            dms, more = None, ""
         log(f"timing {name} BH={h} N={n} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
             f"library_ms({lib_what})={lms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
-            f"TFLOP/s={fl / ms / 1e9:.2f}")
+            f"TFLOP/s={fl / ms / 1e9:.2f}" + more)
         out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
-                         bound_by=b_by, library_ms=layers * lms)
+                         bound_by=b_by, library_ms=layers * lms,
+                         device_ms=None if dms is None else layers * dms)
     del q, k, v, g, bias, o, lse, dd
     time_slice("conformer", cfg, params, test_set, gen, {**out, "conv_dgrad": k1_row})
     return out
 
 
-def kernel_rows(out, errs, launches):
-    """The JSON line's entries: one per kernel, base path's first."""
+def kernel_rows(out, errs, extra, launches):
+    """The JSON line's entries: one per kernel, base path's first; ``extra``
+    adds fields to a kernel's entry."""
     return [{
         "name": name, "route": "cuda", "source": ROUTES[name][0],
         "replaces": ROUTES[name][1], "launches": launches[name],
         "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
+        "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+        **extra.get(name, {}),
     } for name, row in out.items()]
 
 
@@ -675,7 +842,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
               "CUDA device", file=sys.stderr)
         return 1
-    phase_build()
+    smi = phase_build()
     model = Wav2Vec2Config(attention_impl="pallas", conv_impl="pallas")
     conformer = Wav2Vec2ConformerConfig(attention_impl="pallas", conv_impl="pallas")
     explainer = ExplainerConfig(nsamples=NSAMPLES, method="grad", aggregation="max",
@@ -683,7 +850,7 @@ def main() -> int:
     # TF32 off for matmuls and cuDNN convs: kernels, plain versions and
     # yardsticks all run in float32
     with highest_precision(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
-        errs = phase_checks(model)
+        errs, extra = phase_checks(model)
         errs.update(phase_checks_full_bias(conformer))
         test_set = make_test_set()
 
@@ -701,8 +868,9 @@ def main() -> int:
         claunches = phase_pipeline("conformer", ccfg, cparams, test_set, CONFORMER_KERNELS)
         phase_reference_conformer(ccfg, cparams, test_set, data_dir)
         cout = phase_timing_conformer(ccfg, cparams, test_set, out["conv_dgrad"])
-        kernels = (kernel_rows(out, errs, launches)
-                   + kernel_rows(cout, errs, claunches))
+        kernels = (kernel_rows(out, errs, extra, launches)
+                   + kernel_rows(cout, errs, extra, claunches))
+    log(smi)  # again beside the numbers, for a reader of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,6 +70,39 @@ def test_conv_dgrad_wrapper_rejects_what_the_kernel_cannot_take():
     assert conv_dgrad.eligible(512, 512, 2, 1, 0)
 
 
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_conv_dgrad_3xtf32_keeps_the_card_checks_tolerance(rng, scale):
+    """The numeric contract of the tensor-core kernels: operands split by
+    ``tf32_split`` (cvt.rna rounding) and summed as lo*hi + hi*lo + hi*hi
+    stay within the card check's K1 tolerance of float64 (atol 5e-4 x the
+    input scale, rtol 1e-4), with at most twice plain float32's error; one
+    TF32 product (hi*hi alone) does not. K = 3, s = 2, C = 512, He-scaled
+    weights, as on the main path."""
+    one = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23],
+                       dtype=torch.float64).float()
+    assert conv_dgrad.tf32_round(one).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+    k, s, c, t_out = 3, 2, 512, 16
+    t_in = (t_out - 1) * s + k
+    ybar = _t(rng.standard_normal((2, t_out, c)) * scale)
+    w = _t(rng.standard_normal((k, c, c)) * (2.0 / (k * c)) ** 0.5)
+    ref = conv_dgrad.conv1d_dgrad_plain(ybar.double(), w.double(), s, t_in)
+    yh, yl = conv_dgrad.tf32_split(ybar)
+    wh, wl = conv_dgrad.tf32_split(w)
+    for part in (yh, yl, wh, wl):  # every operand is a TF32 value
+        assert torch.equal(conv_dgrad.tf32_round(part), part)
+    dgrad = lambda a, b: conv_dgrad.conv1d_dgrad_plain(a, b, s, t_in).double()
+    three = dgrad(yl, wh) + dgrad(yh, wl) + dgrad(yh, wh)
+    one_product = dgrad(yh, wh)
+    f32 = dgrad(ybar, w)
+
+    def excess(x):  # > 0: outside atol + rtol * |ref|
+        return float(((x - ref).abs() - 1e-4 * ref.abs()).max()) - 5e-4 * scale
+
+    assert excess(three) <= 0
+    assert float((three - ref).abs().max()) <= 2 * float((f32 - ref).abs().max())
+    assert excess(one_product) > 0
+
+
 def _qkv(rng, b, h, t, d):
     return [rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3)]
 
