@@ -16,7 +16,9 @@ own lines:
 2. hold each kernel against its plain PyTorch version on the card, float32,
    at its path's shapes, with the tolerance stated beside it (the full-bias
    kernels with a rel-pos-like bias, and with the same bias masked; the
-   flash forward also at 100 and 500 keys; K1 and its plain version also
+   flash forward also at 100 and 500 keys; K3 and K4 also at one and 37
+   cotangent rows per residual row, five clips with a mask length each,
+   100 and 500 keys and D = 32; K1, K3 and K4 and their plain versions also
    against float64);
 3. drive each path: run_shap_pipeline on a 48,000-sample clip and its 5 dB
    white-noise mix, 4 expected-gradients draws each, with the launch counts
@@ -36,10 +38,11 @@ own lines:
    line are per draw of its path: the sum over the launches one draw makes
    (K1 once per eligible conv layer, the flash kernels once per encoder
    layer); its "launches" is the count from its path's pipeline run of
-   phase 3. K1 and the flash forward (K2, K2f) run on the tensor cores in
-   3xTF32, so their bound is three TF32 products per float32 product at
-   the TF32 peak, or their bytes ("operations (3xTF32)" or "bytes"); the
-   log gives their float32 FMA bound beside it.
+   phase 3. K1, the flash forward (K2, K2f), K3 and K4 run on the tensor
+   cores in 3xTF32, so their bound is three TF32 products per float32
+   product at the TF32 peak, or their bytes ("operations (3xTF32)" or
+   "bytes"); the log gives their float32 FMA bound beside it. K3b and K4f
+   run float32 FMAs and keep the float32 FMA bound.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -268,7 +271,7 @@ def phase_build():
     log(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     for name in paths:
         for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "entry function" in line:
                 log(f"ptxas {name}: {line.strip()}")
     return smi
 
@@ -319,6 +322,84 @@ def check_fwd_lengths(gen, h: int, d: int, full: bool) -> float:
                     f"{name} {part} BH={h} T={t} rows/block={rows} masked", x, y, 2e-5, 2e-4,
                     f"float32 softmax over {t} keys, another summation order"))
     return err
+
+
+def mask_lengths(b: int, t: int, lengths) -> torch.Tensor:
+    """A [B, T] key mask: clip i keeps its first lengths[i] keys, -1e9 after."""
+    bias = torch.zeros((b, t), device="cuda")
+    for i, n in enumerate(lengths):
+        bias[i, n:] = -1e9
+    return bias
+
+
+def check_bwd_shapes(gen, h: int) -> dict:
+    """K3 and K4 against their plain versions where the grouped kernels can
+    break, each case unmasked and masked: one cotangent row per residual row
+    (N = BH); 37 rows per residual row (the last group of 8 warps part
+    empty); five clips with a mask length each; 100 keys (a partial chunk)
+    and 500 keys with the last 200 masked (several chunks); and D = 32."""
+    why = "float32 backward sums over T keys, another summation order"
+    errs = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    # (clips B, keys T, head dim D, cotangent rows per residual row, mask lengths)
+    cases = [(1, 149, 64, 1, [120]), (1, 149, 64, 37, [120]),
+             (5, 149, 64, 8, [149, 131, 100, 77, 16]), (1, 100, 64, 8, [71]),
+             (1, 500, 64, 8, [300]), (1, 149, 32, 8, [120])]
+    for b, t, d, v_rows, lengths in cases:
+        for masked in (False, True):
+            q, k, v, _, g = flash_inputs(gen, b, h, t, d, v_rows, False)
+            bias = mask_lengths(b, t, lengths) if masked else None
+            o, lse = fa.flash_fwd_plain(q, k, v, bias, h)
+            label = f"B={b} T={t} D={d} N={g.shape[0]} ({v_rows} per residual row) mask={masked}"
+            dq, dd, _ = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+            dq_p, dd_p, _ = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
+            errs["flash_dq"] = max(errs["flash_dq"],
+                                   compare(f"flash_dq dq {label}", dq, dq_p, 5e-5, 5e-4, why),
+                                   compare(f"flash_dq dd {label}", dd, dd_p, 5e-5, 5e-4, why))
+            dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h)
+            dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)
+            errs["flash_dkv"] = max(errs["flash_dkv"],
+                                    compare(f"flash_dkv dk {label}", dk, dk_p, 5e-5, 5e-4, why),
+                                    compare(f"flash_dkv dv {label}", dv, dv_p, 5e-5, 5e-4, why))
+            del q, k, v, g, o, lse, dq, dd, dq_p, dd_p, dk, dv, dk_p, dv_p
+    return errs
+
+
+def bwd_float64_check(gen, h: int, d: int, t: int, rows: int) -> dict:
+    """K3 and K4 and their float32 plain versions against the plain
+    versions in float64, at the main-path shape: the accuracy of 3xTF32 on
+    the card's tensor cores beside float32's. Each is held to the backward's
+    tolerance, and K3's dq and K4's dk and dv each to at most twice the
+    plain version's error. The float32 runs take o, lse and dd from the
+    float64 runs, rounded to float32."""
+    q, k, v, _, g = flash_inputs(gen, 1, h, t, d, rows, False)
+    q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
+    o64, lse64 = fa.flash_fwd_plain(q64, k64, v64, None, h)
+    dq64, dd64, _ = fa.flash_dq_plain(q64, k64, v64, o64, lse64, g64, None, h)
+    dk64, dv64 = fa.flash_dkv_plain(q64, k64, v64, lse64, g64, dd64, None, h)
+    o, lse, dd = o64.float(), lse64.float(), dd64.float()
+    runs = {"kernel": (fa.flash_dq, fa.flash_dkv),
+            "plain": (fa.flash_dq_plain, fa.flash_dkv_plain)}
+    why = "the backward's tolerance, against the exact sum"
+    errs = {}
+    for key, (dq_fn, dkv_fn) in runs.items():
+        dq = dq_fn(q, k, v, o, lse, g, None, h)[0]
+        dk, dv = dkv_fn(q, k, v, lse, g, dd, None, h)
+        for name, got, want in (("dq", dq, dq64), ("dk", dk, dk64), ("dv", dv, dv64)):
+            errs[key, name] = compare(f"flash backward {name} N={g.shape[0]} T={t}: {key} "
+                                      f"(float32) vs float64", got.double(), want,
+                                      5e-5, 5e-4, why)
+        del dq, dk, dv
+    for name in ("dq", "dk", "dv"):
+        kern, plain = errs["kernel", name], errs["plain", name]
+        log(f"flash backward {name} vs float64: kernel {kern:.3e}, float32 plain "
+            f"{plain:.3e} (ratio {kern / plain:.2f})")
+        check(kern <= 2 * plain, f"flash backward {name}: 3xTF32 error over 2x float32's "
+              "against float64")
+    return {"flash_dq": {"err_vs_float64": errs["kernel", "dq"],
+                         "plain_err_vs_float64": errs["plain", "dq"]},
+            "flash_dkv": {"err_vs_float64": max(errs["kernel", "dk"], errs["kernel", "dv"]),
+                          "plain_err_vs_float64": max(errs["plain", "dk"],
+                                                      errs["plain", "dv"])}}
 
 
 def phase_checks(cfg: Wav2Vec2Config):
@@ -380,6 +461,10 @@ def phase_checks(cfg: Wav2Vec2Config):
         errs["flash_dkv"] = max(errs["flash_dkv"],
                                 compare(f"flash_dkv dk N={g.shape[0]} mask={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
                                 compare(f"flash_dkv dv N={g.shape[0]} mask={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
+    del q, k, v, bias, g, o, lse, dq, dd, dq_p, dd_p, dk, dv, dk_p, dv_p
+    for key, err in check_bwd_shapes(gen, h).items():
+        errs[key] = max(errs[key], err)
+    extra.update(bwd_float64_check(gen, h, d, t, rows))
     return errs, extra
 
 
@@ -566,7 +651,7 @@ def _to_cuda(tree):
 
 PROFILE_GROUPS = (
     ("port kernels", ("dgrad_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-                      "flash_dkv_kernel")),
+                      "flash_dkv_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
     ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft", "depthwise")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
 )
@@ -692,12 +777,17 @@ def phase_timing(cfg: PipelineConfig, params, test_set):
     ):
         ms = time_ms(fn, 10)
         pms = time_ms(pfn, 10)
-        b_ms, b_by = bound(fl, nb)
+        # K3 and K4 run on the tensor cores in 3xTF32, like K1
+        b_ms, b_by = bound_3xtf32(fl, nb)
         log(f"timing {name} N={n} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
             f"library_ms(SDPA backward, dq+dk+dv)={lib_bwd:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}) TFLOP/s={fl / ms / 1e9:.2f}")
+            f"({b_by}) fma_bound_ms={bound(fl, nb)[0]:.4f} TFLOP/s={fl / ms / 1e9:.2f}")
         out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
                          bound_by=b_by, library_ms=layers * lib_bwd, device_ms=None)
+    pair = out["flash_dq"]["ms"] + out["flash_dkv"]["ms"]
+    log(f"timing K3 + K4 per draw: {pair:.4f} ms ({layers} launches each) against the SDPA "
+        f"backward (dq+dk+dv, same inputs) per draw {layers * lib_bwd:.4f} ms "
+        f"(ratio {pair / (layers * lib_bwd):.3f})")
     del qe, ke, ve, oe
 
     time_slice("base", cfg, params, test_set, gen, out)

@@ -166,6 +166,63 @@ def test_flash_vmapped_backward_matches_pallas(rng):
     np.testing.assert_allclose(jac.numpy(), np.asarray(ref), rtol=5e-4, atol=5e-5)
 
 
+def _mm_3xtf32(a, b):
+    """a @ b as the tensor-core kernels take it: operands split by
+    ``tf32_split``, lo*hi + hi*lo, then hi*hi, in float32."""
+    ah, al = conv_dgrad.tf32_split(a)
+    bh, bl = conv_dgrad.tf32_split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a @ b in one TF32 product (hi*hi alone)."""
+    return conv_dgrad.tf32_round(a) @ conv_dgrad.tf32_round(b)
+
+
+def _flash_backward(q, k, v, o, lse, g, mask, mm_scores, mm):
+    """K3's dq and K4's dk, dv with the scores' product ``mm_scores`` and
+    every other product (dP, dq, dk, dv) ``mm``; g [V, BH, T, D] reads
+    residual row BH, as in the kernels."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(mm_scores(q * scale, k.transpose(1, 2)) + mask - lse[..., None])
+    dd = (g * o).sum(-1)
+    ds = p * (mm(g, v.transpose(1, 2)) - dd[..., None])
+    return scale * mm(ds, k), mm(ds.transpose(-1, -2), q * scale), mm(p.transpose(1, 2), g)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_backward_3xtf32_keeps_the_card_checks_tolerance(rng, masked):
+    """The numeric contract of the tensor-core K3 and K4: scores, dP, dq, dk
+    and dv each in 3xTF32 stay within the card check's backward tolerance
+    of float64 (atol 5e-5, rtol 5e-4), with at most twice plain float32's
+    error; one TF32 product for dP, dq, dk and dv (the scores still in
+    3xTF32) does not. T = 149, D = 64, as on the main path; BH = 2 with 4
+    cotangent rows per residual row; ``masked``: the last 29 keys at -1e9."""
+    bh, t, d, rows = 2, 149, 64, 4
+    q, k, v = (_t(rng.standard_normal((bh, t, d))) for _ in range(3))
+    g = _t(rng.standard_normal((rows, bh, t, d)))
+    mask = torch.zeros(t)
+    if masked:
+        mask[t - 29:] = -1e9
+    o64, lse64 = fa.flash_fwd_plain(q.double(), k.double(), v.double(),
+                                    mask.double()[None], bh)
+    ref = _flash_backward(q.double(), k.double(), v.double(), o64, lse64, g.double(),
+                          mask.double(), torch.matmul, torch.matmul)
+    args = (q, k, v, o64.float(), lse64.float(), g, mask)
+    three = _flash_backward(*args, _mm_3xtf32, _mm_3xtf32)
+    f32 = _flash_backward(*args, torch.matmul, torch.matmul)
+    one_product = _flash_backward(*args, _mm_3xtf32, _mm_tf32)
+
+    def excess(x, want):  # > 0: outside atol + rtol * |want|
+        return float(((x.double() - want).abs() - 5e-4 * want.abs()).max()) - 5e-5
+
+    for got, plain, want in zip(three, f32, ref):
+        assert excess(got, want) <= 0
+        assert (float((got.double() - want).abs().max())
+                <= 2 * float((plain.double() - want).abs().max()))
+    assert all(excess(x, want) > 0 for x, want in zip(one_product, ref))
+
+
 def _full_bias(rng, shape, masked_keys=0):
     """A random score bias; the last ``masked_keys`` keys of batch entry 0
     get -1e9, as the conformer's rel + mask does on a padded clip."""
