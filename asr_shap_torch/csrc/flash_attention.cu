@@ -2,15 +2,15 @@
 // each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f).
 //
 // Replace the Pallas TPU kernels of asr_shap/kernels/flash_attention.py:
-//   K2  flash_fwd_kernel<D, false> <- _fwd_kernel (launched by _fwd)
-//   K2f flash_fwd_kernel<D, true>  <- the same call with a [bq, T] full-bias
-//                                     block
-//   K3  flash_dq_mma_kernel<D>     <- _dq_kernel (launched by _bwd), no
-//                                     d(bias) output
-//   K3b flash_dq_kernel<D, true>   <- _dq_kernel with its d(bias) = ds output
-//   K4  flash_dkv_mma_kernel<D>    <- _dkv_kernel (launched by _bwd)
-//   K4f flash_dkv_kernel<D, true>  <- _dkv_kernel with the transposed
-//                                     [bk, Tq] full-bias block
+//   K2  flash_fwd_kernel<D, false>     <- _fwd_kernel (launched by _fwd)
+//   K2f flash_fwd_kernel<D, true>      <- the same call with a [bq, T] full-bias
+//                                         block
+//   K3  flash_dq_mma_kernel<D, false>  <- _dq_kernel (launched by _bwd), no
+//                                         d(bias) output
+//   K3b flash_dq_mma_kernel<D, true>   <- _dq_kernel with its d(bias) = ds output
+//   K4  flash_dkv_mma_kernel<D, false> <- _dkv_kernel (launched by _bwd)
+//   K4f flash_dkv_mma_kernel<D, true>  <- _dkv_kernel with the transposed
+//                                         [bk, Tq] full-bias block
 //
 // Layouts: q, k, v, o [BH, T, D]; lse [BH, T]; g, dq, dk, dv [N, T, D] and
 // dd [N, T] with N a multiple of BH. Row n of g is the cotangent of residual
@@ -27,19 +27,17 @@
 //
 // Bound on the H100: operations, for the backward. Per residual row pair it
 // does 14*T*T*D operations on O(T*D) bytes (T = 149, D = 64 on the main
-// path). K3 and K4 (see their section) run every product on the tensor
-// cores in 3xTF32, so three TF32 products per float32 product at the TF32
-// rate bound them, and they compute each residual row's probabilities once
-// for a run of groups of its cotangent rows (mma.sync.m16n8k8 TF32), never
-// once per cotangent row. K3b and K4f
-// run float32 FMAs, so the float32 FMA rate bounds them: one block of 256
-// threads per (row n, 64-row tile) of the blocked axis, a loop over 64-row
-// tiles of the other axis inside the block (the TPU's sequential grid axis
-// has no Hopper counterpart). Scores and probabilities live in registers
-// (4x4 per thread) and, where a second product needs them in another
-// thread, in shared memory; they never reach device memory. Each dq kernel
-// also computes dd = rowsum(g * o) for its rows and writes it for the dk/dv
-// kernel, which runs after it on the same stream.
+// path); K3b adds its N * T * T floats of d(bias), 212 MB per launch on the
+// conformer path, which puts its bytes (0.12 ms of the card's memory rate)
+// just above its operations. The backward kernels (see their section) run
+// every product on the tensor cores in 3xTF32, so three TF32 products per
+// float32 product at the TF32 rate bound them, and they compute each
+// residual row's probabilities once for a run of groups of its cotangent
+// rows (mma.sync.m16n8k8 TF32), never once per cotangent row. Scores and
+// probabilities live in registers and shared memory; they never reach
+// device memory. Each dq kernel also computes dd = rowsum(g * o) for its
+// rows and writes it for the dk/dv kernel, which runs after it on the same
+// stream.
 //
 // The forward (K2, K2f) is a few MFLOP per launch (about 1 us of the card's
 // float32 rate), so its time is latency: loading the head's K and V, and
@@ -48,43 +46,18 @@
 // products on the tensor cores in 3xTF32 and splits each 16 query rows'
 // keys over eight warps, so that each warp's chain is an eighth as long.
 //
-// Full bias: K3b reads bias[res, q, k] straight from device memory, 16
-// neighbouring keys per half warp (K2f reads its lanes' entries into
-// registers while its keys load). K3b stores each ds tile once, from
-// registers, in the same pattern: its N * T * T floats of d(bias) are the
-// one output that is not O(T * D), 212 MB per launch on the conformer path,
-// 0.06 ms of the card's memory rate against 0.2 ms of operations. K4f walks
-// q tiles for a fixed kv tile, so it stages the [kv, q] bias tile through
-// the shared buffer that then holds p, reading device memory along k
-// (coalesced) instead of the TPU kernel's transposed copy.
+// Full bias: the kernels read bias[res, q, k] straight from device memory,
+// once per block: K2f its lanes' entries into registers while its keys
+// load, K3b and K4f as they compute the block's p tile (K4f's p^T reads the
+// plane strided by T across queries, the TPU kernel's transposed block).
+// K3b stores each warp's ds tile to d(bias) from the registers it was
+// computed in.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int TILE = 64;
-constexpr int LD = TILE + 1;  // padded leading dimension: no bank conflicts
-constexpr int THREADS = 256;
-
-// Copy rows [row0, row0 + 64) of a row-major [T, D] matrix into a transposed
-// shared tile dst[d * LD + row], scaled; rows past T are zero.
-template <int D>
-__device__ __forceinline__ void load_t(float* dst, const float* src, int row0,
-                                       int T, float scale) {
-  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
-    const int row = idx / D, d = idx % D;
-    const int t = row0 + row;
-    dst[d * LD + row] = t < T ? src[(long long)t * D + d] * scale : 0.f;
-  }
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // The bias plane or row of residual row res: a [T, T] plane of the full bias,
 // or the [T] key mask of its batch entry; null without a bias.
@@ -93,13 +66,6 @@ __device__ __forceinline__ const float* bias_base(const float* bias, int res,
                                                   int H, int T) {
   if (bias == nullptr) return nullptr;
   return FULL ? bias + (long long)res * T * T : bias + (long long)(res / H) * T;
-}
-
-// The bias of query row `row` and key `col`, both < T.
-template <bool FULL>
-__device__ __forceinline__ float bias_at(const float* b, int row, int col, int T) {
-  if (b == nullptr) return 0.f;
-  return FULL ? b[(long long)row * T + col] : b[col];
 }
 
 // ------------------------------------------------------------------ K2
@@ -395,273 +361,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ K3b
-template <int D, bool FULL>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ o,
-                const float* __restrict__ lse, const float* __restrict__ g,
-                const float* __restrict__ bias, float* __restrict__ dq,
-                float* __restrict__ dd_out, float* __restrict__ dbias, int T,
-                int H, int BH, float scale) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* qT = smem;           // [D][LD] scaled q
-  float* gT = qT + D * LD;    // [D][LD]
-  float* kT = gT + D * LD;    // [D][LD]
-  float* vT = kT + D * LD;    // [D][LD]
-  float* dss = vT + D * LD;   // [TILE][LD]
-
-  const int n = blockIdx.x;
-  const int res = n % BH;
-  const int q0 = blockIdx.y * TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long rbase = (long long)res * T * D;
-  const long long gbase = (long long)n * T * D;
-  const float* brow = bias_base<FULL>(bias, res, H, T);
-  float* dbias_n = FULL ? dbias + (long long)n * T * T : nullptr;
-
-  load_t<D>(qT, q + rbase, q0, T, scale);
-  load_t<D>(gT, g + gbase, q0, T, 1.f);
-  __syncthreads();
-
-  float lse_i[4], dd_i[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    const int t = q0 + row;
-    float part = 0.f;
-    if (t < T) {
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        part = fmaf(gT[col * LD + row], o[rbase + (long long)t * D + col], part);
-      }
-    }
-    dd_i[i] = half_warp_sum(part);
-    lse_i[i] = t < T ? lse[(long long)res * T + t] : 0.f;
-    if (tx == 0 && t < T) dd_out[(long long)n * T + t] = dd_i[i];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < T; kv0 += TILE) {
-    __syncthreads();
-    load_t<D>(kT, k + rbase, kv0, T, 1.f);
-    load_t<D>(vT, v + rbase, kv0, T, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], ga[4], b[4], vb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qT[d * LD + ty + 16 * i];
-        ga[i] = gT[d * LD + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = kT[d * LD + tx + 16 * j];
-        vb[j] = vT[d * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(ga[i], vb[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = kv0 + tx + 16 * j;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty + 16 * i;
-        float ds = 0.f;
-        if (col < T) {
-          const float b = bias_at<FULL>(brow, min(row, T - 1), col, T);
-          const float p = expf(s[i][j] + b - lse_i[i]);
-          ds = p * (dp[i][j] - dd_i[i]);
-          if (FULL && row < T) dbias_n[(long long)row * T + col] = ds;
-        }
-        dss[(ty + 16 * i) * LD + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-    for (int jj = 0; jj < TILE; ++jj) {
-      float dv_[4], kv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv_[i] = dss[(ty + 16 * i) * LD + jj];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = kT[(tx + 16 * c) * LD + jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dv_[i], kv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= T) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dq[gbase + (long long)t * D + tx + 16 * c] = scale * acc[i][c];
-  }
-}
-
-// ------------------------------------------------------------------ K4f
-template <int D, bool FULL>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ lse,
-                 const float* __restrict__ g, const float* __restrict__ dd,
-                 const float* __restrict__ bias, float* __restrict__ dk,
-                 float* __restrict__ dv, int T, int H, int BH, float scale) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* kT = smem;            // [D][LD]
-  float* vT = kT + D * LD;     // [D][LD]
-  float* qT = vT + D * LD;     // [D][LD] scaled q
-  float* gT = qT + D * LD;     // [D][LD]
-  float* pts = gT + D * LD;    // [TILE][LD] p transposed (kv rows, q cols);
-                               // K4f stages the bias tile here first
-  float* dsts = pts + TILE * LD;
-  float* lse_s = dsts + TILE * LD;  // [TILE]
-  float* dd_s = lse_s + TILE;       // [TILE]
-
-  const int n = blockIdx.x;
-  const int res = n % BH;
-  const int k0 = blockIdx.y * TILE;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long rbase = (long long)res * T * D;
-  const long long gbase = (long long)n * T * D;
-  const float* brow = bias_base<FULL>(bias, res, H, T);
-
-  load_t<D>(kT, k + rbase, k0, T, 1.f);
-  load_t<D>(vT, v + rbase, k0, T, 1.f);
-  float bk[4], acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    bk[i] = (!FULL && brow && t < T) ? brow[t] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-  }
-
-  for (int qq0 = 0; qq0 < T; qq0 += TILE) {
-    __syncthreads();
-    load_t<D>(qT, q + rbase, qq0, T, scale);
-    load_t<D>(gT, g + gbase, qq0, T, 1.f);
-    for (int j = threadIdx.x; j < TILE; j += THREADS) {
-      const int t = qq0 + j;
-      lse_s[j] = t < T ? lse[(long long)res * T + t] : 0.f;
-      dd_s[j] = t < T ? dd[(long long)n * T + t] : 0.f;
-    }
-    if (FULL && brow) {
-      // pts[kr][qc] = bias[res, qq0 + qc, k0 + kr]: neighbouring threads
-      // read neighbouring keys of one query row
-      for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
-        const int kr = idx % TILE, qc = idx / TILE;
-        const int tq = qq0 + qc, tk = k0 + kr;
-        pts[kr * LD + qc] = (tq < T && tk < T) ? brow[(long long)tq * T + tk] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float ka[4], va[4], qb[4], gb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ka[i] = kT[d * LD + ty + 16 * i];
-        va[i] = vT[d * LD + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qb[j] = qT[d * LD + tx + 16 * j];
-        gb[j] = gT[d * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
-          dpt[i][j] = fmaf(va[i], gb[j], dpt[i][j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qc = tx + 16 * j;
-      const bool ok = qq0 + qc < T;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = 0.f, ds = 0.f;
-        if (ok) {
-          // K4f: this thread's own bias entry, staged above; it is
-          // overwritten by p just below, by the same thread
-          const float b = (FULL && brow) ? pts[(ty + 16 * i) * LD + qc] : bk[i];
-          p = expf(st[i][j] + b - lse_s[qc]);
-          ds = p * (dpt[i][j] - dd_s[qc]);
-        }
-        pts[(ty + 16 * i) * LD + qc] = p;
-        dsts[(ty + 16 * i) * LD + qc] = ds;
-      }
-    }
-    __syncthreads();
-    for (int jj = 0; jj < TILE; ++jj) {
-      float pa[4], da[4], gv[DC], qv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = pts[(ty + 16 * i) * LD + jj];
-        da[i] = dsts[(ty + 16 * i) * LD + jj];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        gv[c] = gT[(tx + 16 * c) * LD + jj];
-        qv[c] = qT[(tx + 16 * c) * LD + jj];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc_v[i][c] = fmaf(pa[i], gv[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(da[i], qv[c], acc_k[i][c]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t >= T) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const long long off = gbase + (long long)t * D + tx + 16 * c;
-      dk[off] = acc_k[i][c];  // q was scaled on load: this is scale * ds^T q
-      dv[off] = acc_v[i][c];
-    }
-  }
-}
-
-// ------------------------------------------------------ K3, K4 on the tensor cores
+// ------------------------------------------------ K3, K4 (K3b, K4f) on the tensor cores
 //
-// On the main path N / BH = 149 cotangent rows share each residual row, so
-// its probabilities p = exp((q * scale) . k + mask - lse) are the same for
-// all of them. A block takes one residual row `res`, one 16-row tile of the
-// blocked axis (query rows for K3, key rows for K4) and a run of groups of
-// BWD_ROWS of that residual row's cotangent rows (n = res + BH * c), one warp
-// per row of a group; the launcher picks the run's length so that the grid
-// fills the card's SMs evenly. The block holds the other axis (keys for K3,
+// On the main paths N / BH = 149 cotangent rows share each residual row, so
+// its probabilities p = exp((q * scale) . k + bias - lse) are the same for
+// all of them. One template per function serves both bias kinds (FULL: the
+// full score bias of K3b and K4f). A block takes one residual row `res`,
+// one 16-row tile of the blocked axis (query rows for K3, key rows for K4)
+// and a run of groups of BWD_ROWS of that residual row's cotangent rows
+// (n = res + BH * c), one warp per row of a group; the launcher picks the
+// run's length so that the grid fills the card's SMs evenly. The block holds the other axis (keys for K3,
 // queries for K4) in shared memory, BWD_CHUNK rows at a time (T = 149 is one
 // chunk), and its warps compute that chunk's tile of p (K4: p^T) once, into
 // shared memory. When the whole axis is one chunk, those rows and the p tile
@@ -686,6 +395,14 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // memory, 16 queries at a time in two buffers: the next 16 arrive while the
 // warp computes on these. Each g row is read from L2 once per 16-key tile.
 // Rows and keys past T give p = 0; a -1e9 key gives p = 0 exactly.
+// With a full bias, the p tile adds bias[res, row, key] where the mask adds
+// mask[key]: read once per block and chunk, strided by T across K4f's
+// queries. K3b then writes each warp's 16 x 8 ds tile to d(bias) as it
+// forms it, one scalar store per entry (T = 149 is odd, so a row's start
+// has either parity and a float2 store would be misaligned on half the
+// rows), skipping rows and keys past T; a chunked key axis writes each
+// chunk's part. Stores do not wait for memory, so the 212 MB per launch on
+// the conformer path overlaps the products.
 
 constexpr int BWD_CHUNK = 152;           // rows of the walked axis in shared memory
 constexpr int BWD_ROWS = 8;              // cotangent rows per group, one warp each
@@ -879,14 +596,14 @@ __host__ __device__ constexpr size_t dq_mma_smem_bytes() {
           (size_t)(BWD_ROWS + 1) * 16 * (D + 4) + (size_t)16 * BWD_LDP) * 4;
 }
 
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ o,
                     const float* __restrict__ lse, const float* __restrict__ g,
-                    const float* __restrict__ mask, float* __restrict__ dq,
-                    float* __restrict__ dd_out, int T, int H, int BH, int V, int G,
-                    float scale) {
+                    const float* __restrict__ bias, float* __restrict__ dq,
+                    float* __restrict__ dd_out, float* __restrict__ dbias, int T, int H,
+                    int BH, int V, int G, float scale) {
   constexpr int LDS = D + 4, KS = D / 8, CHUNK = BWD_CHUNK, LDP = BWD_LDP;
   extern __shared__ __align__(16) float smem[];
   uint32_t* khi = reinterpret_cast<uint32_t*>(smem);  // [CHUNK][LDS]
@@ -904,7 +621,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int gi = lane >> 2, t = lane & 3;
   const int grp0 = blockIdx.z * G, grp1 = min(grp0 + G, (V + BWD_ROWS - 1) / BWD_ROWS);
   const long long rbase = (long long)res * T * D;
-  const float* mrow = bias_base<false>(mask, res, H, T);
+  const float* brow = bias_base<FULL>(bias, res, H, T);
   const int rows_[2] = {q0 + gi, q0 + gi + 8};  // this lane's rows
   float* gw = gs + warp * 16 * LDS;
   const bool one_chunk = T <= CHUNK;
@@ -947,8 +664,10 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const int key = j * 8 + 2 * t + (cc & 1), col = kv0 + key;
             const int row = rows_[cc >> 1];
             float p = 0.f;
-            if (row < T && col < T)
-              p = expf(s[cc] + (mrow ? mrow[col] : 0.f) - lse_r[cc >> 1]);
+            if (row < T && col < T) {
+              const float b = FULL ? brow[(long long)row * T + col] : brow ? brow[col] : 0.f;
+              p = expf(s[cc] + b - lse_r[cc >> 1]);
+            }
             ps[(gi + 8 * (cc >> 1)) * LDP + key] = p;
           }
         }
@@ -991,6 +710,16 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float2 p1 = *reinterpret_cast<const float2*>(ps + (gi + 8) * LDP + j * 8 + 2 * t);
           const float da[4] = {p0.x * (dp[jj][0] - dd[0]), p1.x * (dp[jj][2] - dd[1]),
                                p0.y * (dp[jj][1] - dd[0]), p1.y * (dp[jj][3] - dd[1])};
+          if (FULL) {  // d(bias) = ds: rows g, g + 8 x keys 2t, 2t + 1
+            const int col = kv0 + j * 8 + 2 * t;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (rows_[h] >= T) continue;
+              float* out = dbias + (n * T + rows_[h]) * T + col;
+              if (col < T) out[0] = da[h];
+              if (col + 1 < T) out[1] = da[h + 2];
+            }
+          }
           step_3xtf32<D, false>(acc, da, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
         }
       }
@@ -1022,12 +751,12 @@ __device__ __forceinline__ void cp_g_dd(float* gb, float* db, const float* g, co
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ lse,
                      const float* __restrict__ g, const float* __restrict__ dd,
-                     const float* __restrict__ mask, float* __restrict__ dk,
+                     const float* __restrict__ bias, float* __restrict__ dk,
                      float* __restrict__ dv, int T, int H, int BH, int V, int G, float scale) {
   constexpr int LDS = D + 4, KS = D / 8, CHUNK = BWD_CHUNK, LDP = BWD_LDP;
   extern __shared__ __align__(16) float smem[];
@@ -1045,16 +774,16 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int gi = lane >> 2, t = lane & 3;
   const int grp0 = blockIdx.z * G, grp1 = min(grp0 + G, (V + BWD_ROWS - 1) / BWD_ROWS);
   const long long rbase = (long long)res * T * D;
-  const float* mrow = bias_base<false>(mask, res, H, T);
+  const float* brow = bias_base<FULL>(bias, res, H, T);
   const int keys_[2] = {k0 + gi, k0 + gi + 8};  // this lane's keys
   float* gw = gbuf + warp * 2 * 16 * LDS;
   float* dw = ddbuf + warp * 2 * 16;
   const bool one_chunk = T <= CHUNK;
 
   split_rows<D>(khi, klo, k + rbase, k0, 16, T, 1.f);
-  float mk[2];
+  float mk[2];  // the key mask's entries (0 with a full bias, read per query)
 #pragma unroll
-  for (int h = 0; h < 2; ++h) mk[h] = (mrow && keys_[h] < T) ? mrow[keys_[h]] : 0.f;
+  for (int h = 0; h < 2; ++h) mk[h] = (!FULL && brow && keys_[h] < T) ? brow[keys_[h]] : 0.f;
   // the block's v rows as the A fragments of dP^T = v.g^T
   float va[KS][4];
 #pragma unroll
@@ -1093,8 +822,12 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) {
             const int qc = j * 8 + 2 * t + (cc & 1);
+            const int key = keys_[cc >> 1];
             float p = 0.f;
-            if (qq0 + qc < T && keys_[cc >> 1] < T) p = expf(s[cc] + mk[cc >> 1] - lses[qc]);
+            if (qq0 + qc < T && key < T) {
+              const float b = FULL ? brow[(long long)(qq0 + qc) * T + key] : mk[cc >> 1];
+              p = expf(s[cc] + b - lses[qc]);
+            }
             pts[(gi + 8 * (cc >> 1)) * LDP + qc] = p;
           }
         }
@@ -1178,21 +911,7 @@ int fwd(const float* q, const float* k, const float* v, const float* bias,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int D, bool FULL>
-int dq_launch(const float* q, const float* k, const float* v, const float* o,
-              const float* lse, const float* g, const float* bias, float* dq,
-              float* dd, float* dbias, int N, int BH, int T, int H, float scale,
-              cudaStream_t stream) {
-  dim3 grid(N, (T + TILE - 1) / TILE);
-  const size_t smem = (size_t)(4 * D * LD + TILE * LD) * sizeof(float);
-  static bool ready = false;
-  int err = launch_prep(flash_dq_kernel<D, FULL>, smem, ready);
-  if (err) return err;
-  flash_dq_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, g, bias, dq, dd, dbias, T, H, BH, scale);
-  return (int)cudaGetLastError();
-}
-
-// Groups of BWD_ROWS cotangent rows per block for K3 and K4, whose blocks
+// Groups of BWD_ROWS cotangent rows per block for K3 and K4 (K3b, K4f), whose blocks
 // take one SM each: the run length G (at most 32) that finishes `jobs`
 // (residual row, 16-row tile) pairs of `groups` groups each in the fewest
 // group-times, ceil(jobs * ceil(groups / G) / SMs) waves of G groups each,
@@ -1211,20 +930,21 @@ int bwd_groups_per_block(int jobs, int groups) {
   return best;
 }
 
-// K3: one block per (residual row, 16 query rows, run of G groups)
-template <int D>
+// K3 (K3b): one block per (residual row, 16 query rows, run of G groups)
+template <int D, bool FULL>
 int dq_mma_launch(const float* q, const float* k, const float* v, const float* o,
-                  const float* lse, const float* g, const float* mask, float* dq,
-                  float* dd, int N, int BH, int T, int H, float scale, cudaStream_t stream) {
+                  const float* lse, const float* g, const float* bias, float* dq,
+                  float* dd, float* dbias, int N, int BH, int T, int H, float scale,
+                  cudaStream_t stream) {
   const int V = N / BH, groups = (V + BWD_ROWS - 1) / BWD_ROWS, tiles = (T + 15) / 16;
   const int G = bwd_groups_per_block(BH * tiles, groups);
   dim3 grid(BH, tiles, (groups + G - 1) / G);
   constexpr size_t smem = dq_mma_smem_bytes<D>();
   static bool ready = false;
-  int err = launch_prep(flash_dq_mma_kernel<D>, smem, ready);
+  int err = launch_prep(flash_dq_mma_kernel<D, FULL>, smem, ready);
   if (err) return err;
-  flash_dq_mma_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(q, k, v, o, lse, g, mask, dq, dd,
-                                                             T, H, BH, V, G, scale);
+  flash_dq_mma_kernel<D, FULL><<<grid, BWD_THREADS, smem, stream>>>(
+      q, k, v, o, lse, g, bias, dq, dd, dbias, T, H, BH, V, G, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1235,44 +955,27 @@ int dq(const float* q, const float* k, const float* v, const float* o,
   if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
   if (FULL && (bias == nullptr || dbias == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (FULL) {
-    if (D == 64) return dq_launch<64, true>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
-    if (D == 32) return dq_launch<32, true>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
-  } else {
-    if (D == 64) return dq_mma_launch<64>(q, k, v, o, lse, g, bias, dq_, dd, N, BH, T, H, scale, st);
-    if (D == 32) return dq_mma_launch<32>(q, k, v, o, lse, g, bias, dq_, dd, N, BH, T, H, scale, st);
-  }
+  if (D == 64)
+    return dq_mma_launch<64, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
+  if (D == 32)
+    return dq_mma_launch<32, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// K4 (K4f): one block per (residual row, 16 key rows, run of G groups)
 template <int D, bool FULL>
-int dkv_launch(const float* q, const float* k, const float* v, const float* lse,
-               const float* g, const float* dd, const float* bias, float* dk,
-               float* dv, int N, int BH, int T, int H, float scale,
-               cudaStream_t stream) {
-  dim3 grid(N, (T + TILE - 1) / TILE);
-  const size_t smem = (size_t)(4 * D * LD + 2 * TILE * LD + 2 * TILE) * sizeof(float);
-  static bool ready = false;
-  int err = launch_prep(flash_dkv_kernel<D, FULL>, smem, ready);
-  if (err) return err;
-  flash_dkv_kernel<D, FULL><<<grid, THREADS, smem, stream>>>(q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, scale);
-  return (int)cudaGetLastError();
-}
-
-// K4: one block per (residual row, 16 key rows, run of G groups)
-template <int D>
 int dkv_mma_launch(const float* q, const float* k, const float* v, const float* lse,
-                   const float* g, const float* dd, const float* mask, float* dk,
+                   const float* g, const float* dd, const float* bias, float* dk,
                    float* dv, int N, int BH, int T, int H, float scale, cudaStream_t stream) {
   const int V = N / BH, groups = (V + BWD_ROWS - 1) / BWD_ROWS, tiles = (T + 15) / 16;
   const int G = bwd_groups_per_block(BH * tiles, groups);
   dim3 grid(BH, tiles, (groups + G - 1) / G);
   constexpr size_t smem = dkv_mma_smem_bytes<D>();
   static bool ready = false;
-  int err = launch_prep(flash_dkv_mma_kernel<D>, smem, ready);
+  int err = launch_prep(flash_dkv_mma_kernel<D, FULL>, smem, ready);
   if (err) return err;
-  flash_dkv_mma_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(q, k, v, lse, g, dd, mask, dk, dv,
-                                                              T, H, BH, V, G, scale);
+  flash_dkv_mma_kernel<D, FULL><<<grid, BWD_THREADS, smem, stream>>>(
+      q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, V, G, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1283,13 +986,8 @@ int dkv(const float* q, const float* k, const float* v, const float* lse,
   if (N < 1 || BH < 1 || N % BH != 0 || T < 1 || (FULL && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (FULL) {
-    if (D == 64) return dkv_launch<64, true>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
-    if (D == 32) return dkv_launch<32, true>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
-  } else {
-    if (D == 64) return dkv_mma_launch<64>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
-    if (D == 32) return dkv_mma_launch<32>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
-  }
+  if (D == 64) return dkv_mma_launch<64, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
+  if (D == 32) return dkv_mma_launch<32, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,12 +15,13 @@ On the main path the backward dominates: the explainer folds its T_out
 vmapped cotangent rows into the batch, so K3 and K4 see about 1,800
 (row, head) pairs of [149, 64] float32 per layer and per draw, 149 of them
 on each residual row. They do 14*T*T*D operations per pair on O(T*D)
-bytes, so operations bound them. K3 and K4 run every product on the
-tensor cores in 3xTF32 (the rounding of ``conv_dgrad.tf32_split``) and
-compute each residual row's probabilities once for a run of groups of 8
-of its cotangent rows; K3b and K4f run float32 FMAs. Each kernel keeps its
-scores and probabilities in registers and shared memory, never in device
-memory (see the source note).
+bytes, so operations bound them. K3 and K4, and their full-bias variants
+K3b and K4f (the same templates), run every product on the tensor cores in
+3xTF32 (the rounding of ``conv_dgrad.tf32_split``) and compute each
+residual row's probabilities once for a run of groups of 8 of its
+cotangent rows. Each kernel keeps its scores and probabilities in
+registers and shared memory, never in device memory (see the source note);
+K3b writes its d(bias) = ds [N, T, T] from the registers it forms ds in.
 The forward is a few MFLOP per launch, so its time is latency: K2 holds the
 head's whole key row in shared memory, runs a single-pass softmax and both
 products on the tensor cores in 3xTF32 (the rounding of

@@ -16,10 +16,10 @@ own lines:
 2. hold each kernel against its plain PyTorch version on the card, float32,
    at its path's shapes, with the tolerance stated beside it (the full-bias
    kernels with a rel-pos-like bias, and with the same bias masked; the
-   flash forward also at 100 and 500 keys; K3 and K4 also at one and 37
-   cotangent rows per residual row, five clips with a mask length each,
-   100 and 500 keys and D = 32; K1, K3 and K4 and their plain versions also
-   against float64);
+   flash forward also at 100 and 500 keys; K3 and K4, and K3b and K4f with
+   a rel-pos-like bias, also at one and 37 cotangent rows per residual row,
+   five clips with a mask length each, 100 and 500 keys and D = 32; K1, K3
+   and K4, K3b and K4f and their plain versions also against float64);
 3. drive each path: run_shap_pipeline on a 48,000-sample clip and its 5 dB
    white-noise mix, 4 expected-gradients draws each, with the launch counts
    set to 0 just before and read just after; check phi, the store and the
@@ -38,11 +38,13 @@ own lines:
    line are per draw of its path: the sum over the launches one draw makes
    (K1 once per eligible conv layer, the flash kernels once per encoder
    layer); its "launches" is the count from its path's pipeline run of
-   phase 3. K1, the flash forward (K2, K2f), K3 and K4 run on the tensor
-   cores in 3xTF32, so their bound is three TF32 products per float32
-   product at the TF32 peak, or their bytes ("operations (3xTF32)" or
-   "bytes"); the log gives their float32 FMA bound beside it. K3b and K4f
-   run float32 FMAs and keep the float32 FMA bound.
+   phase 3. Every kernel (K1, the flash forward K2 and K2f, the flash
+   backward K3, K4, K3b and K4f) runs on the tensor cores in 3xTF32, so
+   its bound is three TF32 products per float32 product at the TF32 peak,
+   or its bytes ("operations (3xTF32)" or "bytes"); the log gives its
+   float32 FMA bound beside it. The flash backward's yardstick is SDPA's
+   backward alone on the same inputs (its forward run once, outside the
+   timing); forward plus backward is logged beside it.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -332,14 +334,32 @@ def mask_lengths(b: int, t: int, lengths) -> torch.Tensor:
     return bias
 
 
-def check_bwd_shapes(gen, h: int) -> dict:
-    """K3 and K4 against their plain versions where the grouped kernels can
-    break, each case unmasked and masked: one cotangent row per residual row
-    (N = BH); 37 rows per residual row (the last group of 8 warps part
-    empty); five clips with a mask length each; 100 keys (a partial chunk)
-    and 500 keys with the last 200 masked (several chunks); and D = 32."""
+def full_bias_lengths(gen, q, h: int, lengths) -> torch.Tensor:
+    """A rel-pos-like [BH, T, T] bias (``rel_pos_bias``) whose clip i (heads
+    i*h to (i+1)*h) has every key from lengths[i] on at -1e9."""
+    bias = rel_pos_bias(gen, q, False)
+    for i, n in enumerate(lengths):
+        bias[i * h:(i + 1) * h, :, n:] = -1e9
+    return bias
+
+
+def bwd_kernel_names(full: bool):
+    """The counters (and JSON names) of the dq and dk/dv kernels: K3b and
+    K4f for a full bias, else K3 and K4."""
+    return ("flash_dq_dbias", "flash_dkv_bias") if full else ("flash_dq", "flash_dkv")
+
+
+def check_bwd_shapes(gen, h: int, full: bool = False) -> dict:
+    """K3 and K4 (``full``: K3b and K4f, with a rel-pos-like bias) against
+    their plain versions where the grouped kernels can break, each case
+    unmasked and masked: one cotangent row per residual row (N = BH); 37
+    rows per residual row (the last group of 8 warps part empty); five
+    clips with a mask length each; 100 keys (a partial chunk) and 500 keys
+    with the last 200 masked (several chunks); and D = 32. With a full bias
+    d(bias) is compared too, and must be exactly 0 on masked keys."""
     why = "float32 backward sums over T keys, another summation order"
-    errs = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    dq_name, dkv_name = bwd_kernel_names(full)
+    errs = {dq_name: 0.0, dkv_name: 0.0}
     # (clips B, keys T, head dim D, cotangent rows per residual row, mask lengths)
     cases = [(1, 149, 64, 1, [120]), (1, 149, 64, 37, [120]),
              (5, 149, 64, 8, [149, 131, 100, 77, 16]), (1, 100, 64, 8, [71]),
@@ -347,59 +367,79 @@ def check_bwd_shapes(gen, h: int) -> dict:
     for b, t, d, v_rows, lengths in cases:
         for masked in (False, True):
             q, k, v, _, g = flash_inputs(gen, b, h, t, d, v_rows, False)
-            bias = mask_lengths(b, t, lengths) if masked else None
+            if full:
+                bias = full_bias_lengths(gen, q, h, lengths if masked else [])
+            else:
+                bias = mask_lengths(b, t, lengths) if masked else None
             o, lse = fa.flash_fwd_plain(q, k, v, bias, h)
             label = f"B={b} T={t} D={d} N={g.shape[0]} ({v_rows} per residual row) mask={masked}"
-            dq, dd, _ = fa.flash_dq(q, k, v, o, lse, g, bias, h)
-            dq_p, dd_p, _ = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
-            errs["flash_dq"] = max(errs["flash_dq"],
-                                   compare(f"flash_dq dq {label}", dq, dq_p, 5e-5, 5e-4, why),
-                                   compare(f"flash_dq dd {label}", dd, dd_p, 5e-5, 5e-4, why))
+            dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+            dq_p, dd_p, dbias_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
+            errs[dq_name] = max(errs[dq_name],
+                                compare(f"{dq_name} dq {label}", dq, dq_p, 5e-5, 5e-4, why),
+                                compare(f"{dq_name} dd {label}", dd, dd_p, 5e-5, 5e-4, why))
+            if full:
+                errs[dq_name] = max(errs[dq_name], compare(
+                    f"{dq_name} dbias {label}", dbias, dbias_p, 5e-5, 5e-4, why))
+                if masked:
+                    planes = dbias.reshape(v_rows, b, h, t, t)
+                    check(all(bool((planes[:, i, :, :, n:] == 0).all())
+                              for i, n in enumerate(lengths)),
+                          f"{dq_name} {label}: d(bias) not 0 on masked keys")
+            del dq, dd, dbias, dq_p, dbias_p
             dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h)
             dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)
-            errs["flash_dkv"] = max(errs["flash_dkv"],
-                                    compare(f"flash_dkv dk {label}", dk, dk_p, 5e-5, 5e-4, why),
-                                    compare(f"flash_dkv dv {label}", dv, dv_p, 5e-5, 5e-4, why))
-            del q, k, v, g, o, lse, dq, dd, dq_p, dd_p, dk, dv, dk_p, dv_p
+            errs[dkv_name] = max(errs[dkv_name],
+                                 compare(f"{dkv_name} dk {label}", dk, dk_p, 5e-5, 5e-4, why),
+                                 compare(f"{dkv_name} dv {label}", dv, dv_p, 5e-5, 5e-4, why))
+            del q, k, v, g, bias, o, lse, dd_p, dk, dv, dk_p, dv_p
     return errs
 
 
-def bwd_float64_check(gen, h: int, d: int, t: int, rows: int) -> dict:
-    """K3 and K4 and their float32 plain versions against the plain
-    versions in float64, at the main-path shape: the accuracy of 3xTF32 on
-    the card's tensor cores beside float32's. Each is held to the backward's
-    tolerance, and K3's dq and K4's dk and dv each to at most twice the
-    plain version's error. The float32 runs take o, lse and dd from the
-    float64 runs, rounded to float32."""
+def bwd_float64_check(gen, h: int, d: int, t: int, rows: int, full: bool = False) -> dict:
+    """K3 and K4 (``full``: K3b and K4f, with a rel-pos-like bias) and their
+    float32 plain versions against the plain versions in float64, at the
+    path's shape: the accuracy of 3xTF32 on the card's tensor cores beside
+    float32's. Each is held to the backward's tolerance, and dq, dk, dv
+    (and d(bias)) each to at most twice the plain version's error. The
+    float32 runs take o, lse and dd from the float64 runs, rounded to
+    float32."""
     q, k, v, _, g = flash_inputs(gen, 1, h, t, d, rows, False)
+    bias = rel_pos_bias(gen, q, False) if full else None
     q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
-    o64, lse64 = fa.flash_fwd_plain(q64, k64, v64, None, h)
-    dq64, dd64, _ = fa.flash_dq_plain(q64, k64, v64, o64, lse64, g64, None, h)
-    dk64, dv64 = fa.flash_dkv_plain(q64, k64, v64, lse64, g64, dd64, None, h)
+    b64 = None if bias is None else bias.double()
+    o64, lse64 = fa.flash_fwd_plain(q64, k64, v64, b64, h)
+    dq64, dd64, db64 = fa.flash_dq_plain(q64, k64, v64, o64, lse64, g64, b64, h)
+    dk64, dv64 = fa.flash_dkv_plain(q64, k64, v64, lse64, g64, dd64, b64, h)
     o, lse, dd = o64.float(), lse64.float(), dd64.float()
     runs = {"kernel": (fa.flash_dq, fa.flash_dkv),
             "plain": (fa.flash_dq_plain, fa.flash_dkv_plain)}
     why = "the backward's tolerance, against the exact sum"
+    label = "flash backward, full bias," if full else "flash backward"
+    names = ("dq", "dk", "dv") + (("dbias",) if full else ())
     errs = {}
     for key, (dq_fn, dkv_fn) in runs.items():
-        dq = dq_fn(q, k, v, o, lse, g, None, h)[0]
-        dk, dv = dkv_fn(q, k, v, lse, g, dd, None, h)
-        for name, got, want in (("dq", dq, dq64), ("dk", dk, dk64), ("dv", dv, dv64)):
-            errs[key, name] = compare(f"flash backward {name} N={g.shape[0]} T={t}: {key} "
+        dq, _, dbias = dq_fn(q, k, v, o, lse, g, bias, h)
+        dk, dv = dkv_fn(q, k, v, lse, g, dd, bias, h)
+        outs = {"dq": (dq, dq64), "dk": (dk, dk64), "dv": (dv, dv64), "dbias": (dbias, db64)}
+        for name in names:
+            got, want = outs[name]
+            errs[key, name] = compare(f"{label} {name} N={g.shape[0]} T={t}: {key} "
                                       f"(float32) vs float64", got.double(), want,
                                       5e-5, 5e-4, why)
-        del dq, dk, dv
-    for name in ("dq", "dk", "dv"):
+        del dq, dk, dv, dbias, outs
+    for name in names:
         kern, plain = errs["kernel", name], errs["plain", name]
-        log(f"flash backward {name} vs float64: kernel {kern:.3e}, float32 plain "
+        log(f"{label} {name} vs float64: kernel {kern:.3e}, float32 plain "
             f"{plain:.3e} (ratio {kern / plain:.2f})")
-        check(kern <= 2 * plain, f"flash backward {name}: 3xTF32 error over 2x float32's "
+        check(kern <= 2 * plain, f"{label} {name}: 3xTF32 error over 2x float32's "
               "against float64")
-    return {"flash_dq": {"err_vs_float64": errs["kernel", "dq"],
-                         "plain_err_vs_float64": errs["plain", "dq"]},
-            "flash_dkv": {"err_vs_float64": max(errs["kernel", "dk"], errs["kernel", "dv"]),
-                          "plain_err_vs_float64": max(errs["plain", "dk"],
-                                                      errs["plain", "dv"])}}
+    # each JSON row takes the largest error over its kernel's outputs
+    dq_name, dkv_name = bwd_kernel_names(full)
+    per_kernel = {dq_name: ("dq",) + names[3:], dkv_name: ("dk", "dv")}
+    return {kname: {"err_vs_float64": max(errs["kernel", x] for x in kouts),
+                    "plain_err_vs_float64": max(errs["plain", x] for x in kouts)}
+            for kname, kouts in per_kernel.items()}
 
 
 def phase_checks(cfg: Wav2Vec2Config):
@@ -470,7 +510,8 @@ def phase_checks(cfg: Wav2Vec2Config):
 
 def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig):
     """K2f, K3b and K4f against their plain versions at the conformer
-    slice's shapes: BH = 16, T = 149, D = 64, N = 149 * 16 = 2,384."""
+    slice's shapes: BH = 16, T = 149, D = 64, N = 149 * 16 = 2,384; K3b and
+    K4f also over ``check_bwd_shapes``'s sweep and against float64."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = cfg.frames_for_samples(N_SAMPLES)
     h, d, t = cfg.num_attention_heads, cfg.head_dim, rows
@@ -506,7 +547,9 @@ def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig):
             compare(f"flash_dkv_bias dk N={n} masked={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
             compare(f"flash_dkv_bias dv N={n} masked={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
         del q, k, v, g, bias, dk, dv, dk_p, dv_p
-    return errs
+    for key, err in check_bwd_shapes(gen, h, full=True).items():
+        errs[key] = max(errs[key], err)
+    return errs, bwd_float64_check(gen, h, d, t, rows, full=True)
 
 
 def make_test_set():
@@ -650,8 +693,8 @@ def _to_cuda(tree):
 
 
 PROFILE_GROUPS = (
-    ("port kernels", ("dgrad_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-                      "flash_dkv_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
+    ("port kernels", ("dgrad_kernel", "flash_fwd_kernel", "flash_dq_mma_kernel",
+                      "flash_dkv_mma_kernel")),
     ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft", "depthwise")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
 )
@@ -693,8 +736,10 @@ def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> None:
         groups[_profile_group(key)] = groups.get(_profile_group(key), 0.0) + ms
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"profile group {g}: {ms:.2f} ms per draw ({100 * ms / busy:.1f}% of busy)")
-    for ms, count, key in rows[:12]:
-        log(f"profile kernel {ms:9.3f} ms/draw {count:6.1f} calls/draw  {key[:100]}")
+    # the 12 longest, and every port kernel
+    for i, (ms, count, key) in enumerate(rows):
+        if i < 12 or _profile_group(key) == "port kernels":
+            log(f"profile kernel {ms:9.3f} ms/draw {count:6.1f} calls/draw  {key[:100]}")
 
 
 def phase_timing(cfg: PipelineConfig, params, test_set):
@@ -869,12 +914,18 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
     fwd_host = host_ms(fwd), host_ms(lambda: fa.flash_fwd_plain(q, k, v, bias, h))
     lib_fwd, lib_fwd_best = host_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4))
-    # the yardstick of the backward: one SDPA forward and backward with a
-    # float mask that requires grad, over the 149 cotangent rows as a batch
+    # the yardstick of the backward: SDPA with a float mask that requires
+    # grad, over the 149 cotangent rows as a batch: its backward alone (dq,
+    # dk, dv, d(mask)) from one forward kept for it, as on the base path,
+    # and forward plus backward (logged)
     qe, ke, ve = (x.expand(rows, h, t, d).contiguous().requires_grad_() for x in (q4, k4, v4))
     be = b4.expand(rows, h, t, t).contiguous().requires_grad_()
     g4 = g.reshape(rows, h, t, d)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
+    oe = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve, be), g4, retain_graph=True),
+                      10)
+    del oe
+    lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be), (qe, ke, ve, be), g4), 10)
     del qe, ke, ve, be
     costs = flash_costs(h, n, t, d)
@@ -885,30 +936,35 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
         ("flash_fwd_bias", None, None, 50, lib_fwd, "SDPA forward, float mask"),
         ("flash_dq_dbias", lambda: fa.flash_dq(q, k, v, o, lse, g, bias, h),
          lambda: fa.flash_dq_plain(q, k, v, o, lse, g, bias, h), 10, lib_bwd,
-         "SDPA forward+backward, dq+dk+dv+d(mask)"),
+         "SDPA backward, dq+dk+dv+d(mask)"),
         ("flash_dkv_bias", lambda: fa.flash_dkv(q, k, v, lse, g, dd, bias, h),
          lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd, bias, h), 10, lib_bwd,
-         "SDPA forward+backward, dq+dk+dv+d(mask)"),
+         "SDPA backward, dq+dk+dv+d(mask)"),
     ):
         fl, nb = costs[name]
+        # all three run on the tensor cores in 3xTF32, like K1
+        b_ms, b_by = bound_3xtf32(fl, nb)
         if name == "flash_fwd_bias":
-            # the forward runs on the tensor cores in 3xTF32, like K1
             (ms, ms_best), (pms, pms_best) = fwd_host
-            b_ms, b_by = bound_3xtf32(fl, nb)
             dms = fwd_dms
-            more = (f" device_ms={dms:.5f} fma_bound_ms={bound(fl, nb)[0]:.5f}; best of "
+            more = (f" device_ms={dms:.5f}; best of "
                     f"{HOST_REPEATS}: ms={ms_best:.4f} plain_ms={pms_best:.4f} "
                     f"library_ms={lib_fwd_best:.4f}")
         else:
             ms, pms = time_ms(fn, iters), time_ms(pfn, iters)
-            b_ms, b_by = bound(fl, nb)
-            dms, more = None, ""
+            dms = None
+            more = f" library_ms(SDPA forward+backward)={lib_fwd_bwd:.4f}"
         log(f"timing {name} BH={h} N={n} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
             f"library_ms({lib_what})={lms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
-            f"TFLOP/s={fl / ms / 1e9:.2f}" + more)
+            f"fma_bound_ms={bound(fl, nb)[0]:.5f} TFLOP/s={fl / ms / 1e9:.2f}" + more)
         out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
                          bound_by=b_by, library_ms=layers * lms,
                          device_ms=None if dms is None else layers * dms)
+    pair = out["flash_dq_dbias"]["ms"] + out["flash_dkv_bias"]["ms"]
+    log(f"timing K3b + K4f per draw: {pair:.4f} ms ({layers} launches each) against the SDPA "
+        f"backward (dq+dk+dv+d(mask), same inputs) per draw {layers * lib_bwd:.4f} ms "
+        f"(ratio {pair / (layers * lib_bwd):.3f}); SDPA forward+backward per draw "
+        f"{layers * lib_fwd_bwd:.4f} ms")
     del q, k, v, g, bias, o, lse, dd
     time_slice("conformer", cfg, params, test_set, gen, {**out, "conv_dgrad": k1_row})
     return out
@@ -941,7 +997,9 @@ def main() -> int:
     # yardsticks all run in float32
     with highest_precision(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
         errs, extra = phase_checks(model)
-        errs.update(phase_checks_full_bias(conformer))
+        full_errs, full_extra = phase_checks_full_bias(conformer)
+        errs.update(full_errs)
+        extra.update(full_extra)
         test_set = make_test_set()
 
         cfg = PipelineConfig(model=model, explainer=explainer, seed=SEED,

@@ -179,48 +179,57 @@ def _mm_tf32(a, b):
     return conv_dgrad.tf32_round(a) @ conv_dgrad.tf32_round(b)
 
 
-def _flash_backward(q, k, v, o, lse, g, mask, mm_scores, mm):
-    """K3's dq and K4's dk, dv with the scores' product ``mm_scores`` and
-    every other product (dP, dq, dk, dv) ``mm``; g [V, BH, T, D] reads
-    residual row BH, as in the kernels."""
+def _flash_backward(q, k, v, o, lse, g, bias, mm_scores, mm):
+    """K3's dq and K4's dk, dv, then ds (K3b's d(bias)), with the scores'
+    product ``mm_scores`` and every other product (dP, dq, dk, dv)
+    ``mm``; g [V, BH, T, D] reads residual row BH, as in the kernels;
+    ``bias`` a [T] key mask or a full [BH, T, T] score bias."""
     scale = q.shape[-1] ** -0.5
-    p = torch.exp(mm_scores(q * scale, k.transpose(1, 2)) + mask - lse[..., None])
+    p = torch.exp(mm_scores(q * scale, k.transpose(1, 2)) + bias - lse[..., None])
     dd = (g * o).sum(-1)
     ds = p * (mm(g, v.transpose(1, 2)) - dd[..., None])
-    return scale * mm(ds, k), mm(ds.transpose(-1, -2), q * scale), mm(p.transpose(1, 2), g)
+    return (scale * mm(ds, k), mm(ds.transpose(-1, -2), q * scale),
+            mm(p.transpose(1, 2), g), ds)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_flash_backward_3xtf32_keeps_the_card_checks_tolerance(rng, masked):
-    """The numeric contract of the tensor-core K3 and K4: scores, dP, dq, dk
-    and dv each in 3xTF32 stay within the card check's backward tolerance
-    of float64 (atol 5e-5, rtol 5e-4), with at most twice plain float32's
-    error; one TF32 product for dP, dq, dk and dv (the scores still in
-    3xTF32) does not. T = 149, D = 64, as on the main path; BH = 2 with 4
-    cotangent rows per residual row; ``masked``: the last 29 keys at -1e9."""
+# the mask cases keep their ids; "full" is a [BH, T, T] score bias (K3b, K4f)
+@pytest.mark.parametrize("full,masked", [
+    pytest.param(False, False, id="False"), pytest.param(False, True, id="True"),
+    pytest.param(True, False, id="full-False"), pytest.param(True, True, id="full-True")])
+def test_flash_backward_3xtf32_keeps_the_card_checks_tolerance(rng, full, masked):
+    """The numeric contract of the tensor-core K3 and K4 (and of K3b and
+    K4f, with a full bias): scores, dP, dq, dk and dv each in 3xTF32 stay
+    within the card check's backward tolerance of float64 (atol 5e-5, rtol
+    5e-4), with at most twice plain float32's error, and so does d(bias) =
+    ds with a full bias; one TF32 product for dP, dq, dk and dv (the scores
+    still in 3xTF32) does not. T = 149, D = 64, as on the main paths; BH = 2
+    with 4 cotangent rows per residual row; the bias a key mask of zeros or
+    a unit-normal [BH, T, T] score bias; ``masked``: the last 29 keys at
+    -1e9."""
     bh, t, d, rows = 2, 149, 64, 4
     q, k, v = (_t(rng.standard_normal((bh, t, d))) for _ in range(3))
     g = _t(rng.standard_normal((rows, bh, t, d)))
-    mask = torch.zeros(t)
+    bias = _t(rng.standard_normal((bh, t, t))) if full else torch.zeros(t)
     if masked:
-        mask[t - 29:] = -1e9
+        bias[..., t - 29:] = -1e9
     o64, lse64 = fa.flash_fwd_plain(q.double(), k.double(), v.double(),
-                                    mask.double()[None], bh)
+                                    bias.double() if full else bias.double()[None], bh)
     ref = _flash_backward(q.double(), k.double(), v.double(), o64, lse64, g.double(),
-                          mask.double(), torch.matmul, torch.matmul)
-    args = (q, k, v, o64.float(), lse64.float(), g, mask)
+                          bias.double(), torch.matmul, torch.matmul)
+    args = (q, k, v, o64.float(), lse64.float(), g, bias)
     three = _flash_backward(*args, _mm_3xtf32, _mm_3xtf32)
     f32 = _flash_backward(*args, torch.matmul, torch.matmul)
     one_product = _flash_backward(*args, _mm_3xtf32, _mm_tf32)
+    held = 4 if full else 3  # ds is an output (d(bias)) only with a full bias
 
     def excess(x, want):  # > 0: outside atol + rtol * |want|
         return float(((x.double() - want).abs() - 5e-4 * want.abs()).max()) - 5e-5
 
-    for got, plain, want in zip(three, f32, ref):
+    for got, plain, want in list(zip(three, f32, ref))[:held]:
         assert excess(got, want) <= 0
         assert (float((got.double() - want).abs().max())
                 <= 2 * float((plain.double() - want).abs().max()))
-    assert all(excess(x, want) > 0 for x, want in zip(one_product, ref))
+    assert all(excess(x, want) > 0 for x, want in list(zip(one_product, ref))[:held])
 
 
 def _full_bias(rng, shape, masked_keys=0):
