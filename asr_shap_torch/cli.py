@@ -1,0 +1,338 @@
+"""Command-line entry points of the port, ``python -m asr_shap_torch``:
+
+  run-shap   : build the controlled test set, compute and persist
+               attributions (expected gradients)
+  sweep      : eta_raw-vs-WER sweep over the store, with correlation
+               statistics
+  metric     : single-sample eta_raw from stored npy files
+  transcribe : greedy CTC transcription of wav/npy clips
+
+The flags, defaults and printed JSON lines are the reference package's
+(``python -m asr_shap``), plus ``--device {cuda,cpu}``: every command runs
+on the GPU unless asked for the CPU, and raises where there is no GPU.
+Options the port does not have yet raise ``NotImplementedError`` before any
+work, naming the ``ROADMAP.md`` item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+logger = logging.getLogger(__name__)
+
+
+def _add_device_arg(ap):
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where to run (default cuda; no fallback to the CPU)")
+
+
+def _add_model_args(ap):
+    ap.add_argument("--arch", choices=["wav2vec2", "w2v2-conformer"],
+                    default="wav2vec2",
+                    help="model family (w2v2-conformer = the rel-pos conformer)")
+    ap.add_argument("--params", type=str, default=None,
+                    help=".npz params archive (core/params_io.py); its embedded "
+                         "config beats the preset flags")
+    ap.add_argument("--hf", type=str, default=None,
+                    help="HF checkpoint name/path (not ported)")
+    ap.add_argument("--random-init", action="store_true",
+                    help="random weights from seed 0 (smoke runs)")
+    ap.add_argument("--tiny", action="store_true",
+                    help="tiny architecture (CPU smoke runs; x10 downsample)")
+    ap.add_argument("--small", action="store_true",
+                    help="small architecture with the full 7-layer conv stack "
+                         "(x320 downsample, realistic frame counts)")
+    ap.add_argument("--hidden", type=int, default=0,
+                    help="override encoder hidden size of --tiny/--small")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override encoder layer count of --tiny/--small")
+    ap.add_argument("--heads", type=int, default=0,
+                    help="override attention head count of --tiny/--small")
+    ap.add_argument("--conv-channels", type=int, default=0,
+                    help="override conv feature-encoder channels of --tiny/--small")
+    _add_device_arg(ap)
+
+
+def _check_model_args(args):
+    if args.hf:
+        raise NotImplementedError(
+            "--hf is not ported (ROADMAP.md queue 1, 'After these': the "
+            "state-dict converters of models/convert_hf.py)")
+
+
+def _preset_config(args):
+    """The model config of the preset flags (--arch, --tiny/--small and
+    their overrides), the reference CLI's exactly."""
+    from asr_shap_torch.core.config import Wav2Vec2Config, Wav2Vec2ConformerConfig
+
+    conformer = args.arch == "w2v2-conformer"
+    small_kw = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=128)
+    if args.hidden:
+        small_kw["hidden_size"] = args.hidden
+        small_kw["intermediate_size"] = 2 * args.hidden
+    if args.layers:
+        small_kw["num_hidden_layers"] = args.layers
+    if args.heads:
+        small_kw["num_attention_heads"] = args.heads
+    cc = args.conv_channels or 32
+    # the projection maps conv_dim[-1] -> hidden, so it tracks the channels
+    small_kw["feat_proj_dim"] = cc
+    if args.tiny:
+        kw = dict(small_kw, conv_dim=(cc, cc), conv_stride=(5, 2), conv_kernel=(10, 3))
+    elif args.small:
+        kw = dict(small_kw, conv_dim=(cc,) * 7)
+    else:
+        kw = None
+    if conformer:
+        return (Wav2Vec2ConformerConfig(**kw, conv_depthwise_kernel_size=7)
+                if kw else Wav2Vec2ConformerConfig())
+    if kw:
+        return Wav2Vec2Config(**kw, num_conv_pos_embeddings=16,
+                              num_conv_pos_embedding_groups=4)
+    return Wav2Vec2Config()
+
+
+def _load_model(args):
+    """(params on the device, model config). An archive's embedded config
+    beats the preset flags: the weights know what they are."""
+    from asr_shap_torch.core.config import Wav2Vec2ConformerConfig
+    from asr_shap_torch.core.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _preset_config(args)
+    if args.params:
+        from asr_shap_torch.core.params_io import load_config, load_params
+
+        embedded = load_config(args.params)
+        return load_params(args.params, device=device), embedded or cfg
+    if not args.random_init:
+        logger.warning("no --params given; falling back to random init "
+                       "(transcripts will be garbage; fine for runtime testing)")
+    if isinstance(cfg, Wav2Vec2ConformerConfig):
+        from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
+
+        return init_w2v2_conformer_params(0, cfg, device=device), cfg
+    from asr_shap_torch.models.wav2vec2 import init_wav2vec2_params
+
+    return init_wav2vec2_params(0, cfg, device=device), cfg
+
+
+def cmd_run_shap(args):
+    from asr_shap_torch.core.config import ExplainerConfig, PipelineConfig, TestSetConfig
+    from asr_shap_torch.core.store import AttributionStore
+    from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
+    from asr_shap_torch.pipeline.testset import create_test_set
+
+    _check_model_args(args)
+    if args.method != "grad":
+        raise NotImplementedError(
+            f"--method {args.method} is not ported (ROADMAP.md queue 1, 'The "
+            "other explainers')")
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh is not ported (ROADMAP.md queue 1, 'After these': scale-out)")
+    if args.sample_batch or args.async_writes:
+        logger.info("--sample-batch %d / --async-writes %s: accepted, results are the "
+                    "same; the port explains one sample at a time and writes "
+                    "synchronously", args.sample_batch, args.async_writes)
+    params, cfg = _load_model(args)
+    tcfg = TestSetConfig(num_samples=args.num_samples, snrs_db=tuple(args.snrs),
+                         min_length=args.min_length, max_length=args.max_length,
+                         seed=args.seed, noise_kind=args.noise_kind)
+    pcfg = PipelineConfig(
+        model=cfg,
+        explainer=ExplainerConfig(nsamples=args.nsamples, draw_chunk=args.draw_chunk,
+                                  output_chunk=args.output_chunk,
+                                  host_draw_chunk=args.host_draw_chunk,
+                                  method=args.method,
+                                  num_background=args.num_background,
+                                  kmeans_background=args.kmeans,
+                                  kernel_num_segments=args.kernel_segments,
+                                  lime_num_samples=args.nsamples,
+                                  lime_num_segments=args.kernel_segments),
+        testset=tcfg, data_dir=args.data_dir, seed=args.seed,
+        sample_batch=args.sample_batch,
+    )
+    test_set = create_test_set(tcfg)
+    store = AttributionStore(args.data_dir)
+    results = run_shap_pipeline(params, pcfg, test_set, store,
+                                resume=not args.no_resume, device=args.device)
+    print(json.dumps({
+        "computed": len(results),
+        "total_wall_s": round(sum(r["wall_s"] for r in results), 2),
+        "data_dir": args.data_dir,
+    }))
+
+
+def cmd_sweep(args):
+    from asr_shap_torch.core.config import MetricConfig, Wav2Vec2ConformerConfig
+    from asr_shap_torch.core.store import AttributionStore
+    from asr_shap_torch.pipeline.sweep import eta_wer_sweep, sweep_summary
+
+    _check_model_args(args)
+    if args.plot:
+        raise NotImplementedError(
+            f"--plot {args.plot}: the scatter plot is not ported (ROADMAP.md queue "
+            "1, 'After these': viz/*); pass --plot ''")
+    params, cfg = _load_model(args)
+    if (args.arch == "w2v2-conformer") != isinstance(cfg, Wav2Vec2ConformerConfig):
+        raise ValueError(f"--arch {args.arch} disagrees with the archive's "
+                         f"{type(cfg).__name__}")
+    store = AttributionStore(args.data_dir)
+    mcfg = MetricConfig(segment_ms=args.segment_ms, percentile=args.percentile,
+                        itm_variant=args.itm)
+    records = eta_wer_sweep(params, cfg, store, mcfg, batch=args.batch,
+                            device=args.device)
+    for r in records:
+        print(json.dumps(r))
+    summary = sweep_summary(records)
+    # the headline r leaves out the snr=inf rows, whose eta_raw is 1 by construction
+    print(json.dumps({"pearson_r": summary["pearson_r_noisy"],
+                      "n": len(records), **summary}))
+
+
+def cmd_metric(args):
+    import numpy as np
+    import torch
+
+    from asr_shap_torch.core.config import MetricConfig
+    from asr_shap_torch.core.device import resolve_device
+    from asr_shap_torch.metrics.eta_raw import eta_raw
+
+    device = resolve_device(args.device)
+    mixed = np.load(args.audio)
+    noise = np.load(args.noise)
+    shap = np.load(args.shap)
+    clean = mixed - noise
+    mcfg = MetricConfig(segment_ms=args.segment_ms, percentile=args.percentile,
+                        itm_variant=args.itm)
+    val = float(eta_raw(*(torch.from_numpy(a).to(device) for a in (clean, noise, shap)),
+                        mcfg))
+    print(json.dumps({"eta_raw": val, "segment_ms": args.segment_ms,
+                      "percentile": args.percentile, "itm": args.itm}))
+
+
+def cmd_transcribe(args):
+    import numpy as np
+    import torch
+
+    from asr_shap_torch.audio.normalize import zero_mean_unit_var
+    from asr_shap_torch.audio.resample import resample
+    from asr_shap_torch.core.device import highest_precision, resolve_device
+    from asr_shap_torch.metrics.confidence import mean_max_softmax_confidence
+    from asr_shap_torch.models.heads import model_logits_fn
+    from asr_shap_torch.ops.ctc import ctc_greedy_decode, ctc_ids_to_text
+    from asr_shap_torch.viz.wav_io import read_wav
+
+    _check_model_args(args)
+    params, cfg = _load_model(args)
+    device = resolve_device(args.device)
+    logits_fn = model_logits_fn(cfg)
+    for path in args.inputs:
+        if path.endswith(".npy"):
+            audio = np.load(path).astype(np.float32).ravel()
+            sr = args.sr
+        else:
+            audio, sr = read_wav(path)
+            audio = np.asarray(audio, np.float32).ravel()
+        if sr != 16_000:
+            audio = resample(torch.from_numpy(audio), sr, 16_000).numpy()
+        x = zero_mean_unit_var(torch.from_numpy(audio).to(device))[None]
+        with torch.no_grad(), highest_precision():
+            logits = logits_fn(params, cfg, x)
+        ids, keep = ctc_greedy_decode(logits)
+        text = ctc_ids_to_text(ids[0], keep[0])
+        conf = float(mean_max_softmax_confidence(logits[0]))
+        print(json.dumps({
+            "path": path,
+            "transcript": text,
+            "confidence": round(conf, 4),
+            "samples": int(audio.shape[0]),
+            "frames": int(logits.shape[1]),
+        }))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="asr_shap_torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("run-shap", help="compute+persist attributions")
+    _add_model_args(p)
+    p.add_argument("--data-dir", default="data")
+    p.add_argument("--num-samples", type=int, default=20)
+    p.add_argument("--snrs", type=float, nargs="+", default=[5.0, 2.0, 1.0])
+    p.add_argument("--min-length", type=int, default=100_000)
+    p.add_argument("--max-length", type=int, default=0)
+    p.add_argument("--noise-kind", choices=["white", "pink", "babble"], default="white",
+                   help="noise family mixed at each SNR")
+    p.add_argument("--nsamples", type=int, default=200)
+    p.add_argument("--draw-chunk", type=int, default=1)
+    p.add_argument("--output-chunk", type=int, default=128,
+                   help="cotangent rows per backward batch (0 = all T_frames at once)")
+    p.add_argument("--host-draw-chunk", type=int, default=0,
+                   help="split the draws into ceil(nsamples/N) chunks of N draws "
+                        "each, phi the mean of the chunk means (0 = one chunk)")
+    p.add_argument("--sample-batch", type=int, default=0,
+                   help="accepted for the reference's CLI; the port explains one "
+                        "sample at a time, with the same results")
+    p.add_argument("--async-writes", action="store_true",
+                   help="accepted for the reference's CLI; the port writes "
+                        "synchronously, with the same results")
+    p.add_argument("--method", choices=["grad", "deep", "kernel", "lime"], default="grad",
+                   help="grad = expected gradients (the only one ported)")
+    p.add_argument("--kernel-segments", type=int, default=32,
+                   help="coalition segments over the waveform (--method kernel/lime)")
+    p.add_argument("--num-background", type=int, default=5,
+                   help="background rows (zeros + sigma*noise)")
+    p.add_argument("--kmeans", type=int, default=0,
+                   help=">0: summarize the background to k centroids before explaining")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh", action="store_true", help="shard draws over devices (not ported)")
+    p.add_argument("--no-resume", action="store_true")
+    p.set_defaults(fn=cmd_run_shap)
+
+    p = sub.add_parser("sweep", help="eta_raw-vs-WER sweep over data/")
+    _add_model_args(p)
+    p.add_argument("--data-dir", default="data")
+    p.add_argument("--segment-ms", type=float, default=0.0625)
+    p.add_argument("--percentile", type=float, default=99.0)
+    p.add_argument("--itm", choices=["strict", "half"], default="strict")
+    p.add_argument("--batch", type=int, default=8,
+                   help="samples per batched decode + eta_raw (length buckets)")
+    p.add_argument("--plot", type=str, default="",
+                   help="scatter plot path (not ported; default none)")
+    p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("metric", help="single-sample eta_raw")
+    p.add_argument("--audio", required=True)
+    p.add_argument("--noise", required=True)
+    p.add_argument("--shap", required=True)
+    p.add_argument("--segment-ms", type=float, default=0.0625)
+    p.add_argument("--percentile", type=float, default=99.0)
+    p.add_argument("--itm", choices=["strict", "half"], default="half")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_metric)
+
+    p = sub.add_parser("transcribe", help="greedy CTC transcription of wav/npy clips")
+    _add_model_args(p)
+    p.add_argument("inputs", nargs="+", help=".wav or .npy waveform files (npy at --sr)")
+    p.add_argument("--sr", type=int, default=16_000,
+                   help="sample rate of .npy inputs (resampled to 16 kHz when "
+                        "different; .wav files carry their own rate)")
+    p.set_defaults(fn=cmd_transcribe)
+    return ap
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(levelname)s - %(message)s")
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Flat ``.npz`` params archives, read into torch tensors.
+"""Flat ``.npz`` params archives, read into torch tensors and written back.
 
 The archive format is the reference package's: leaves keyed by their tree
 path joined with ``::`` (list items as ``#i``), plus an optional
@@ -83,6 +83,44 @@ def params_from_jax(tree: Any, device: str | torch.device = "cuda") -> Dict[str,
         return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
     return _map_leaves(out, to_tensor)
+
+
+def _stack_layers(layers: list) -> Dict[str, Any]:
+    """One tree per layer -> stacked leaves (leading axis = layer), the
+    inverse of ``_unstack_layers``."""
+    flat = [_flatten(layer) for layer in layers]
+    stacked: Dict[str, Any] = {}
+    for path in flat[0]:
+        node = stacked
+        parts = path.split(_SEP)
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.stack([f[path] for f in flat])
+    return stacked
+
+
+def params_to_jax(params: Any) -> Dict[str, Any]:
+    """Port params -> the reference package's tree: numpy leaves on the
+    host, encoder layers stacked (the inverse of ``params_from_jax``)."""
+    tree = _map_leaves(params, lambda t: t.detach().cpu().numpy()
+                       if isinstance(t, torch.Tensor) else np.asarray(t))
+    if "encoder" in tree and "layers" in tree["encoder"]:
+        tree["encoder"] = dict(tree["encoder"])
+        tree["encoder"]["layers"] = _stack_layers(tree["encoder"]["layers"])
+    return tree
+
+
+def save_params(path: str, params: Any, config: Any = None) -> None:
+    """Write port params as a reference-format archive (``params_to_jax``,
+    leaves flattened by tree path). ``config``: a config dataclass to embed
+    (class name + fields as JSON), or None for a weights-only archive.
+    Either package loads the result."""
+    flat = _flatten(params_to_jax(params))
+    if config is not None:
+        payload = {"class": type(config).__name__,
+                   "fields": dataclasses.asdict(config)}
+        flat[_CONFIG_KEY] = np.frombuffer(json.dumps(payload).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
 
 
 def load_config(path: str) -> Optional[Any]:

@@ -75,6 +75,19 @@ class AttributionStore:
             "text": str(np.load(self._path(key, "text"))),
         }
 
+    def array_shape(self, key: SampleKey, kind: str) -> tuple:
+        """Shape of a stored array from its npy header alone, so a large
+        store can be length-bucketed without loading its phi matrices."""
+        with open(self._path(key, kind), "rb") as f:
+            version = np.lib.format.read_magic(f)
+            if version == (1, 0):
+                shape, _, _ = np.lib.format.read_array_header_1_0(f)
+            elif version == (2, 0):
+                shape, _, _ = np.lib.format.read_array_header_2_0(f)
+            else:
+                raise ValueError(f"{f.name}: npy format version {version} is not read")
+        return tuple(shape)
+
     def completed(self, key: SampleKey) -> bool:
         """True if all four files exist (what resume skips on)."""
         return all(os.path.exists(self._path(key, k)) for k in KINDS)

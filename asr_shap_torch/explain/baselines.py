@@ -1,4 +1,10 @@
-"""Background (baseline) rows for the explainers."""
+"""Background (baseline) rows for the explainers.
+
+* ``zeros_noise_background``: the pipeline's background, near-zero rows of
+  sigma-scaled Gaussian noise.
+* ``kmeans_background``: the equivalent of ``shap.kmeans(data, k)``,
+  Lloyd's k-means returning the k centroids.
+"""
 
 from __future__ import annotations
 
@@ -15,3 +21,22 @@ def zeros_noise_background(generator: torch.Generator, n_input: int,
     rows = torch.randn((num_background, n_input), generator=generator,
                        dtype=torch.float32, device=generator.device)
     return (sigma * rows).to(resolve_device(device))
+
+
+def kmeans_background(data: torch.Tensor, k: int, init_idx: torch.Tensor,
+                      num_iters: int = 25) -> torch.Tensor:
+    """Summarize [M, N] background rows into k centroids: Lloyd's algorithm
+    from the rows ``init_idx`` (k distinct indices, drawn by the caller),
+    ``num_iters`` steps; a cluster that empties keeps its old centroid.
+    Returns ``data`` itself when k >= M."""
+    m = data.shape[0]
+    if k >= m:
+        return data
+    c = data[init_idx.to(data.device)]
+    for _ in range(num_iters):
+        d = (data[:, None, :] - c[None, :, :]).square().sum(dim=-1)  # [M, k]
+        onehot = torch.nn.functional.one_hot(d.argmin(dim=1), k).to(data.dtype)
+        members = onehot.sum(dim=0)
+        new_c = (onehot.T @ data) / members.clamp(min=1.0)[:, None]
+        c = torch.where((members > 0)[:, None], new_c, c)
+    return c

@@ -8,6 +8,10 @@ sum_t |phi[n, t]|; tau is its ``percentile``-th percentile (linear
 interpolation); eta_raw is the share of segments with relevance >= tau that
 are speech-dominated. The ``>=`` keeps tied top blocks: with a strict ``>``
 a tie spanning the top percent would select nothing.
+
+Every result, the degenerate zeros included, is a float32 scalar on the
+input's device. No branch depends on the data (only on shapes), so the
+function is the same under ``torch.vmap`` as in a loop.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ def eta_raw(clean_audio: torch.Tensor, noise_audio: torch.Tensor,
     min_len = min(clean_audio.shape[0], noise_audio.shape[0], phi_total.shape[0])
     num_segments = min_len // seg
     if num_segments == 0:
-        return torch.tensor(0.0)
+        return torch.zeros((), dtype=torch.float32, device=shap_matrix.device)
     trunc = num_segments * seg
 
     clean_seg = clean_audio[:trunc].reshape(num_segments, seg).to(torch.float32)
@@ -56,6 +60,5 @@ def eta_raw(clean_audio: torch.Tensor, noise_audio: torch.Tensor,
     relevant = bar_phi >= tau
     denom = relevant.sum()
     num = (relevant & itm.to(relevant.device)).sum()
-    if denom == 0:
-        return torch.tensor(0.0)
-    return num.to(torch.float32) / denom.to(torch.float32)
+    return torch.where(denom == 0, 0.0,
+                       num.to(torch.float32) / denom.clamp(min=1).to(torch.float32))

@@ -1,5 +1,6 @@
 """Word Error Rate with jiwer semantics: strip, split on whitespace, then the
-word-level Levenshtein distance over the number of reference words."""
+word-level Levenshtein distance over the number of reference words. Pure
+Python: the reference's native batch scorer gives the same counts."""
 
 from __future__ import annotations
 
@@ -44,3 +45,19 @@ def wer(reference: str, hypothesis: str) -> float:
         raise ValueError("reference must contain at least one word")
     s, d, i, _ = word_edit_counts(ref_w, hyp_w)
     return (s + d + i) / len(ref_w)
+
+
+def batch_wer(references: Sequence[str], hypotheses: Sequence[str]) -> List[float]:
+    """Per-pair WER; a pair whose reference has no word gives nan (the
+    sweep's mark for a row that cannot be scored)."""
+    if len(references) != len(hypotheses):
+        raise ValueError("references and hypotheses must have equal length")
+    out = []
+    for ref, hyp in zip(references, hypotheses):
+        ref_w = _words(ref)
+        if not ref_w:
+            out.append(float("nan"))
+            continue
+        s, d, i, _ = word_edit_counts(ref_w, _words(hyp))
+        out.append((s + d + i) / len(ref_w))
+    return out

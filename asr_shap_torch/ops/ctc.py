@@ -1,9 +1,9 @@
 """Greedy CTC decoding: argmax per frame, collapse repeats, drop the blank,
-map "|" to a space, strip."""
+map "|" to a space, strip; and its inverse for label text."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,3 +27,23 @@ def ctc_ids_to_text(ids, keep, vocab: Sequence[str] = WAV2VEC2_VOCAB,
     keep = keep.cpu().numpy() if isinstance(keep, torch.Tensor) else np.asarray(keep)
     toks = [vocab[i] for i, k in zip(ids, keep) if k]
     return "".join(toks).replace(word_delimiter, " ").strip()
+
+
+def text_to_ids(text: str, vocab: Sequence[str] = WAV2VEC2_VOCAB,
+                word_delimiter: str = "|", unk_id: int = 3) -> List[int]:
+    """Uppercase characters to vocab ids, spaces to the word delimiter;
+    characters outside the vocab map to <unk>."""
+    lut = {c: i for i, c in enumerate(vocab)}
+    return [lut.get(word_delimiter if c == " " else c, unk_id)
+            for c in text.upper().strip()]
+
+
+def ctc_decode_batch(logits: torch.Tensor, lengths: Optional[Sequence[int]] = None,
+                     vocab: Sequence[str] = WAV2VEC2_VOCAB) -> List[str]:
+    """Greedy-decode a logits batch [B, T, V] to strings; ``lengths`` (frames
+    per row) masks the padded frames of shorter rows."""
+    ids, keep = ctc_greedy_decode(logits)
+    ids, keep = ids.cpu().numpy(), keep.cpu().numpy()
+    if lengths is not None:
+        keep = keep & (np.arange(ids.shape[1])[None, :] < np.asarray(lengths)[:, None])
+    return [ctc_ids_to_text(i, k, vocab) for i, k in zip(ids, keep)]

@@ -7,13 +7,21 @@ contract. The model config's type selects the forward (Wav2Vec2 or
 Wav2Vec2-Conformer, ``models.heads.model_logits_fn``); both share the
 vocabulary. Samples already complete in the store are skipped (resume).
 Samples run in exact-length buckets, shortest first, one at a time. The
-background and the draws of sample i come from generators seeded by
-(seed, i), so a sample's result does not depend on bucketing or on which
-other samples the run holds.
+background, the draws and the k-means initial rows of sample i come from
+the streams (seed, i, 0), (seed, i, 1) and (seed, i, 2) (``core.prng``,
+the reference's key paths), so a sample's result does not depend on
+bucketing or on which other samples the run holds.
+
+``ExplainerConfig.kmeans_background`` > 0 reduces the background to that
+many centroids before explaining. ``host_draw_chunk`` > 0 splits the draws
+into ceil(nsamples / host_draw_chunk) chunks of ``nsamples=host_draw_chunk``
+each (rounded up to ``draw_chunk``), chunk c drawing from (seed, i, 1, c);
+phi is the mean of the chunk means, as in the reference.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Dict, List, Optional
@@ -22,15 +30,17 @@ import numpy as np
 import torch
 
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
-from asr_shap_torch.core.config import PipelineConfig, WAV2VEC2_VOCAB
+from asr_shap_torch.core.config import ExplainerConfig, PipelineConfig, WAV2VEC2_VOCAB
 from asr_shap_torch.core.device import (
     check_matmul_precision,
     highest_precision,
     resolve_device,
 )
+from asr_shap_torch.core.prng import generator
 from asr_shap_torch.core.store import AttributionStore, key_for
-from asr_shap_torch.explain.baselines import zeros_noise_background
+from asr_shap_torch.explain.baselines import kmeans_background, zeros_noise_background
 from asr_shap_torch.explain.expected_gradients import (
+    Draws,
     expected_phi,
     num_draws,
     sample_draws,
@@ -42,13 +52,29 @@ from asr_shap_torch.utils.debug import check_finite
 
 logger = logging.getLogger(__name__)
 
-_BACKGROUND, _DRAWS = 0, 1  # generator streams of one sample
+_BACKGROUND, _DRAWS, _KMEANS = 0, 1, 2  # generator streams of one sample
 
 
-def sample_generator(seed: int, index: int, stream: int) -> torch.Generator:
-    """CPU generator for one (run seed, global sample index, stream)."""
-    state = np.random.SeedSequence([seed, index, stream]).generate_state(1, np.uint64)
-    return torch.Generator().manual_seed(int(state[0]) & (2**63 - 1))
+def draw_chunks(ec: ExplainerConfig) -> List[ExplainerConfig]:
+    """The explainer config of each host chunk: ``ec`` alone when
+    ``host_draw_chunk`` is 0, else ceil(nsamples / host_draw_chunk) chunks
+    of ``nsamples=host_draw_chunk``."""
+    hdc = ec.host_draw_chunk
+    if hdc <= 0:
+        return [ec]
+    chunk = dataclasses.replace(ec, nsamples=hdc, host_draw_chunk=0)
+    return [chunk] * -(-ec.nsamples // hdc)
+
+
+def chunked_phi(f, x: torch.Tensor, background: torch.Tensor,
+                chunks: List[ExplainerConfig], chunk_draws: List[Draws]) -> torch.Tensor:
+    """phi [N, T_out]: the mean over the chunks of each chunk's
+    expected-gradients mean, accumulated in float32."""
+    acc = None
+    for ec, draws in zip(chunks, chunk_draws):
+        phi = expected_phi(f, x, background, config=ec, draws=draws)
+        acc = phi if acc is None else acc + phi
+    return acc / len(chunks)
 
 
 def _explain_sample(params, cfg: PipelineConfig, x: torch.Tensor, index: int):
@@ -62,12 +88,19 @@ def _explain_sample(params, cfg: PipelineConfig, x: torch.Tensor, index: int):
         logits = model_logits_fn(mc)(params, mc, x[None, :])
         conf = mean_max_softmax_confidence(logits)[0]
         ids, keep = ctc_greedy_decode(logits)
-    bg = zeros_noise_background(sample_generator(cfg.seed, index, _BACKGROUND),
+    bg = zeros_noise_background(generator(cfg.seed, index, _BACKGROUND),
                                 x.shape[0], ec.num_background,
                                 ec.background_sigma, device=x.device)
-    draws = sample_draws(sample_generator(cfg.seed, index, _DRAWS),
-                         num_draws(ec), ec.num_background)
-    phi = expected_phi(f, x, bg, config=ec, draws=draws)
+    if ec.kmeans_background > 0:
+        init = torch.randperm(bg.shape[0], generator=generator(cfg.seed, index, _KMEANS))
+        bg = kmeans_background(bg, ec.kmeans_background, init[:ec.kmeans_background])
+    chunks = draw_chunks(ec)
+    if ec.host_draw_chunk <= 0:
+        streams = [generator(cfg.seed, index, _DRAWS)]
+    else:
+        streams = [generator(cfg.seed, index, _DRAWS, c) for c in range(len(chunks))]
+    draws = [sample_draws(g, num_draws(c), bg.shape[0]) for g, c in zip(streams, chunks)]
+    phi = chunked_phi(f, x, bg, chunks, draws)
     return phi, conf, ids[0], keep[0]
 
 

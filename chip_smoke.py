@@ -19,7 +19,9 @@ own lines:
    flash forward also at 100 and 500 keys; K3 and K4, and K3b and K4f with
    a rel-pos-like bias, also at one and 37 cotangent rows per residual row,
    five clips with a mask length each, 100 and 500 keys and D = 32; K1, K3
-   and K4, K3b and K4f and their plain versions also against float64);
+   and K4, K3b and K4f and their plain versions also against float64; K2
+   also at the sweep's batched shapes, 8 clips, no bias, T = 149 and 312,
+   D = 64 and 32);
 3. drive each path: run_shap_pipeline on a 48,000-sample clip and its 5 dB
    white-noise mix, 4 expected-gradients draws each, with the launch counts
    set to 0 just before and read just after; check phi, the store and the
@@ -30,7 +32,16 @@ own lines:
    narrow model on the card against the CPU (for the conformer, the trained
    archive artifacts/params_synthetic_conformer.npz through the pipeline,
    phi and transcript);
-5. time each kernel with CUDA events beside its bound, its plain version and
+5. drive the command line (``asr_shap_torch.cli.main``, in this process),
+   with the launch counts set to 0 just before each command and read just
+   after: ``run-shap`` then ``sweep`` on a full-width Wav2Vec2-base archive
+   (the base path's random weights, written by ``save_params`` with the
+   kernel impls), its sweep again on the CPU (same records), ``transcribe``
+   and ``metric`` against the sweep; the trained study archive (heads of
+   32) on 2 clips x {clean, 5, 1 dB} at 100,000 samples, its per-SNR WER and
+   eta_raw printed as information; and the trained conformer archive
+   through ``run-shap`` and ``sweep --arch w2v2-conformer``;
+6. time each kernel with CUDA events beside its bound, its plain version and
    one library call (K2 and K2f also by device time under torch.profiler,
    and at 16 and 32 query rows per block); time each path per draw,
    with its peak device memory, then profile two more draws (torch.profiler:
@@ -38,7 +49,7 @@ own lines:
    line are per draw of its path: the sum over the launches one draw makes
    (K1 once per eligible conv layer, the flash kernels once per encoder
    layer); its "launches" is the count from its path's pipeline run of
-   phase 3. Every kernel (K1, the flash forward K2 and K2f, the flash
+   phase 3 (the command line's counts are logged, "cli" lines). Every kernel (K1, the flash forward K2 and K2f, the flash
    backward K3, K4, K3b and K4f) runs on the tensor cores in 3xTF32, so
    its bound is three TF32 products per float32 product at the TF32 peak,
    or its bytes ("operations (3xTF32)" or "bytes"); the log gives its
@@ -53,7 +64,9 @@ non-zero and prints no result; so does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -64,6 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from asr_shap_torch import cli
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
 from asr_shap_torch.core.config import (
     ExplainerConfig,
@@ -73,7 +87,7 @@ from asr_shap_torch.core.config import (
     Wav2Vec2ConformerConfig,
 )
 from asr_shap_torch.core.device import highest_precision
-from asr_shap_torch.core.params_io import load_config, load_params
+from asr_shap_torch.core.params_io import load_config, load_params, save_params
 from asr_shap_torch.core.store import AttributionStore, key_for
 from asr_shap_torch.explain.expected_gradients import expected_phi, sample_draws
 from asr_shap_torch.kernels import LAUNCHES, build_all, reset_launches
@@ -92,6 +106,8 @@ N_SAMPLES = 48_000
 NSAMPLES = 4
 SEED = 0
 CONFORMER_ARCHIVE = "artifacts/params_synthetic_conformer.npz"
+STUDY_ARCHIVE = "artifacts/params_synthetic_study.npz"
+STUDY_SAMPLES = 100_000  # the study archive's clips, as its committed studies
 # the kernels each path must launch, and the TPU kernel each one replaces
 BASE_KERNELS = ("conv_dgrad", "flash_fwd", "flash_dq", "flash_dkv")
 CONFORMER_KERNELS = ("conv_dgrad", "flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")
@@ -326,6 +342,26 @@ def check_fwd_lengths(gen, h: int, d: int, full: bool) -> float:
     return err
 
 
+def check_fwd_sweep_shapes(gen) -> float:
+    """K2 at the sweep's batched forward: 8 clips of one length, no bias,
+    T = 149 (48,000 samples) and 312 (100,000), with the base model's 12
+    heads of 64 and the study archive's 3 heads of 32; both block heights."""
+    err = 0.0
+    for h, d in ((12, 64), (3, 32)):
+        for t in (149, 312):
+            q, k, v, _, _ = flash_inputs(gen, 8, h, t, d, 1, False)
+            want = fa.flash_fwd_plain(q, k, v, None, h)
+            fa._check(q, k, v, None, h)
+            for rows in fa.FWD_ROWS:
+                got = fa._fwd_launch(q, k, v, None, h, rows)
+                for part, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
+                    err = max(err, compare(
+                        f"flash_fwd {part} B=8 H={h} T={t} D={d} rows/block={rows} (sweep)",
+                        x, y, 2e-5, 2e-4, f"float32 softmax over {t} keys, another "
+                        "summation order"))
+    return err
+
+
 def mask_lengths(b: int, t: int, lengths) -> torch.Tensor:
     """A [B, T] key mask: clip i keeps its first lengths[i] keys, -1e9 after."""
     bias = torch.zeros((b, t), device="cuda")
@@ -502,6 +538,7 @@ def phase_checks(cfg: Wav2Vec2Config):
                                 compare(f"flash_dkv dk N={g.shape[0]} mask={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
                                 compare(f"flash_dkv dv N={g.shape[0]} mask={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
     del q, k, v, bias, g, o, lse, dq, dd, dq_p, dd_p, dk, dv, dk_p, dv_p
+    errs["flash_fwd"] = max(errs["flash_fwd"], check_fwd_sweep_shapes(gen))
     for key, err in check_bwd_shapes(gen, h).items():
         errs[key] = max(errs[key], err)
     extra.update(bwd_float64_check(gen, h, d, t, rows))
@@ -690,6 +727,113 @@ def _to_cuda(tree):
     if isinstance(tree, list):
         return [_to_cuda(v) for v in tree]
     return tree.cuda()
+
+
+def run_cli(label: str, argv):
+    """One command of ``python -m asr_shap_torch``, in this process, with the
+    launch counts set to 0 just before it and read just after: (its JSON
+    lines, its launch counts, its wall in seconds)."""
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c for name, c in LAUNCHES.items() if c}
+    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    log(f"cli {label}: {argv[0]} in {wall:.2f} s; launches {json.dumps(launches)}")
+    for line in lines:
+        log(f"cli {label} {argv[0]}: {json.dumps(line)}")
+    return lines, launches, wall
+
+
+def archive_with_kernels(path: str, out: str) -> str:
+    """A copy of the archive ``path`` whose embedded config selects the
+    kernel impls, written to ``out`` by the port's save_params."""
+    cfg = dataclasses.replace(load_config(path), attention_impl="pallas", conv_impl="pallas")
+    save_params(out, load_params(path, device="cpu"), cfg)
+    return out
+
+
+def cli_run(label: str, archive: str, data_dir: str, args, arch="wav2vec2"):
+    """run-shap then sweep on the card; each command's kernels must launch:
+    the expected-gradients kernels of the path from run-shap, its flash
+    forward (and nothing else) from sweep. Returns the sweep's records and
+    its summary line."""
+    model = ["--params", archive, "--arch", arch]
+    kernels = CONFORMER_KERNELS if arch == "w2v2-conformer" else BASE_KERNELS
+    cfg = load_config(archive)
+    if not k1.eligible(cfg.conv_dim[0], cfg.conv_dim[1], cfg.conv_stride[1], 1, 0):
+        kernels = kernels[1:]  # no conv layer K1 takes (narrow conv channels)
+    (run,), run_launches, run_wall = run_cli(label, ["run-shap", *model, "--data-dir", data_dir,
+                                                     *args])
+    for name in kernels:
+        check(run_launches.get(name, 0) > 0, f"cli {label}: run-shap did not launch {name}")
+    lines, sweep_launches, sweep_wall = run_cli(label, ["sweep", *model, "--data-dir", data_dir])
+    *records, summary = lines
+    fwd = "flash_fwd_bias" if arch == "w2v2-conformer" else "flash_fwd"
+    check(set(sweep_launches) == {fwd}, f"cli {label}: sweep launched {sweep_launches}, "
+          f"only {fwd} expected")
+    check(len(records) == run["computed"], f"cli {label}: sweep has {len(records)} records")
+    log(f"cli {label}: run-shap {run_wall:.2f} s ({run_wall / run['computed']:.3f} s per "
+        f"sample), sweep {sweep_wall:.2f} s ({sweep_wall / len(records):.3f} s per sample, "
+        f"{sweep_launches.get(fwd, 0)} {fwd} launches)")
+    return records, summary
+
+
+def phase_cli(base_archive: str, data_dir: str):
+    """The command line on the card: the base archive end to end (run-shap,
+    sweep, the same sweep on the CPU, transcribe, metric), the trained study
+    archive, and the trained conformer archive."""
+    d = f"{data_dir}/cli_base"
+    records, _ = cli_run("base", base_archive, d, [
+        "--num-samples", "1", "--snrs", "5", "--min-length", str(N_SAMPLES),
+        "--max-length", str(N_SAMPLES), "--nsamples", str(NSAMPLES)])
+    # the same store through the same port code on the CPU
+    cpu_lines, _, cpu_wall = run_cli("base", ["sweep", "--params", base_archive, "--data-dir", d,
+                                              "--device", "cpu"])
+    log(f"cli base: sweep on the CPU {cpu_wall:.2f} s")
+    for g, c in zip(records, cpu_lines[:-1]):
+        check(g["hypothesis"] == c["hypothesis"],
+              f"cli base: card and CPU hypotheses differ: {g['hypothesis']!r} vs "
+              f"{c['hypothesis']!r}")
+        check(g["wer"] == c["wer"], "cli base: card and CPU WER differ")
+        check(abs(g["eta_raw"] - c["eta_raw"]) <= 1e-6,
+              f"cli base: eta_raw card {g['eta_raw']} CPU {c['eta_raw']} (limit 1e-6: the "
+              "same phi from the store, another summation order of |phi| over frames)")
+    check(len(cpu_lines) == len(records) + 1, "cli base: CPU sweep has other records")
+    log("cli base: the card's sweep equals the CPU's (hypotheses, WER; eta_raw within 1e-6)")
+    clean = next(r for r in records if r["type"] == "clean")
+    noisy = next(r for r in records if r["type"] == "noisy")
+    (tr,), tr_launches, _ = run_cli("base", ["transcribe", "--params", base_archive,
+                                             f"{d}/audio_sample_{clean['index']}_clean_inf.npy"])
+    check(tr["transcript"] == clean["hypothesis"],
+          f"cli base: transcribe {tr['transcript']!r} vs the sweep's {clean['hypothesis']!r}")
+    check(tr_launches.get("flash_fwd", 0) > 0, "cli base: transcribe did not launch flash_fwd")
+    files = {kind: f"{d}/{kind}_sample_{noisy['index']}_noisy_{noisy['snr']}.npy"
+             for kind in ("audio", "noise", "shap_values")}
+    (metric,), _, _ = run_cli("base", ["metric", "--audio", files["audio"], "--noise",
+                                       files["noise"], "--shap", files["shap_values"],
+                                       "--itm", "strict"])
+    check(abs(metric["eta_raw"] - noisy["eta_raw"]) <= 1e-6,
+          f"cli base: metric {metric['eta_raw']} vs the sweep's {noisy['eta_raw']} (limit "
+          "1e-6, as the CPU's sweep)")
+    log("cli base: transcribe gives the sweep's clean hypothesis, metric its eta_raw")
+
+    study = archive_with_kernels(STUDY_ARCHIVE, f"{data_dir}/study_pallas.npz")
+    _, summary = cli_run("study", study, f"{data_dir}/cli_study", [
+        "--num-samples", "2", "--snrs", "5", "1", "--min-length", str(STUDY_SAMPLES),
+        "--max-length", str(STUDY_SAMPLES), "--nsamples", str(NSAMPLES)])
+    for snr, row in summary["per_snr"].items():
+        log(f"cli study (information): snr={snr} n={row['n']} mean_wer={row['mean_wer']:.6f} "
+            f"mean_eta_raw={row['mean_eta_raw']:.6f}")
+    log(f"cli study (information): noisy-row pearson_r={summary['pearson_r_noisy']}")
+
+    conformer = archive_with_kernels(CONFORMER_ARCHIVE, f"{data_dir}/conformer_pallas.npz")
+    cli_run("conformer", conformer, f"{data_dir}/cli_conformer", [
+        "--num-samples", "1", "--snrs", "5", "--min-length", str(N_SAMPLES),
+        "--max-length", str(N_SAMPLES), "--nsamples", "2"], arch="w2v2-conformer")
 
 
 PROFILE_GROUPS = (
@@ -1005,6 +1149,8 @@ def main() -> int:
         cfg = PipelineConfig(model=model, explainer=explainer, seed=SEED,
                              data_dir=f"{data_dir}/base")
         params = init_wav2vec2_params(SEED, model, device="cuda")
+        base_archive = f"{data_dir}/base_pallas.npz"
+        save_params(base_archive, params, model)
         launches = phase_pipeline("base", cfg, params, test_set, BASE_KERNELS)
         phase_reference(cfg, params, test_set)
         out = phase_timing(cfg, params, test_set)
@@ -1016,6 +1162,8 @@ def main() -> int:
         claunches = phase_pipeline("conformer", ccfg, cparams, test_set, CONFORMER_KERNELS)
         phase_reference_conformer(ccfg, cparams, test_set, data_dir)
         cout = phase_timing_conformer(ccfg, cparams, test_set, out["conv_dgrad"])
+        del cparams
+        phase_cli(base_archive, data_dir)
         kernels = (kernel_rows(out, errs, extra, launches)
                    + kernel_rows(cout, errs, extra, claunches))
     log(smi)  # again beside the numbers, for a reader of the output's tail

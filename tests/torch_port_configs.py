@@ -58,3 +58,14 @@ def jax_draws(key, total, num_background):
     idx, ts = draws(key)
     return (torch.from_numpy(np.array(idx, np.int64)),
             torch.from_numpy(np.array(ts, np.float32)))
+
+
+def shared_params(cfg, seed=0):
+    """Wav2Vec2 params drawn by numpy through the port's init: (port params
+    on the CPU, the same values as the reference's tree of jnp arrays,
+    encoder layers stacked)."""
+    from asr_shap_torch.core.params_io import params_to_jax
+    from asr_shap_torch.models.wav2vec2 import init_wav2vec2_params
+
+    params = init_wav2vec2_params(seed, port_cfg(cfg), device="cpu")
+    return params, jax.tree.map(jnp.asarray, params_to_jax(params))
