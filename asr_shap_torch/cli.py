@@ -6,6 +6,7 @@
                statistics
   metric     : single-sample eta_raw from stored npy files
   transcribe : greedy CTC transcription of wav/npy clips
+  bench      : explainer runtime-vs-length sweep
 
 The flags, defaults and printed JSON lines are the reference package's
 (``python -m asr_shap``), plus ``--device {cuda,cpu}``: every command runs
@@ -221,7 +222,7 @@ def cmd_transcribe(args):
 
     from asr_shap_torch.audio.normalize import zero_mean_unit_var
     from asr_shap_torch.audio.resample import resample
-    from asr_shap_torch.core.device import highest_precision, resolve_device
+    from asr_shap_torch.core.device import matmul_precision_scope, resolve_device
     from asr_shap_torch.metrics.confidence import mean_max_softmax_confidence
     from asr_shap_torch.models.heads import model_logits_fn
     from asr_shap_torch.ops.ctc import ctc_greedy_decode, ctc_ids_to_text
@@ -241,7 +242,7 @@ def cmd_transcribe(args):
         if sr != 16_000:
             audio = resample(torch.from_numpy(audio), sr, 16_000).numpy()
         x = zero_mean_unit_var(torch.from_numpy(audio).to(device))[None]
-        with torch.no_grad(), highest_precision():
+        with torch.no_grad(), matmul_precision_scope(cfg.matmul_precision):
             logits = logits_fn(params, cfg, x)
         ids, keep = ctc_greedy_decode(logits)
         text = ctc_ids_to_text(ids[0], keep[0])
@@ -253,6 +254,29 @@ def cmd_transcribe(args):
             "samples": int(audio.shape[0]),
             "frames": int(logits.shape[1]),
         }))
+
+
+def cmd_bench(args):
+    from asr_shap_torch.core.config import Wav2Vec2Config
+    from asr_shap_torch.pipeline.benchmarks import run_length_sweep
+
+    if args.plot:
+        raise NotImplementedError(
+            f"--plot {args.plot}: the runtime plot is not ported (ROADMAP.md queue 1, "
+            "'After these': viz/*)")
+    numerics = dict(dtype=args.dtype, matmul_precision=args.precision,
+                    attention_impl=args.attn)
+    if args.tiny:
+        model_config = Wav2Vec2Config(
+            hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+            intermediate_size=128, conv_dim=(32, 32), conv_stride=(5, 2),
+            conv_kernel=(10, 3), num_conv_pos_embeddings=16,
+            num_conv_pos_embedding_groups=4, feat_proj_dim=32, **numerics,
+        )
+    else:
+        model_config = Wav2Vec2Config(**numerics)
+    run_length_sweep(lengths=tuple(args.lengths), nsamples=args.nsamples,
+                     model_config=model_config, json_path=args.json, device=args.device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -324,6 +348,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sample rate of .npy inputs (resampled to 16 kHz when "
                         "different; .wav files carry their own rate)")
     p.set_defaults(fn=cmd_transcribe)
+
+    p = sub.add_parser("bench", help="runtime-vs-length sweep")
+    p.add_argument("--lengths", type=int, nargs="+",
+                   default=[2500, 5000, 10000, 20000, 40000, 80000])
+    p.add_argument("--nsamples", type=int, default=16)
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--plot", type=str, default=None, help="runtime plot path (not ported)")
+    p.add_argument("--json", type=str, default=None)
+    # the reference's throughput numerics by default; --dtype float32
+    # --precision highest for the parity path's timing
+    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
+    p.add_argument("--precision", choices=["default", "highest"], default="default")
+    p.add_argument("--attn", choices=["xla", "pallas", "auto"], default="xla")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_bench)
     return ap
 
 

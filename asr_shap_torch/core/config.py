@@ -44,10 +44,14 @@ class Wav2Vec2Config:
     layer_norm_eps: float = 1e-5
     feat_proj_dim: int = 512
 
-    # Numerics. "float32" only in this slice; "bfloat16" raises.
+    # Numerics. "float32" or "bfloat16": the compute dtype of activations
+    # and params (a bf16 copy of the float32 params); norm statistics, the
+    # kernels' sums, the logits and the explainer's phi stay float32. The
+    # Wav2Vec2-Conformer takes float32 only.
     dtype: str = "float32"
     # "highest": float32 matmuls and convolutions without TF32 (cuBLAS and
-    # cuDNN); "default" lets both use TF32.
+    # cuDNN), bf16 GEMMs summed in float32; "default" lets both use TF32
+    # (core/device.py). The port's float32 kernels are 3xTF32 under either.
     matmul_precision: str = "highest"
     # "xla": plain PyTorch attention; "pallas": the hand-written flash
     # kernels (kernels/flash_attention.py); "auto" resolves to "xla".

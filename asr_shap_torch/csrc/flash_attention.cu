@@ -1,5 +1,6 @@
 // K2-K4: flash attention forward, dq backward and dk/dv backward, float32,
-// each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f).
+// each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f);
+// and K2-K4 in bf16, mask or no bias (see "bf16" below).
 //
 // Replace the Pallas TPU kernels of asr_shap/kernels/flash_attention.py:
 //   K2  flash_fwd_kernel<D, false>     <- _fwd_kernel (launched by _fwd)
@@ -52,7 +53,24 @@
 // plane strided by T across queries, the TPU kernel's transposed block).
 // K3b stores each warp's ds tile to d(bias) from the registers it was
 // computed in.
+//
+// bf16 (the *_bf16 entry points; K2, K3 and K4, mask or no bias): q, k, v,
+// o, g and the outputs o, dq, dk, dv in bf16; lse, dd and the mask stay
+// float32, and everything in between is float32, as in the TPU kernels,
+// which upcast their blocks and cast the result to the input's dtype once.
+// The kernels are the float32 templates with In = __nv_bfloat16: each bf16
+// row is widened to float32 as it is stored to shared memory (exact), and
+// the outputs are rounded to bf16 as they are stored. A bf16 value is
+// exact in TF32 (8 of its 10 mantissa bits), so its lo part is zero: a
+// product of two bf16 operands (q.k^T, g.v^T, v.g^T) takes one TF32 mma,
+// and a product of a float32 operand (p, ds) with a bf16 one (p.v, ds.k,
+// p^T.g, ds^T.q) two, lo*hi and hi*hi; the products with a zero lo part are
+// not issued (EX below). The result is the reference's float32 arithmetic
+// on the upcast operands, up to float32 rounding. q is not scaled before
+// the products (that would round it for D = 32): the scale multiplies the
+// float32 scores, and dk as it is stored.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -67,6 +85,27 @@ __device__ __forceinline__ const float* bias_base(const float* bias, int res,
   if (bias == nullptr) return nullptr;
   return FULL ? bias + (long long)res * T * T : bias + (long long)(res / H) * T;
 }
+
+// Input element types: float, or __nv_bfloat16, whose values are exact in
+// TF32 (EX: the lo part of their split is zero, so those products are
+// skipped).
+template <typename T> struct Exact { static constexpr bool value = false; };
+template <> struct Exact<__nv_bfloat16> { static constexpr bool value = true; };
+
+__device__ __forceinline__ float load_elem(const float* p) { return *p; }
+__device__ __forceinline__ float load_elem(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// two neighbouring outputs (p 8-byte aligned for float, 4-byte for bf16)
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+// the bf16 in the low / high half of a 32-bit word, as float32 (exact)
+__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 // ------------------------------------------------------------------ K2
 //
@@ -149,6 +188,26 @@ __device__ __forceinline__ void cp_rows(float* dst, const float* src, int row0, 
   }
 }
 
+// The same for rows of bf16: 8 values per 16-byte load, widened to float32
+// in shared memory by the thread itself (so there is no cp.async group of
+// these for the caller's waits to find).
+template <int D>
+__device__ __forceinline__ void cp_rows(float* dst, const __nv_bfloat16* src, int row0,
+                                        int rows, int T, int tid, int nthreads) {
+  constexpr int CH = D / 8;
+  for (int idx = tid; idx < rows * CH; idx += nthreads) {
+    const int row = idx / CH, c = idx % CH;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + row < T)
+      u = *reinterpret_cast<const uint4*>(src + (long long)(row0 + row) * D + c * 8);
+    float* d = dst + row * (D + 4) + c * 8;
+    *reinterpret_cast<float4*>(d) =
+        make_float4(lo_bf16(u.x), hi_bf16(u.x), lo_bf16(u.y), hi_bf16(u.y));
+    *reinterpret_cast<float4*>(d + 4) =
+        make_float4(lo_bf16(u.z), hi_bf16(u.z), lo_bf16(u.w), hi_bf16(u.w));
+  }
+}
+
 // Shared memory of one launch: K and V of a chunk, the block's q rows, then
 // each warp's partial O [16][D + 4], row max [16] and row sum [16].
 template <int D>
@@ -160,12 +219,13 @@ __host__ __device__ constexpr size_t fwd_smem_bytes(int groups) {
           (size_t)groups * FWD_SPLITS * fwd_part_floats<D>()) * sizeof(float);
 }
 
-template <int D, bool FULL>
+template <int D, bool FULL, typename In>
 __global__ void __launch_bounds__(FWD_MAX_THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ o, float* __restrict__ lse, int T, int H,
+flash_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
+                 const In* __restrict__ v, const float* __restrict__ bias,
+                 In* __restrict__ o, float* __restrict__ lse, int T, int H,
                  float scale) {
+  constexpr bool EX = Exact<In>::value;  // bf16: q, k, v exact in TF32
   constexpr int LDS = D + 4;  // shared row stride: conflict-free fragments
   constexpr int KS = D / 8;   // 8-wide steps over D (4 or 8)
   constexpr int CHUNK = FWD_CHUNK;
@@ -227,7 +287,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int st = 0; st < KS; ++st)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          qa[st][c] = qs[(grp * 16 + g + (c & 1) * 8) * LDS + st * 8 + t + (c >> 1) * 4] * scale;
+          qa[st][c] = qs[(grp * 16 + g + (c & 1) * 8) * LDS + st * 8 + t + (c >> 1) * 4] *
+                      (EX ? 1.f : scale);
     }
 
     // scores s[jj]: rows g, g + 8 x keys 8(j0 + jj) + 2t, + 1
@@ -251,10 +312,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 #pragma unroll
       for (int jj = 0; jj < KTW; ++jj)
-        if (j0 + jj < nt) mma_tf32(s[jj], alo, bh[jj][0], bh[jj][1]);
+        if (!EX && j0 + jj < nt) mma_tf32(s[jj], alo, bh[jj][0], bh[jj][1]);
 #pragma unroll
       for (int jj = 0; jj < KTW; ++jj)
-        if (j0 + jj < nt) mma_tf32(s[jj], ahi, bl[jj][0], bl[jj][1]);
+        if (!EX && j0 + jj < nt) mma_tf32(s[jj], ahi, bl[jj][0], bl[jj][1]);
 #pragma unroll
       for (int jj = 0; jj < KTW; ++jj)
         if (j0 + jj < nt) mma_tf32(s[jj], ahi, bh[jj][0], bh[jj][1]);
@@ -265,7 +326,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < KTW; ++jj) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float x = j0 + jj < nt ? s[jj][c] + bb[jj][c] : -INFINITY;
+        const float x = j0 + jj < nt ? (EX ? s[jj][c] * scale : s[jj][c]) + bb[jj][c] : -INFINITY;
         s[jj][c] = x;
         mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
@@ -316,7 +377,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], alo, bh[i][0], bh[i][1]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], ahi, bl[i][0], bl[i][1]);
+          for (int i = 0; i < 4; ++i)
+            if (!EX) mma_tf32(acc[d0 + i], ahi, bl[i][0], bl[i][1]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], ahi, bh[i][0], bh[i][1]);
         }
@@ -356,7 +418,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l_all += e * pw[16 * LDS + 16 + row];
       o_all += e * pw[row * LDS + col];
     }
-    o[base + (long long)(q0 + row) * D + col] = o_all / l_all;
+    store_elem(o + base + (long long)(q0 + row) * D + col, o_all / l_all);
     if (col == 0) lse[(long long)n * T + q0 + row] = m_all + logf(l_all);
   }
 }
@@ -434,10 +496,38 @@ __device__ __forceinline__ void split_rows(uint32_t* hi, uint32_t* lo, const flo
   }
 }
 
+// The same for rows of bf16, 8 per 16-byte load (for scale 1 the hi part
+// is the value itself and the lo part zero).
+template <int D>
+__device__ __forceinline__ void split_rows(uint32_t* hi, uint32_t* lo, const __nv_bfloat16* src,
+                                           int row0, int rows, int T, float scale) {
+  constexpr int CH = D / 8;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+    const int row = idx / CH, c = idx % CH;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + row < T)
+      u = *reinterpret_cast<const uint4*>(src + (long long)(row0 + row) * D + c * 8);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    uint32_t h[8], l[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split_tf32(lo_bf16(w[i]) * scale, h[2 * i], l[2 * i]);
+      split_tf32(hi_bf16(w[i]) * scale, h[2 * i + 1], l[2 * i + 1]);
+    }
+    uint32_t* hd = hi + row * (D + 4) + c * 8;
+    uint32_t* ldst = lo + row * (D + 4) + c * 8;
+    *reinterpret_cast<uint4*>(hd) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(hd + 4) = make_uint4(h[4], h[5], h[6], h[7]);
+    *reinterpret_cast<uint4*>(ldst) = make_uint4(l[0], l[1], l[2], l[3]);
+    *reinterpret_cast<uint4*>(ldst + 4) = make_uint4(l[4], l[5], l[6], l[7]);
+  }
+}
+
 // One 16x8 tile of A.B^T over D in 3xTF32, each 8-wide step from a zero
 // partial: A the 16 shared rows at ahi/alo, B the 8 shared rows at bhi/blo,
-// both split hi/lo with stride D + 4. The score tiles of K3 and K4.
-template <int D>
+// both split hi/lo with stride D + 4. The score tiles of K3 and K4. EX: both
+// operands exact in TF32 (bf16), so hi*hi alone.
+template <int D, bool EX>
 __device__ __forceinline__ void scores_tile(float* s, const uint32_t* ahi, const uint32_t* alo,
                                             const uint32_t* bhi, const uint32_t* blo,
                                             int lane) {
@@ -456,8 +546,10 @@ __device__ __forceinline__ void scores_tile(float* s, const uint32_t* ahi, const
     }
     const int br = gi * LDS + st * 8 + t;
     float part[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_tf32(part, al, bhi[br], bhi[br + 4]);
-    mma_tf32(part, ah, blo[br], blo[br + 4]);
+    if (!EX) {
+      mma_tf32(part, al, bhi[br], bhi[br + 4]);
+      mma_tf32(part, ah, blo[br], blo[br + 4]);
+    }
     mma_tf32(part, ah, bhi[br], bhi[br + 4]);
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[c] += part[c];
@@ -467,8 +559,9 @@ __device__ __forceinline__ void scores_tile(float* s, const uint32_t* ahi, const
 // acc[nd] += A.B for one 8-wide step in 3xTF32, from a zero partial: A the
 // 16x8 fragment (a0..a3, as floats), B the 8 shared rows from `bhi` (stride
 // D + 4, taken in the order 0, 2, 4, 6, 1, 3, 5, 7), split hi/lo in `bhi`
-// and `blo`, or with FLOAT_B float rows at `bhi` that are split here.
-template <int D, bool FLOAT_B>
+// and `blo`, or with FLOAT_B float rows at `bhi` that are split here. EX: B
+// exact in TF32 (bf16), so its lo*hi product is not issued.
+template <int D, bool FLOAT_B, bool EX>
 __device__ __forceinline__ void step_3xtf32(float (*acc)[4], const float* a,
                                             const void* bhi, const uint32_t* blo, int lane) {
   constexpr int LDS = D + 4, ND = D / 8;
@@ -503,7 +596,8 @@ __device__ __forceinline__ void step_3xtf32(float (*acc)[4], const float* a,
 #pragma unroll
     for (int i = 0; i < 4; ++i) mma_tf32(part[i], al, bh[i][0], bh[i][1]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) mma_tf32(part[i], ah, bl[i][0], bl[i][1]);
+    for (int i = 0; i < 4; ++i)
+      if (!EX) mma_tf32(part[i], ah, bl[i][0], bl[i][1]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) mma_tf32(part[i], ah, bh[i][0], bh[i][1]);
 #pragma unroll
@@ -515,8 +609,8 @@ __device__ __forceinline__ void step_3xtf32(float (*acc)[4], const float* a,
 
 // Store a warp's [16, D] accumulator tile (rows row0 + g and + 8, columns
 // nd * 8 + 2t, + 1), times `scale`, to rows below T of `out` [T, D].
-template <int D>
-__device__ __forceinline__ void store_tile(float* out, const float (*acc)[4], int row0,
+template <int D, typename Out>
+__device__ __forceinline__ void store_tile(Out* out, const float (*acc)[4], int row0,
                                            int T, float scale, int lane) {
   const int gi = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -525,8 +619,8 @@ __device__ __forceinline__ void store_tile(float* out, const float (*acc)[4], in
     if (row >= T) continue;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<float2*>(out + (long long)row * D + nd * 8 + 2 * t) =
-          make_float2(scale * acc[nd][2 * h], scale * acc[nd][2 * h + 1]);
+      store_pair(out + (long long)row * D + nd * 8 + 2 * t, scale * acc[nd][2 * h],
+          scale * acc[nd][2 * h + 1]);
   }
 }
 
@@ -534,8 +628,9 @@ __device__ __forceinline__ void store_tile(float* out, const float (*acc)[4], in
 // B, in 3xTF32, each 8-wide step from a zero partial: A the warp's 16 rows
 // as fragments in registers (floats, split here), B_jj the 8 shared rows at
 // bhi + jj * 8 * (D + 4), split hi/lo in bhi and blo, or with FLOAT_B float
-// rows at bhi that are split here.
-template <int D, int JT, bool FLOAT_B>
+// rows at bhi that are split here. EX: A and B exact in TF32 (bf16), so
+// hi*hi alone.
+template <int D, int JT, bool FLOAT_B, bool EX>
 __device__ __forceinline__ void dp_tiles(float (*dp)[4], const float (*a)[4], const void* bhi,
                                          const uint32_t* blo, int nt, int lane) {
   constexpr int LDS = D + 4;
@@ -574,10 +669,10 @@ __device__ __forceinline__ void dp_tiles(float (*dp)[4], const float (*a)[4], co
       for (int c = 0; c < 4; ++c) part[jj][c] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < JT; ++jj)
-      if (jj < nt) mma_tf32(part[jj], al, bh[jj][0], bh[jj][1]);
+      if (!EX && jj < nt) mma_tf32(part[jj], al, bh[jj][0], bh[jj][1]);
 #pragma unroll
     for (int jj = 0; jj < JT; ++jj)
-      if (jj < nt) mma_tf32(part[jj], ah, bl[jj][0], bl[jj][1]);
+      if (!EX && jj < nt) mma_tf32(part[jj], ah, bl[jj][0], bl[jj][1]);
 #pragma unroll
     for (int jj = 0; jj < JT; ++jj)
       if (jj < nt) mma_tf32(part[jj], ah, bh[jj][0], bh[jj][1]);
@@ -596,14 +691,15 @@ __host__ __device__ constexpr size_t dq_mma_smem_bytes() {
           (size_t)(BWD_ROWS + 1) * 16 * (D + 4) + (size_t)16 * BWD_LDP) * 4;
 }
 
-template <int D, bool FULL>
+template <int D, bool FULL, typename In>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ lse, const float* __restrict__ g,
-                    const float* __restrict__ bias, float* __restrict__ dq,
+flash_dq_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
+                    const In* __restrict__ v, const In* __restrict__ o,
+                    const float* __restrict__ lse, const In* __restrict__ g,
+                    const float* __restrict__ bias, In* __restrict__ dq,
                     float* __restrict__ dd_out, float* __restrict__ dbias, int T, int H,
                     int BH, int V, int G, float scale) {
+  constexpr bool EX = Exact<In>::value;  // bf16: q, k, v, g exact in TF32
   constexpr int LDS = D + 4, KS = D / 8, CHUNK = BWD_CHUNK, LDP = BWD_LDP;
   extern __shared__ __align__(16) float smem[];
   uint32_t* khi = reinterpret_cast<uint32_t*>(smem);  // [CHUNK][LDS]
@@ -626,7 +722,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* gw = gs + warp * 16 * LDS;
   const bool one_chunk = T <= CHUNK;
 
-  split_rows<D>(qhi, qlo, q + rbase, q0, 16, T, scale);
+  split_rows<D>(qhi, qlo, q + rbase, q0, 16, T, EX ? 1.f : scale);
   cp_rows<D>(os, o + rbase, q0, 16, T, threadIdx.x, BWD_THREADS);
   if (grp0 * BWD_ROWS + warp < V)  // the first group's g rows of this warp
     cp_rows<D>(gw, g + (res + (long long)BH * (grp0 * BWD_ROWS + warp)) * T * D, q0, 16, T,
@@ -658,7 +754,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // p of the block's 16 rows and the chunk's keys, once for the run
         for (int j = warp; j < nt; j += BWD_ROWS) {
           float s[4];
-          scores_tile<D>(s, qhi, qlo, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
+          scores_tile<D, EX>(s, qhi, qlo, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) {
             const int key = j * 8 + 2 * t + (cc & 1), col = kv0 + key;
@@ -666,7 +762,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
             float p = 0.f;
             if (row < T && col < T) {
               const float b = FULL ? brow[(long long)row * T + col] : brow ? brow[col] : 0.f;
-              p = expf(s[cc] + b - lse_r[cc >> 1]);
+              p = expf((EX ? s[cc] * scale : s[cc]) + b - lse_r[cc >> 1]);
             }
             ps[(gi + 8 * (cc >> 1)) * LDP + key] = p;
           }
@@ -700,7 +796,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       for (int j0 = 0; j0 < nt; j0 += DQ_JT) {
         float dp[DQ_JT][4];
-        dp_tiles<D, DQ_JT, false>(dp, ga, vhi + j0 * 8 * LDS, vlo + j0 * 8 * LDS, nt - j0, lane);
+        dp_tiles<D, DQ_JT, false, EX>(dp, ga, vhi + j0 * 8 * LDS, vlo + j0 * 8 * LDS, nt - j0, lane);
         // ds = p * (dP - dd) in registers, then dq += ds.k, keys 0,2,4,6,1,3,5,7
 #pragma unroll
         for (int jj = 0; jj < DQ_JT; ++jj) {
@@ -720,7 +816,7 @@ flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
               if (col + 1 < T) out[1] = da[h + 2];
             }
           }
-          step_3xtf32<D, false>(acc, da, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
+          step_3xtf32<D, false, EX>(acc, da, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
         }
       }
     }
@@ -738,8 +834,8 @@ __host__ __device__ constexpr size_t dkv_mma_smem_bytes() {
 }
 
 // One warp's copy of 16 rows of g (rows past T zero) and of dd into a buffer.
-template <int D>
-__device__ __forceinline__ void cp_g_dd(float* gb, float* db, const float* g, const float* dd,
+template <int D, typename In>
+__device__ __forceinline__ void cp_g_dd(float* gb, float* db, const In* g, const float* dd,
                                         int row0, int T, int lane) {
   cp_rows<D>(gb, g, row0, 16, T, lane, 32);
   if (lane < 16) {
@@ -751,13 +847,14 @@ __device__ __forceinline__ void cp_g_dd(float* gb, float* db, const float* g, co
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int D, bool FULL>
+template <int D, bool FULL, typename In>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ lse,
-                     const float* __restrict__ g, const float* __restrict__ dd,
-                     const float* __restrict__ bias, float* __restrict__ dk,
-                     float* __restrict__ dv, int T, int H, int BH, int V, int G, float scale) {
+flash_dkv_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
+                     const In* __restrict__ v, const float* __restrict__ lse,
+                     const In* __restrict__ g, const float* __restrict__ dd,
+                     const float* __restrict__ bias, In* __restrict__ dk,
+                     In* __restrict__ dv, int T, int H, int BH, int V, int G, float scale) {
+  constexpr bool EX = Exact<In>::value;  // bf16: q, k, v, g exact in TF32
   constexpr int LDS = D + 4, KS = D / 8, CHUNK = BWD_CHUNK, LDP = BWD_LDP;
   extern __shared__ __align__(16) float smem[];
   uint32_t* qhi = reinterpret_cast<uint32_t*>(smem);   // [CHUNK][LDS], scaled
@@ -791,14 +888,14 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       const int row = keys_[cc & 1], col = st * 8 + t + (cc >> 1) * 4;
-      va[st][cc] = row < T ? v[rbase + (long long)row * D + col] : 0.f;
+      va[st][cc] = row < T ? load_elem(v + rbase + (long long)row * D + col) : 0.f;
     }
 
   for (int grp = grp0; grp < grp1; ++grp) {
     const int c = grp * BWD_ROWS + warp;
     const bool active = c < V;
     const long long n = res + (long long)BH * c;
-    const float* gn = g + n * T * D;
+    const In* gn = g + n * T * D;
     const float* ddn = dd + n * T;
     float acc_k[KS][4], acc_v[KS][4];  // keys g, g + 8 x columns nd * 8 + 2t, + 1
 #pragma unroll
@@ -811,14 +908,14 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (active) cp_g_dd<D>(gw, dw, gn, ddn, qq0, T, lane);  // the first 16 queries
       if (grp == grp0 || !one_chunk) {
         if (grp > grp0 || qq0 > 0) __syncthreads();
-        split_rows<D>(qhi, qlo, q + rbase, qq0, nt * 8, T, scale);
+        split_rows<D>(qhi, qlo, q + rbase, qq0, nt * 8, T, EX ? 1.f : scale);
         for (int i = threadIdx.x; i < nt * 8; i += BWD_THREADS)
           lses[i] = qq0 + i < T ? lse[(long long)res * T + qq0 + i] : 0.f;
         __syncthreads();
         // p^T of the block's 16 keys and the chunk's queries, once for the run
         for (int j = warp; j < nt; j += BWD_ROWS) {
           float s[4];
-          scores_tile<D>(s, khi, klo, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
+          scores_tile<D, EX>(s, khi, klo, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) {
             const int qc = j * 8 + 2 * t + (cc & 1);
@@ -826,7 +923,7 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
             float p = 0.f;
             if (qq0 + qc < T && key < T) {
               const float b = FULL ? brow[(long long)(qq0 + qc) * T + key] : mk[cc >> 1];
-              p = expf(s[cc] + b - lses[qc]);
+              p = expf((EX ? s[cc] * scale : s[cc]) + b - lses[qc]);
             }
             pts[(gi + 8 * (cc >> 1)) * LDP + qc] = p;
           }
@@ -847,7 +944,7 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         __syncwarp();
         const float* gb = gw + b * 16 * LDS;
         float dp[DKV_JT][4];
-        dp_tiles<D, DKV_JT, true>(dp, va, gb, nullptr, nt - j0, lane);
+        dp_tiles<D, DKV_JT, true, EX>(dp, va, gb, nullptr, nt - j0, lane);
         // dv += p^T.g and dk += ds^T.(q * scale), ds^T = p^T * (dP^T - dd),
         // queries 0,2,4,6,1,3,5,7
 #pragma unroll
@@ -861,14 +958,15 @@ flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float pa[4] = {p0.x, p1.x, p0.y, p1.y};
           const float da[4] = {p0.x * (dp[jj][0] - ddq.x), p1.x * (dp[jj][2] - ddq.x),
                                p0.y * (dp[jj][1] - ddq.y), p1.y * (dp[jj][3] - ddq.y)};
-          step_3xtf32<D, true>(acc_v, pa, gb + jj * 8 * LDS, nullptr, lane);
-          step_3xtf32<D, false>(acc_k, da, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
+          step_3xtf32<D, true, EX>(acc_v, pa, gb + jj * 8 * LDS, nullptr, lane);
+          step_3xtf32<D, false, EX>(acc_k, da, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
         }
         __syncwarp();  // the buffer is refilled two steps on
       }
     }
     if (active) {
-      store_tile<D>(dk + n * T * D, acc_k, k0, T, 1.f, lane);  // q was scaled: scale * ds^T q
+      // float32: q was scaled before the products; bf16: scale * ds^T q here
+      store_tile<D>(dk + n * T * D, acc_k, k0, T, EX ? scale : 1.f, lane);
       store_tile<D>(dv + n * T * D, acc_v, k0, T, 1.f, lane);
     }
   }
@@ -885,29 +983,29 @@ int launch_prep(Kernel kernel, size_t smem, bool& ready) {
   return (int)err;
 }
 
-template <int D, bool FULL>
-int fwd_launch(const float* q, const float* k, const float* v, const float* bias,
-               float* o, float* lse, int BH, int T, int H, int groups, float scale,
+template <int D, bool FULL, typename In>
+int fwd_launch(const In* q, const In* k, const In* v, const float* bias,
+               In* o, float* lse, int BH, int T, int H, int groups, float scale,
                cudaStream_t stream) {
   dim3 grid(BH, (T + 16 * groups - 1) / (16 * groups));
   static bool ready = false;
-  int err = launch_prep(flash_fwd_kernel<D, FULL>, fwd_smem_bytes<D>(FWD_MAX_GROUPS), ready);
+  int err = launch_prep(flash_fwd_kernel<D, FULL, In>, fwd_smem_bytes<D>(FWD_MAX_GROUPS), ready);
   if (err) return err;
-  flash_fwd_kernel<D, FULL><<<grid, 32 * FWD_SPLITS * groups, fwd_smem_bytes<D>(groups),
-                              stream>>>(q, k, v, bias, o, lse, T, H, scale);
+  flash_fwd_kernel<D, FULL, In><<<grid, 32 * FWD_SPLITS * groups, fwd_smem_bytes<D>(groups),
+                                  stream>>>(q, k, v, bias, o, lse, T, H, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool FULL>
-int fwd(const float* q, const float* k, const float* v, const float* bias,
-        float* o, float* lse, int BH, int T, int D, int H, int rows, float scale,
+template <bool FULL, typename In>
+int fwd(const In* q, const In* k, const In* v, const float* bias,
+        In* o, float* lse, int BH, int T, int D, int H, int rows, float scale,
         void* stream) {
   if (BH < 1 || T < 1 || (FULL && bias == nullptr)) return (int)cudaErrorInvalidValue;
   if (rows != 16 && rows != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int groups = rows / 16;
-  if (D == 64) return fwd_launch<64, FULL>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
-  if (D == 32) return fwd_launch<32, FULL>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
+  if (D == 64) return fwd_launch<64, FULL, In>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
+  if (D == 32) return fwd_launch<32, FULL, In>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -931,9 +1029,9 @@ int bwd_groups_per_block(int jobs, int groups) {
 }
 
 // K3 (K3b): one block per (residual row, 16 query rows, run of G groups)
-template <int D, bool FULL>
-int dq_mma_launch(const float* q, const float* k, const float* v, const float* o,
-                  const float* lse, const float* g, const float* bias, float* dq,
+template <int D, bool FULL, typename In>
+int dq_mma_launch(const In* q, const In* k, const In* v, const In* o,
+                  const float* lse, const In* g, const float* bias, In* dq,
                   float* dd, float* dbias, int N, int BH, int T, int H, float scale,
                   cudaStream_t stream) {
   const int V = N / BH, groups = (V + BWD_ROWS - 1) / BWD_ROWS, tiles = (T + 15) / 16;
@@ -941,53 +1039,57 @@ int dq_mma_launch(const float* q, const float* k, const float* v, const float* o
   dim3 grid(BH, tiles, (groups + G - 1) / G);
   constexpr size_t smem = dq_mma_smem_bytes<D>();
   static bool ready = false;
-  int err = launch_prep(flash_dq_mma_kernel<D, FULL>, smem, ready);
+  int err = launch_prep(flash_dq_mma_kernel<D, FULL, In>, smem, ready);
   if (err) return err;
-  flash_dq_mma_kernel<D, FULL><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_dq_mma_kernel<D, FULL, In><<<grid, BWD_THREADS, smem, stream>>>(
       q, k, v, o, lse, g, bias, dq, dd, dbias, T, H, BH, V, G, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool FULL>
-int dq(const float* q, const float* k, const float* v, const float* o,
-       const float* lse, const float* g, const float* bias, float* dq_, float* dd,
+template <bool FULL, typename In>
+int dq(const In* q, const In* k, const In* v, const In* o,
+       const float* lse, const In* g, const float* bias, In* dq_, float* dd,
        float* dbias, int N, int BH, int T, int D, int H, float scale, void* stream) {
   if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
   if (FULL && (bias == nullptr || dbias == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
-    return dq_mma_launch<64, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
+    return dq_mma_launch<64, FULL, In>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H,
+                                       scale, st);
   if (D == 32)
-    return dq_mma_launch<32, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H, scale, st);
+    return dq_mma_launch<32, FULL, In>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H,
+                                       scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // K4 (K4f): one block per (residual row, 16 key rows, run of G groups)
-template <int D, bool FULL>
-int dkv_mma_launch(const float* q, const float* k, const float* v, const float* lse,
-                   const float* g, const float* dd, const float* bias, float* dk,
-                   float* dv, int N, int BH, int T, int H, float scale, cudaStream_t stream) {
+template <int D, bool FULL, typename In>
+int dkv_mma_launch(const In* q, const In* k, const In* v, const float* lse,
+                   const In* g, const float* dd, const float* bias, In* dk,
+                   In* dv, int N, int BH, int T, int H, float scale, cudaStream_t stream) {
   const int V = N / BH, groups = (V + BWD_ROWS - 1) / BWD_ROWS, tiles = (T + 15) / 16;
   const int G = bwd_groups_per_block(BH * tiles, groups);
   dim3 grid(BH, tiles, (groups + G - 1) / G);
   constexpr size_t smem = dkv_mma_smem_bytes<D>();
   static bool ready = false;
-  int err = launch_prep(flash_dkv_mma_kernel<D, FULL>, smem, ready);
+  int err = launch_prep(flash_dkv_mma_kernel<D, FULL, In>, smem, ready);
   if (err) return err;
-  flash_dkv_mma_kernel<D, FULL><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_dkv_mma_kernel<D, FULL, In><<<grid, BWD_THREADS, smem, stream>>>(
       q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, V, G, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool FULL>
-int dkv(const float* q, const float* k, const float* v, const float* lse,
-        const float* g, const float* dd, const float* bias, float* dk, float* dv,
+template <bool FULL, typename In>
+int dkv(const In* q, const In* k, const In* v, const float* lse,
+        const In* g, const float* dd, const float* bias, In* dk, In* dv,
         int N, int BH, int T, int D, int H, float scale, void* stream) {
   if (N < 1 || BH < 1 || N % BH != 0 || T < 1 || (FULL && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64) return dkv_mma_launch<64, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
-  if (D == 32) return dkv_mma_launch<32, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
+  if (D == 64)
+    return dkv_mma_launch<64, FULL, In>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
+  if (D == 32)
+    return dkv_mma_launch<32, FULL, In>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1001,14 +1103,14 @@ int dkv(const float* q, const float* k, const float* v, const float* lse,
 extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
                              const float* bias, float* o, float* lse, int BH,
                              int T, int D, int H, int rows, float scale, void* stream) {
-  return fwd<false>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
+  return fwd<false, float>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
 }
 
 extern "C" int flash_fwd_bias_f32(const float* q, const float* k, const float* v,
                                   const float* bias, float* o, float* lse, int BH,
                                   int T, int D, int H, int rows, float scale,
                                   void* stream) {
-  return fwd<true>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
+  return fwd<true, float>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
 }
 
 extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,
@@ -1016,7 +1118,7 @@ extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,
                             const float* bias, float* dq_, float* dd, int N,
                             int BH, int T, int D, int H, float scale,
                             void* stream) {
-  return dq<false>(q, k, v, o, lse, g, bias, dq_, dd, nullptr, N, BH, T, D, H, scale, stream);
+  return dq<false, float>(q, k, v, o, lse, g, bias, dq_, dd, nullptr, N, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dq_dbias_f32(const float* q, const float* k, const float* v,
@@ -1024,7 +1126,7 @@ extern "C" int flash_dq_dbias_f32(const float* q, const float* k, const float* v
                                   const float* bias, float* dq_, float* dd,
                                   float* dbias, int N, int BH, int T, int D, int H,
                                   float scale, void* stream) {
-  return dq<true>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, D, H, scale, stream);
+  return dq<true, float>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
@@ -1032,7 +1134,7 @@ extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
                              const float* bias, float* dk, float* dv, int N,
                              int BH, int T, int D, int H, float scale,
                              void* stream) {
-  return dkv<false>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
+  return dkv<false, float>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dkv_bias_f32(const float* q, const float* k, const float* v,
@@ -1040,5 +1142,38 @@ extern "C" int flash_dkv_bias_f32(const float* q, const float* k, const float* v
                                   const float* bias, float* dk, float* dv, int N,
                                   int BH, int T, int D, int H, float scale,
                                   void* stream) {
-  return dkv<true>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
+  return dkv<true, float>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
+}
+
+// bf16: q, k, v, o, g, dq, dk, dv are __nv_bfloat16 (passed as void*); lse,
+// dd and the mask float32. No full-bias variant (the wrapper raises).
+
+using bf16 = __nv_bfloat16;
+
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                              const float* bias, void* o, float* lse, int BH,
+                              int T, int D, int H, int rows, float scale, void* stream) {
+  return fwd<false, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, BH,
+                          T, D, H, rows, scale, stream);
+}
+
+extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v, const void* o,
+                             const float* lse, const void* g, const float* bias, void* dq_,
+                             float* dd, int N, int BH, int T, int D, int H, float scale,
+                             void* stream) {
+  return dq<false, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
+                         static_cast<const bf16*>(g), bias, static_cast<bf16*>(dq_), dd,
+                         nullptr, N, BH, T, D, H, scale, stream);
+}
+
+extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v, const float* lse,
+                              const void* g, const float* dd, const float* bias, void* dk,
+                              void* dv, int N, int BH, int T, int D, int H, float scale,
+                              void* stream) {
+  return dkv<false, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), lse, static_cast<const bf16*>(g), dd,
+                          bias, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, BH, T, D,
+                          H, scale, stream);
 }

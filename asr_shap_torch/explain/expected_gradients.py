@@ -96,6 +96,10 @@ def expected_phi(f: Callable, x: torch.Tensor, background: torch.Tensor,
         raise ValueError(f"{draws[0].shape[0]} explicit draws given, the "
                          f"config asks for {total}")
     acc = _phi_sum(f, x, background, draws, config.output_chunk)
+    # float32 whatever the model's compute dtype: x_t stays float32 and the
+    # model casts it, so its gradient comes back float32
+    if acc.dtype != torch.float32:
+        raise TypeError(f"phi accumulated in {acc.dtype}, float32 expected")
     return (acc / total).T.contiguous()
 
 

@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "conv_dgrad": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     "flash_fwd_bias": 0, "flash_dq_dbias": 0, "flash_dkv_bias": 0,
+    "conv_dgrad_bf16": 0, "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -47,6 +48,13 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def accumulation_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the kernels and their plain versions sum in: float32 for
+    bf16 and float32 inputs, as the reference kernels' float32
+    accumulators; float64 stays float64 (the card's accuracy checks)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def kernel_input(t):

@@ -28,6 +28,13 @@ shared-memory tiles filled by ``cp.async``, whose zero fill supplies the
 halo rows ``v - d`` outside the clip; the phase interleave is the store
 address (see the source note).
 
+bf16 ybar and W (the model's ``dtype="bfloat16"``) launch the bf16 kernel
+of the same source: the same tiles in bf16, one ``mma.sync`` m16n8k16 bf16
+per product with a float32 sum (a product of two bf16 values is exact in
+float32), and xbar rounded to bf16 once, as the reference's float32
+accumulator cast to ybar's dtype. Its bound is its operations at the
+card's 989 TFLOP/s bf16 rate.
+
 The forward of the eligible layers stays ``F.conv1d``, as the reference
 leaves it to ``lax.conv``. ``ConvDgrad`` carries a ``vmap`` rule that folds
 the explainer's vmapped cotangent rows into the kernel's batch dimension,
@@ -58,14 +65,18 @@ def eligible(c_in: int, c_out: int, stride: int, groups: int,
 def conv1d_dgrad_plain(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
                        t_in: int) -> torch.Tensor:
     """Plain PyTorch version: one matmul per tap, scattered into the strided
-    rows it feeds (no [B, T, K*C] unfold)."""
+    rows it feeds (no [B, T, K*C] unfold). It sums in float32 from the
+    upcast inputs and rounds to ybar's dtype once at the end, as the
+    reference kernel does."""
+    acc = _build.accumulation_dtype(ybar.dtype)
+    y, w = ybar.to(acc), kernel.to(acc)
     b, t_out, _ = ybar.shape
     k_taps, c_in, _ = kernel.shape
-    xbar = ybar.new_zeros((b, t_in, c_in))
+    xbar = y.new_zeros((b, t_in, c_in))
     span = stride * (t_out - 1) + 1
     for k in range(k_taps):
-        xbar[:, k:k + span:stride] += ybar @ kernel[k].T
-    return xbar
+        xbar[:, k:k + span:stride] += y @ w[k].T
+    return xbar.to(ybar.dtype)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -100,22 +111,28 @@ def _check(ybar: torch.Tensor, kernel: torch.Tensor, stride: int, t_in: int):
 
 
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+# the entry point and launch counter of each dtype the kernels take
+_ENTRIES = {torch.float32: ("conv1d_dgrad_f32", "conv_dgrad"),
+            torch.bfloat16: ("conv1d_dgrad_bf16", "conv_dgrad_bf16")}
 
 
 def conv1d_dgrad(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
                  t_in: int) -> torch.Tensor:
-    """ybar [B, T_out, C_out], kernel [K, C_in, C_out] -> xbar [B, T_in, C_in].
+    """ybar [B, T_out, C_out], kernel [K, C_in, C_out] -> xbar [B, T_in, C_in]
+    in ybar's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    of its dtype (float32 or bf16, ybar and kernel alike) or raises."""
     _check(ybar, kernel, stride, t_in)
     if ybar.device.type == "cpu":
         return conv1d_dgrad_plain(ybar, kernel, stride, t_in)
     if ybar.device.type != "cuda":
         raise ValueError(f"conv1d_dgrad: unsupported device {ybar.device}")
-    if ybar.dtype != torch.float32 or kernel.dtype != torch.float32:
-        raise NotImplementedError("conv1d_dgrad: the CUDA kernel takes float32 "
-                                  "only (the bf16 path is not ported yet)")
+    entry = _ENTRIES.get(ybar.dtype)
+    if entry is None or kernel.dtype != ybar.dtype:
+        raise NotImplementedError(f"conv1d_dgrad: the CUDA kernels take float32 or "
+                                  f"bf16 ybar and kernel alike, got {ybar.dtype} and "
+                                  f"{kernel.dtype}")
     k_taps, c_in, c_out = kernel.shape
     if not eligible(c_in, c_out, stride, 1, 0):
         raise ValueError(f"conv1d_dgrad: shape not eligible for the kernel "
@@ -125,15 +142,16 @@ def conv1d_dgrad(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
     if ybar.data_ptr() % 16 or kernel.data_ptr() % 16:
         raise ValueError("conv1d_dgrad: 16-byte aligned tensors expected")
     b, t_out, _ = ybar.shape
-    out = torch.empty((b, t_in, c_in), device=ybar.device, dtype=torch.float32)
+    out = torch.empty((b, t_in, c_in), device=ybar.device, dtype=ybar.dtype)
     if out.numel() == 0:
         return out
-    fn = _build.c_function("conv_dgrad", "conv1d_dgrad_f32", _ARGTYPES)
+    fn_name, counter = entry
+    fn = _build.c_function("conv_dgrad", fn_name, _ARGTYPES)
     rc = fn(ybar.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t_out, t_in,
             c_out, c_in, k_taps, stride, _build.stream_of(ybar))
     if rc != 0:
         raise RuntimeError(f"conv1d_dgrad: kernel launch failed (CUDA error {rc})")
-    _build.LAUNCHES["conv_dgrad"] += 1
+    _build.LAUNCHES[counter] += 1
     return out
 
 

@@ -34,6 +34,15 @@ reads residual row ``n % (B*H)``, so folding the rows in copies nothing.
 ``FlashBackward`` carries the ``vmap`` rule that folds the vmapped axis of
 the cotangent into the kernels' leading dimension; a ctypes launch cannot
 see a batched tensor.
+
+bf16 q, k, v (the model's ``dtype="bfloat16"``), with a mask or no bias,
+launch the bf16 entry points of the same source: the float32 templates
+reading and writing bf16 (o, dq, dk, dv in the inputs' dtype; lse, dd and
+the mask float32), with the products whose operand is bf16 on one TF32 mma
+fewer (a bf16 value is exact in TF32). The plain versions compute in
+float32 from the upcast inputs and round each bf16 output once, as the
+reference kernels do. A full bias in bf16 (the conformer's K2f, K3b, K4f)
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -51,6 +60,9 @@ _F = ctypes.c_float
 # each entry point's C signature (csrc/flash_attention.cu)
 _ARGTYPES = {
     "flash_fwd_f32": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "flash_fwd_bf16": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "flash_dq_bf16": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    "flash_dkv_bf16": (_P,) * 9 + (_I,) * 5 + (_F, _P),
     "flash_fwd_bias_f32": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     "flash_dq_f32": (_P,) * 9 + (_I,) * 5 + (_F, _P),
     "flash_dq_dbias_f32": (_P,) * 10 + (_I,) * 5 + (_F, _P),
@@ -68,10 +80,18 @@ _sm_count: dict = {}
 # ------------------------------------------------------------ plain versions
 #
 # The kernels' bias argument: None, a [B, T] key mask or a full [BH, T, T]
-# score bias (told apart by rank).
+# score bias (told apart by rank). Each plain version computes in the
+# accumulation dtype (float32 for bf16 or float32 inputs, float64 for
+# float64) from the upcast inputs, and rounds its outputs to the inputs'
+# dtype once: lse and dd stay in the accumulation dtype.
 
 def _is_full(bias: Optional[torch.Tensor]) -> bool:
     return bias is not None and bias.ndim == 3
+
+
+def _up(*xs):
+    """The inputs in their accumulation dtype (``_build.accumulation_dtype``)."""
+    return tuple(None if x is None else x.to(_build.accumulation_dtype(x.dtype)) for x in xs)
 
 
 def _scores(q, k, bias, heads):
@@ -87,13 +107,15 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], heads: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, v [BH, T, D]; bias None, [B, T] or [BH, T, T]
-    -> (o [BH, T, D], lse [BH, T])."""
+    -> (o [BH, T, D] in q's dtype, lse [BH, T])."""
+    dtype = q.dtype
+    q, k, v, bias = _up(q, k, v, bias)
     s = _scores(q, k, bias, heads)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = (p @ v) / l
-    return o, (m + torch.log(l))[..., 0]
+    return o.to(dtype), (m + torch.log(l))[..., 0]
 
 
 def _fold(g: torch.Tensor, bh: int) -> torch.Tensor:
@@ -104,7 +126,9 @@ def _fold(g: torch.Tensor, bh: int) -> torch.Tensor:
 def flash_dq_plain(q, k, v, o, lse, g, bias, heads):
     """Residuals [BH, T, D] (lse [BH, T]), g [N, T, D] with N a multiple of
     BH -> (dq [N, T, D], dd = rowsum(g * o) [N, T], dbias): dbias = ds
-    [N, T, T] for a full bias, else None."""
+    [N, T, T] for a full bias, else None; dq in q's dtype."""
+    dtype, shape = q.dtype, g.shape
+    q, k, v, o, lse, g, bias = _up(q, k, v, o, lse, g, bias)
     bh = q.shape[0]
     g4 = _fold(g, bh)
     p = torch.exp(_scores(q, k, bias, heads) - lse[..., None])
@@ -112,27 +136,36 @@ def flash_dq_plain(q, k, v, o, lse, g, bias, heads):
     ds = p * (g4 @ v.transpose(1, 2) - dd[..., None])
     dq = q.shape[-1] ** -0.5 * (ds @ k)
     dbias = ds.reshape(g.shape[0], *ds.shape[2:]) if _is_full(bias) else None
-    return dq.reshape(g.shape), dd.reshape(g.shape[:2]), dbias
+    return dq.reshape(shape).to(dtype), dd.reshape(shape[:2]), dbias
 
 
 def flash_dkv_plain(q, k, v, lse, g, dd, bias, heads
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (dk, dv), each [N, T, D]; dd as returned by ``flash_dq_plain``."""
+    """-> (dk, dv), each [N, T, D] in k's / v's dtype; dd as returned by
+    ``flash_dq_plain``."""
+    dtypes, shape = (k.dtype, v.dtype), g.shape
+    q, k, v, lse, g, dd, bias = _up(q, k, v, lse, g, dd, bias)
     bh = q.shape[0]
     g4 = _fold(g, bh)
     p = torch.exp(_scores(q, k, bias, heads) - lse[..., None])   # [BH, Tq, Tk]
     dv = p.transpose(1, 2) @ g4
     ds = p * (g4 @ v.transpose(1, 2) - dd.reshape(g4.shape[:3])[..., None])
     dk = ds.transpose(-1, -2) @ (q * q.shape[-1] ** -0.5)
-    return dk.reshape(g.shape), dv.reshape(g.shape)
+    return dk.reshape(shape).to(dtypes[0]), dv.reshape(shape).to(dtypes[1])
 
 
 # ------------------------------------------------------------ kernel wrappers
 
+# the dtypes the kernels take for q, k, v, o and g
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
     """Validate the inputs of one kernel wrapper; True for the CPU (plain
     version), False for CUDA (kernel). Raises on anything the kernels do
-    not take."""
+    not take: on CUDA, q, k, v, o and g must share one dtype, float32 or
+    bf16, and lse, dd and the bias must be float32; bf16 takes no full
+    bias."""
     if q.ndim != 3:
         raise ValueError(f"flash attention: q [BH, T, D] expected, got {tuple(q.shape)}")
     bh, t, d = q.shape
@@ -144,6 +177,12 @@ def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
     if not cuda and q.device.type != "cpu":
         raise ValueError(f"flash attention: unsupported device {q.device}")
     dev = q.get_device()
+    if cuda and q.dtype not in _DTYPES:
+        raise NotImplementedError(f"flash attention: the CUDA kernels take float32 or "
+                                  f"bf16, got {q.dtype}")
+    if cuda and q.dtype == torch.bfloat16 and _is_full(bias):
+        raise NotImplementedError("flash attention: bf16 with a full [BH, T, T] bias "
+                                  "(K2f, K3b, K4f in bf16) is not ported")
     for name, x, shape in (
             ("q", q, (bh, t, d)), ("k", k, (bh, t, d)), ("v", v, (bh, t, d)),
             ("o", o, (bh, t, d)), ("lse", lse, (bh, t)), ("g", g, (n, t, d)),
@@ -156,9 +195,10 @@ def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
                              f"expected {shape}")
         if (x.is_cuda != cuda or x.get_device() != dev) if cuda else x.device != q.device:
             raise ValueError("flash attention: tensors on different devices")
-        if cuda and x.dtype != torch.float32:
-            raise NotImplementedError("flash attention: the CUDA kernels take "
-                                      "float32 only (bf16 is not ported yet)")
+        want = torch.float32 if name in ("lse", "dd", "bias") else q.dtype
+        if cuda and x.dtype != want:
+            raise NotImplementedError(f"flash attention: {name} is {x.dtype}, the "
+                                      f"CUDA kernels take {want} here")
         if cuda and not x.is_contiguous():
             raise ValueError("flash attention: contiguous tensors expected")
     if cuda and d not in (32, 64):
@@ -168,6 +208,16 @@ def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _entry(kernel: str, full_kernel: Optional[str], q, bias) -> Tuple[str, str]:
+    """(entry point, launch counter) of ``kernel`` for q's dtype, or of its
+    full-bias variant ``full_kernel`` (float32 only) for a full bias."""
+    if _is_full(bias):
+        return f"{full_kernel}_f32", full_kernel
+    if q.dtype == torch.bfloat16:
+        return f"{kernel}_bf16", f"{kernel}_bf16"
+    return f"{kernel}_f32", kernel
 
 
 def _launch(name: str, counter: str, *args) -> None:
@@ -202,9 +252,8 @@ def _fwd_launch(q, k, v, bias, heads, rows: int):
     rows per block."""
     bh, t, d = q.shape
     o = torch.empty_like(q)
-    lse = q.new_empty((bh, t))
-    name, counter = (("flash_fwd_bias_f32", "flash_fwd_bias") if _is_full(bias)
-                     else ("flash_fwd_f32", "flash_fwd"))
+    lse = torch.empty((bh, t), device=q.device, dtype=torch.float32)
+    name, counter = _entry("flash_fwd", "flash_fwd_bias", q, bias)
     _launch(name, counter, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
             o.data_ptr(), lse.data_ptr(), bh, t, d, heads, rows, d ** -0.5,
             _build.stream_of(q))
@@ -228,7 +277,7 @@ def flash_dq(q, k, v, o, lse, g, bias, heads):
         _launch("flash_dq_dbias_f32", "flash_dq_dbias", *ptrs, dbias.data_ptr(),
                 n, bh, t, d, heads, d ** -0.5, _build.stream_of(q))
     else:
-        _launch("flash_dq_f32", "flash_dq", *ptrs, n, bh, t, d, heads, d ** -0.5,
+        _launch(*_entry("flash_dq", None, q, bias), *ptrs, n, bh, t, d, heads, d ** -0.5,
                 _build.stream_of(q))
     return dq, dd, dbias
 
@@ -242,8 +291,7 @@ def flash_dkv(q, k, v, lse, g, dd, bias, heads):
     n = g.shape[0]
     dk = torch.empty_like(g)
     dv = torch.empty_like(g)
-    name, counter = (("flash_dkv_bias_f32", "flash_dkv_bias") if _is_full(bias)
-                     else ("flash_dkv_f32", "flash_dkv"))
+    name, counter = _entry("flash_dkv", "flash_dkv_bias", q, bias)
     _launch(name, counter, *[_ptr(x) for x in (q, k, v, lse, g, dd, bias, dk, dv)],
             n, bh, t, d, heads, d ** -0.5, _build.stream_of(q))
     return dk, dv

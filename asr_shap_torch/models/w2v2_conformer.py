@@ -176,9 +176,12 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
     ``lengths`` enables padded batching; ``remat`` is accepted for signature
     parity and does nothing (see ``wav2vec2.encoder``). Raises where
-    ``wav2vec2_logits`` does: bf16, ``matmul_precision`` other than
-    "highest", and CUDA with TF32 on."""
+    ``wav2vec2_logits`` does (an unknown ``matmul_precision``, CUDA outside
+    its precision scope), and on bf16, whose full-bias kernels are not
+    ported."""
     cfg = config
+    if cfg.dtype != "float32":
+        raise NotImplementedError("bfloat16 conformer: K2f/K3b/K4f bf16 not ported")
     h = projected_features(params, cfg, input_values)
     bias = None
     if lengths is not None:

@@ -19,8 +19,8 @@ import torch.nn.functional as F
 from asr_shap_torch.core.config import Wav2Vec2Config
 from asr_shap_torch.core.device import (
     check_matmul_precision,
+    precision_active,
     resolve_device,
-    tf32_enabled,
 )
 from asr_shap_torch.kernels import conv_dgrad
 from asr_shap_torch.ops.attention import multi_head_attention
@@ -68,12 +68,20 @@ def _conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
 
     ``impl="pallas"`` sends the layers the dgrad kernel takes
     (``conv_dgrad.eligible``) through K1's Function; every other conv, and
-    every conv under ``impl="lax"``, is ``F.conv1d``."""
+    every conv under ``impl="lax"``, is ``F.conv1d``. A grouped conv (the
+    positional embedding) in bf16 runs on float32 copies of its operands
+    and rounds its output to bf16: the reference's arithmetic (float32
+    sums, output in the input's dtype), and on the H100 cuDNN's bf16 input
+    gradient of it took 433 ms per call at the base path's shape against
+    3.4 ms in float32 (``chip_smoke.py``, "timing positional conv dgrad")."""
     if impl not in ("lax", "pallas"):
         raise NotImplementedError(f"conv_impl {impl!r} is not ported")
     if impl == "pallas" and conv_dgrad.eligible(
             kernel.shape[1], kernel.shape[2], stride, groups, padding):
         y = conv_dgrad.conv1d(x, kernel, stride)
+    elif groups > 1 and x.dtype == torch.bfloat16:
+        y = conv_dgrad.conv1d_forward(x.float(), kernel.float(), stride, padding,
+                                      groups).to(x.dtype)
     else:
         y = conv_dgrad.conv1d_forward(x, kernel, stride, padding, groups)
     if bias is not None:
@@ -168,6 +176,37 @@ def init_wav2vec2_params(seed: int, config: Wav2Vec2Config,
 # forward
 # ---------------------------------------------------------------------------
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype: str) -> torch.dtype:
+    """A config's ``dtype`` ("float32" or "bfloat16") as a torch dtype."""
+    if dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(f"dtype {dtype!r}: only {sorted(COMPUTE_DTYPES)} are ported")
+    return COMPUTE_DTYPES[dtype]
+
+
+def cast_params_for_compute(params: Params, dtype: str) -> Params:
+    """The floating leaves of ``params`` cast to the compute dtype (shared by
+    every model's bf16 path); float32 is a no-op, and a leaf already in the
+    dtype is returned as it is, so params cast once up front cost nothing
+    per call."""
+    dt = compute_dtype(dtype)
+    if dt == torch.float32:
+        return params
+
+    def cast(x):
+        if isinstance(x, dict):
+            return {k: cast(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cast(v) for v in x)
+        if torch.is_tensor(x) and x.is_floating_point() and x.dtype != dt:
+            return x.to(dt)
+        return x
+
+    return cast(params)
+
+
 def feature_lengths(config: Wav2Vec2Config, lengths: torch.Tensor) -> torch.Tensor:
     """Audio-sample lengths -> feature-encoder frame lengths."""
     out = lengths
@@ -178,8 +217,12 @@ def feature_lengths(config: Wav2Vec2Config, lengths: torch.Tensor) -> torch.Tens
 
 def feature_encoder(params: Params, config: Wav2Vec2Config,
                     x: torch.Tensor) -> torch.Tensor:
-    """Raw waveform [B, N] -> features [B, T, C]; x320 total stride."""
-    h = x[..., None].to(torch.float32)
+    """Raw waveform [B, N] -> features [B, T, C]; x320 total stride. The
+    compute dtype is the waveform's (float32, bf16 or float16; anything
+    else is taken as float32)."""
+    h = x[..., None]
+    if h.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        h = h.to(torch.float32)
     for i, layer in enumerate(params["feature_encoder"]):
         h = _conv1d(h, layer["conv"]["kernel"], stride=config.conv_stride[i],
                     bias=layer["conv"].get("bias"), impl=config.conv_impl)
@@ -262,11 +305,14 @@ def wav2vec2_logits(params: Params, config: Wav2Vec2Config,
                     lengths: Optional[torch.Tensor] = None,
                     remat: bool = False) -> torch.Tensor:
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
-    ``lengths`` enables padded batching. On CUDA it must run with TF32 off
-    (``core.device.highest_precision``), else it raises: the model does not
-    change torch's process-wide switches itself."""
+    ``lengths`` enables padded batching. ``config.dtype="bfloat16"`` runs
+    activations and params in bf16 (params cast here, a no-op for leaves
+    already bf16; norm statistics stay float32). On CUDA it must run inside
+    ``core.device.matmul_precision_scope(config.matmul_precision)``, else it
+    raises: the model does not change torch's process-wide switches itself."""
     cfg = config
-    h = projected_features(params, cfg, input_values)
+    params = cast_params_for_compute(params, cfg.dtype)
+    h = projected_features(params, cfg, input_values.to(compute_dtype(cfg.dtype)))
     frame_mask = None if lengths is None else frame_mask_for(cfg, lengths, h)
     h = encoder(params, cfg, h, frame_mask, remat=remat)
     return _linear(params["lm_head"], h).to(torch.float32)
@@ -274,15 +320,16 @@ def wav2vec2_logits(params: Params, config: Wav2Vec2Config,
 
 def projected_features(params: Params, config: Wav2Vec2Config,
                        input_values: torch.Tensor) -> torch.Tensor:
-    """Waveform [B, N] -> projected features [B, T, hidden]: the numerics
-    checks, the conv feature encoder and the feature projection."""
+    """Waveform [B, N] (in the compute dtype) -> projected features [B, T,
+    hidden]: the numerics checks, the conv feature encoder and the feature
+    projection."""
     cfg = config
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype {cfg.dtype!r}: only float32 is ported")
     check_matmul_precision(cfg.matmul_precision)
-    if input_values.is_cuda and tf32_enabled():
-        raise RuntimeError("matmul_precision='highest' with TF32 on: run the model "
-                           "inside core.device.highest_precision()")
+    if input_values.is_cuda and not precision_active(cfg.matmul_precision):
+        raise RuntimeError(
+            f"matmul_precision={cfg.matmul_precision!r} but torch's precision switches "
+            f"are not its own: run the model inside core.device.matmul_precision_scope("
+            f"{cfg.matmul_precision!r})")
     feats = feature_encoder(params, cfg, input_values)
     fp = params["feature_projection"]
     return _linear(fp["projection"], _layer_norm(fp["layer_norm"], feats,

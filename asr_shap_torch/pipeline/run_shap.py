@@ -31,11 +31,7 @@ import torch
 
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
 from asr_shap_torch.core.config import ExplainerConfig, PipelineConfig, WAV2VEC2_VOCAB
-from asr_shap_torch.core.device import (
-    check_matmul_precision,
-    highest_precision,
-    resolve_device,
-)
+from asr_shap_torch.core.device import matmul_precision_scope, resolve_device
 from asr_shap_torch.core.prng import generator
 from asr_shap_torch.core.store import AttributionStore, key_for
 from asr_shap_torch.explain.baselines import kmeans_background, zeros_noise_background
@@ -47,6 +43,7 @@ from asr_shap_torch.explain.expected_gradients import (
 )
 from asr_shap_torch.metrics.confidence import mean_max_softmax_confidence
 from asr_shap_torch.models.heads import make_explained_fn, model_logits_fn
+from asr_shap_torch.models.wav2vec2 import cast_params_for_compute
 from asr_shap_torch.ops.ctc import ctc_greedy_decode, ctc_ids_to_text
 from asr_shap_torch.utils.debug import check_finite
 
@@ -133,7 +130,8 @@ def run_shap_pipeline(params, cfg: PipelineConfig, test_set: List[Dict],
     """Compute and persist attributions for every sample in ``test_set``
     (dicts with "audio", "noise", "text", "type", "snr"). ``params`` must
     already be on ``device``. Returns per-sample result dicts in test-set
-    order."""
+    order. The run holds the config's matmul precision scope; a bf16 config's
+    params are cast once, before the first draw."""
     device = resolve_device(device)
     store = store or AttributionStore(cfg.data_dir)
 
@@ -150,8 +148,8 @@ def run_shap_pipeline(params, cfg: PipelineConfig, test_set: List[Dict],
         buckets.setdefault(len(test_set[i]["audio"]), []).append(i)
 
     results = []
-    check_matmul_precision(cfg.model.matmul_precision)
-    with highest_precision():
+    params = cast_params_for_compute(params, cfg.model.dtype)
+    with matmul_precision_scope(cfg.model.matmul_precision):
         for length in sorted(buckets):
             for i in buckets[length]:
                 results.append(_run_sample(params, cfg, store, test_set[i], i, device))

@@ -21,11 +21,7 @@ import torch
 
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
 from asr_shap_torch.core.config import MetricConfig, WAV2VEC2_VOCAB, Wav2Vec2Config
-from asr_shap_torch.core.device import (
-    check_matmul_precision,
-    highest_precision,
-    resolve_device,
-)
+from asr_shap_torch.core.device import matmul_precision_scope, resolve_device
 from asr_shap_torch.core.store import AttributionStore
 from asr_shap_torch.metrics.eta_raw import eta_raw
 from asr_shap_torch.metrics.wer import batch_wer
@@ -48,7 +44,6 @@ def eta_wer_sweep(params, model_cfg: Wav2Vec2Config, store: AttributionStore,
     it takes)."""
     device = resolve_device(device)
     logits_fn = logits_fn or model_logits_fn(model_cfg)
-    check_matmul_precision(model_cfg.matmul_precision)
 
     keys = [k for k in store.keys() if store.completed(k)]
     buckets: Dict[tuple, List[int]] = {}
@@ -59,7 +54,7 @@ def eta_wer_sweep(params, model_cfg: Wav2Vec2Config, store: AttributionStore,
         ).append(i)
 
     records: List[Optional[Dict]] = [None] * len(keys)
-    with torch.no_grad(), highest_precision():
+    with torch.no_grad(), matmul_precision_scope(model_cfg.matmul_precision):
         for (length, phi_shape), idxs in sorted(buckets.items()):
             for start in range(0, len(idxs), batch):
                 group = idxs[start:start + batch]

@@ -5,11 +5,12 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Two paths are driven, each through run_shap_pipeline at full width with
-random weights from a seed: the base path (Wav2Vec2-base, kernels K1-K4)
-and the conformer slice (Wav2Vec2-Conformer rel-pos-large, kernels K1 and
-the full-bias flash kernels K2f, K3b, K4f). Phases, each reported on its
-own lines:
+Three paths are driven, each through run_shap_pipeline at full width with
+random weights from a seed: the base path (Wav2Vec2-base, kernels K1-K4),
+the conformer slice (Wav2Vec2-Conformer rel-pos-large, kernels K1 and the
+full-bias flash kernels K2f, K3b, K4f) and the bf16 path (Wav2Vec2-base
+with dtype="bfloat16", matmul_precision="default": the bf16 kernels of
+K1-K4). Phases, each reported on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once;
@@ -55,7 +56,19 @@ own lines:
    or its bytes ("operations (3xTF32)" or "bytes"); the log gives its
    float32 FMA bound beside it. The flash backward's yardstick is SDPA's
    backward alone on the same inputs (its forward run once, outside the
-   timing); forward plus backward is logged beside it.
+   timing); forward plus backward is logged beside it;
+7. the bf16 path, after the others: K1-K4 in bf16 against their plain
+   versions at its shapes (each bf16 output within one bf16 ulp, lse and dd
+   at the float32 tolerances; K2-K4 also at D = 32, T = 312, and over the
+   backward's shape sweep) and against float64 on the same bf16 inputs (at
+   most 1.25x the plain version's error; lse 2x); run_shap_pipeline with
+   the exact launch counts of its bf16 kernels and none of a float32
+   kernel; one draw through the bf16 kernels, through plain bf16 PyTorch
+   and in float32 ("phi bf16" lines, with the |phi| checksum's moves);
+   each bf16 kernel's times beside its bound at the bf16 rate, its plain
+   version and a bf16 library call; the bf16 slice per draw; and
+   ``python -m asr_shap_torch bench --attn pallas`` at its bf16 defaults
+   ("cli bench" lines). Its JSON entries are K1-bf16 to K4-bf16.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -86,7 +99,7 @@ from asr_shap_torch.core.config import (
     Wav2Vec2Config,
     Wav2Vec2ConformerConfig,
 )
-from asr_shap_torch.core.device import highest_precision
+from asr_shap_torch.core.device import highest_precision, matmul_precision_scope
 from asr_shap_torch.core.params_io import load_config, load_params, save_params
 from asr_shap_torch.core.store import AttributionStore, key_for
 from asr_shap_torch.explain.expected_gradients import expected_phi, sample_draws
@@ -98,7 +111,7 @@ from asr_shap_torch.metrics.eta_raw import eta_raw
 from asr_shap_torch.metrics.wer import wer
 from asr_shap_torch.models.heads import make_explained_fn
 from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
-from asr_shap_torch.models.wav2vec2 import init_wav2vec2_params
+from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params, wav2vec2_logits
 from asr_shap_torch.ops.attention import rel_shift
 from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
 
@@ -110,6 +123,9 @@ STUDY_ARCHIVE = "artifacts/params_synthetic_study.npz"
 STUDY_SAMPLES = 100_000  # the study archive's clips, as its committed studies
 # the kernels each path must launch, and the TPU kernel each one replaces
 BASE_KERNELS = ("conv_dgrad", "flash_fwd", "flash_dq", "flash_dkv")
+# the bf16 path's kernels (model dtype="bfloat16"), and their JSON names
+BF16_KERNELS = ("conv_dgrad_bf16", "flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
+BF16_NAMES = dict(zip(BF16_KERNELS, ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16")))
 CONFORMER_KERNELS = ("conv_dgrad", "flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")
 ROUTES = {
     "conv_dgrad": ("asr_shap_torch/csrc/conv_dgrad.cu", "asr_shap/kernels/conv_dgrad.py:150"),
@@ -119,12 +135,25 @@ ROUTES = {
     "flash_fwd_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
     "flash_dq_dbias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
     "flash_dkv_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
+    "conv_dgrad_bf16": ("asr_shap_torch/csrc/conv_dgrad.cu", "asr_shap/kernels/conv_dgrad.py:150"),
+    "flash_fwd_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
+    "flash_dq_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
+    "flash_dkv_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
 }
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+BF16 = torch.bfloat16
+# a bf16 output against its plain version: one bf16 ulp apart at most
+# (rtol 2^-7, atol 2^-8 of max|plain|); against float64, at most this many
+# times the plain version's error (bf16 outputs) or BF16_F32_OUT_RATIO
+# times (the float32 outputs lse and dd, the float32 kernels' rule)
+BF16_RTOL, BF16_ATOL_REL = 2.0 ** -7, 2.0 ** -8
+BF16_F64_RATIO = 1.25
+BF16_F32_OUT_RATIO = 2.0
 # the host-clocked times of the flash forward and its yardsticks are one
 # mean of 50 calls each (the JSON line's); the least of this many such
 # means is logged beside them, as host time varies on a shared host
@@ -147,6 +176,13 @@ def check(cond: bool, msg: str) -> None:
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_bf16(flops: float, nbytes: float):
+    """The least time of a function on bf16 inputs: its operations at the
+    card's dense bf16 peak, or its bytes."""
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations (bf16)") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def bound_3xtf32(flops: float, nbytes: float):
@@ -198,6 +234,20 @@ def device_ms(fn, kernel: str, iters: int = 50, tries: int = 3) -> float:
             return total / count / 1e3
         log(f"profiler saw {count} launches of {kernel} of {iters}; profiling again")
     raise CheckFailed(f"profiler saw under half the launches of {kernel} in {tries} tries")
+
+
+def compare_bf16(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
+                 rtol: float, why: str) -> float:
+    """``compare`` for one output of a kernel that may run in bf16: a bf16
+    output is held to one bf16 ulp of ``want`` (BF16_RTOL, BF16_ATOL_REL of
+    max|want|), a float32 one (lse, dd) to ``atol``, ``rtol``."""
+    if got.dtype == BF16:
+        scale = float(want.abs().max())
+        hi = torch.promote_types(want.dtype, torch.float32)
+        return compare(name, got.to(hi), want.to(hi), BF16_ATOL_REL * scale, BF16_RTOL,
+                       "bf16 output: one bf16 ulp (float32 sums in another order may "
+                       "round to the neighbouring bf16)")
+    return compare(name, got, want, atol, rtol, why)
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -294,26 +344,36 @@ def phase_build():
     return smi
 
 
-def k1_float64_check(gen, b, k, s, ci, co, ti, to) -> dict:
-    """K1 and its float32 plain version against the plain version in
-    float64, at one main-path shape: the accuracy of 3xTF32 on the card's
-    tensor cores beside float32's. Each is held to K1's tolerance, and K1
-    to at most twice the plain version's error."""
-    ybar, w = k1_inputs(gen, b, k, ci, co, to)
+def k1_float64_check(gen, b, k, s, ci, co, ti, to, dtype=torch.float32) -> dict:
+    """K1 and its plain version against the plain version in float64, at
+    one main-path shape. float32: the accuracy of 3xTF32 on the card's
+    tensor cores beside float32's; each is held to K1's tolerance, and K1
+    to at most twice the plain version's error. bf16: the same bf16 inputs
+    in float64, not rounded; K1 to at most BF16_F64_RATIO times the plain
+    version's error."""
+    ybar, w = (x.to(dtype) for x in k1_inputs(gen, b, k, ci, co, to))
     want = k1.conv1d_dgrad_plain(ybar.double(), w.double(), s, ti)
     errs = {}
+    label = "float32" if dtype == torch.float32 else "bf16"
     for key, got in (("kernel", k1.conv1d_dgrad(ybar, w, s, ti)),
                      ("plain", k1.conv1d_dgrad_plain(ybar, w, s, ti))):
-        errs[key] = compare(f"conv_dgrad B={b} K={k} s={s} T_out={to}: {key} (float32) "
-                            f"vs float64", got.double(), want, 5e-4, 1e-4,
-                            "K1's tolerance, against the exact sum")
+        errs[key] = compare_bf16(f"{k1_name(dtype)} B={b} K={k} s={s} T_out={to}: {key} "
+                                 f"({label}) vs float64",
+                                 got if dtype == BF16 else got.double(), want, 5e-4, 1e-4,
+                                 "K1's tolerance, against the exact sum")
         del got
-    log(f"conv_dgrad vs float64: kernel {errs['kernel']:.3e}, float32 plain "
-        f"{errs['plain']:.3e} (ratio {errs['kernel'] / errs['plain']:.2f})")
-    # as the CPU test holds the 3xTF32 emulation: at most 2x float32's error
-    check(errs["kernel"] <= 2 * errs["plain"],
-          "conv_dgrad: 3xTF32 error over 2x float32's against float64")
+    ratio, what = (2, "3xTF32") if dtype == torch.float32 else (BF16_F64_RATIO, "bf16")
+    log(f"{k1_name(dtype)} vs float64: kernel {errs['kernel']:.3e}, {label} plain "
+        f"{errs['plain']:.3e} (ratio {errs['kernel'] / errs['plain']:.2f}, limit {ratio})")
+    # float32, as the CPU test holds the 3xTF32 emulation: at most 2x
+    # float32's error
+    check(errs["kernel"] <= ratio * errs["plain"],
+          f"{k1_name(dtype)}: {what} error over {ratio}x the plain version's against float64")
     return errs
+
+
+def k1_name(dtype) -> str:
+    return "conv_dgrad_bf16" if dtype == BF16 else "conv_dgrad"
 
 
 def check_fwd_lengths(gen, h: int, d: int, full: bool) -> float:
@@ -379,30 +439,37 @@ def full_bias_lengths(gen, q, h: int, lengths) -> torch.Tensor:
     return bias
 
 
-def bwd_kernel_names(full: bool):
+def bwd_kernel_names(full: bool, dtype=torch.float32):
     """The counters (and JSON names) of the dq and dk/dv kernels: K3b and
-    K4f for a full bias, else K3 and K4."""
+    K4f for a full bias, else K3 and K4 (in bf16, their bf16 variants)."""
+    if dtype == BF16:
+        return ("flash_dq_bf16", "flash_dkv_bf16")
     return ("flash_dq_dbias", "flash_dkv_bias") if full else ("flash_dq", "flash_dkv")
 
 
-def check_bwd_shapes(gen, h: int, full: bool = False) -> dict:
+def check_bwd_shapes(gen, h: int, full: bool = False, dtype=torch.float32) -> dict:
     """K3 and K4 (``full``: K3b and K4f, with a rel-pos-like bias) against
     their plain versions where the grouped kernels can break, each case
     unmasked and masked: one cotangent row per residual row (N = BH); 37
     rows per residual row (the last group of 8 warps part empty); five
     clips with a mask length each; 100 keys (a partial chunk) and 500 keys
     with the last 200 masked (several chunks); and D = 32. With a full bias
-    d(bias) is compared too, and must be exactly 0 on masked keys."""
+    d(bias) is compared too, and must be exactly 0 on masked keys. In bf16
+    (q, k, v, g rounded to bf16; mask or no bias) also D = 32 at T = 312,
+    the study archive's shape, and each bf16 output to one bf16 ulp."""
     why = "float32 backward sums over T keys, another summation order"
-    dq_name, dkv_name = bwd_kernel_names(full)
+    dq_name, dkv_name = bwd_kernel_names(full, dtype)
     errs = {dq_name: 0.0, dkv_name: 0.0}
     # (clips B, keys T, head dim D, cotangent rows per residual row, mask lengths)
     cases = [(1, 149, 64, 1, [120]), (1, 149, 64, 37, [120]),
              (5, 149, 64, 8, [149, 131, 100, 77, 16]), (1, 100, 64, 8, [71]),
              (1, 500, 64, 8, [300]), (1, 149, 32, 8, [120])]
+    if dtype == BF16:
+        cases.append((1, 312, 32, 8, [290]))
     for b, t, d, v_rows, lengths in cases:
         for masked in (False, True):
-            q, k, v, _, g = flash_inputs(gen, b, h, t, d, v_rows, False)
+            q, k, v, _, g = (None if x is None else x.to(dtype)
+                             for x in flash_inputs(gen, b, h, t, d, v_rows, False))
             if full:
                 bias = full_bias_lengths(gen, q, h, lengths if masked else [])
             else:
@@ -412,8 +479,8 @@ def check_bwd_shapes(gen, h: int, full: bool = False) -> dict:
             dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, h)
             dq_p, dd_p, dbias_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
             errs[dq_name] = max(errs[dq_name],
-                                compare(f"{dq_name} dq {label}", dq, dq_p, 5e-5, 5e-4, why),
-                                compare(f"{dq_name} dd {label}", dd, dd_p, 5e-5, 5e-4, why))
+                                compare_bf16(f"{dq_name} dq {label}", dq, dq_p, 5e-5, 5e-4, why),
+                                compare_bf16(f"{dq_name} dd {label}", dd, dd_p, 5e-5, 5e-4, why))
             if full:
                 errs[dq_name] = max(errs[dq_name], compare(
                     f"{dq_name} dbias {label}", dbias, dbias_p, 5e-5, 5e-4, why))
@@ -426,32 +493,39 @@ def check_bwd_shapes(gen, h: int, full: bool = False) -> dict:
             dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h)
             dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)
             errs[dkv_name] = max(errs[dkv_name],
-                                 compare(f"{dkv_name} dk {label}", dk, dk_p, 5e-5, 5e-4, why),
-                                 compare(f"{dkv_name} dv {label}", dv, dv_p, 5e-5, 5e-4, why))
+                                 compare_bf16(f"{dkv_name} dk {label}", dk, dk_p, 5e-5, 5e-4, why),
+                                 compare_bf16(f"{dkv_name} dv {label}", dv, dv_p, 5e-5, 5e-4, why))
             del q, k, v, g, bias, o, lse, dd_p, dk, dv, dk_p, dv_p
     return errs
 
 
-def bwd_float64_check(gen, h: int, d: int, t: int, rows: int, full: bool = False) -> dict:
+def bwd_float64_check(gen, h: int, d: int, t: int, rows: int, full: bool = False,
+                      dtype=torch.float32) -> dict:
     """K3 and K4 (``full``: K3b and K4f, with a rel-pos-like bias) and their
     float32 plain versions against the plain versions in float64, at the
     path's shape: the accuracy of 3xTF32 on the card's tensor cores beside
     float32's. Each is held to the backward's tolerance, and dq, dk, dv
     (and d(bias)) each to at most twice the plain version's error. The
     float32 runs take o, lse and dd from the float64 runs, rounded to
-    float32."""
-    q, k, v, _, g = flash_inputs(gen, 1, h, t, d, rows, False)
+    float32. In bf16: q, k, v, g rounded to bf16 and the float64 runs on
+    those values; o rounded to bf16; dq, dk, dv to at most BF16_F64_RATIO
+    times the plain version's error."""
+    q, k, v, _, g = (None if x is None else x.to(dtype)
+                     for x in flash_inputs(gen, 1, h, t, d, rows, False))
     bias = rel_pos_bias(gen, q, False) if full else None
     q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
     b64 = None if bias is None else bias.double()
     o64, lse64 = fa.flash_fwd_plain(q64, k64, v64, b64, h)
     dq64, dd64, db64 = fa.flash_dq_plain(q64, k64, v64, o64, lse64, g64, b64, h)
     dk64, dv64 = fa.flash_dkv_plain(q64, k64, v64, lse64, g64, dd64, b64, h)
-    o, lse, dd = o64.float(), lse64.float(), dd64.float()
+    o, lse, dd = o64.to(dtype), lse64.float(), dd64.float()
     runs = {"kernel": (fa.flash_dq, fa.flash_dkv),
             "plain": (fa.flash_dq_plain, fa.flash_dkv_plain)}
     why = "the backward's tolerance, against the exact sum"
     label = "flash backward, full bias," if full else "flash backward"
+    if dtype == BF16:
+        label = "flash backward bf16"
+    ratio = BF16_F64_RATIO if dtype == BF16 else 2
     names = ("dq", "dk", "dv") + (("dbias",) if full else ())
     errs = {}
     for key, (dq_fn, dkv_fn) in runs.items():
@@ -460,18 +534,18 @@ def bwd_float64_check(gen, h: int, d: int, t: int, rows: int, full: bool = False
         outs = {"dq": (dq, dq64), "dk": (dk, dk64), "dv": (dv, dv64), "dbias": (dbias, db64)}
         for name in names:
             got, want = outs[name]
-            errs[key, name] = compare(f"{label} {name} N={g.shape[0]} T={t}: {key} "
-                                      f"(float32) vs float64", got.double(), want,
-                                      5e-5, 5e-4, why)
+            errs[key, name] = compare_bf16(
+                f"{label} {name} N={g.shape[0]} T={t}: {key} vs float64",
+                got if got.dtype == BF16 else got.double(), want, 5e-5, 5e-4, why)
         del dq, dk, dv, dbias, outs
     for name in names:
         kern, plain = errs["kernel", name], errs["plain", name]
-        log(f"{label} {name} vs float64: kernel {kern:.3e}, float32 plain "
-            f"{plain:.3e} (ratio {kern / plain:.2f})")
-        check(kern <= 2 * plain, f"{label} {name}: 3xTF32 error over 2x float32's "
-              "against float64")
+        log(f"{label} {name} vs float64: kernel {kern:.3e}, plain "
+            f"{plain:.3e} (ratio {kern / plain:.2f}, limit {ratio})")
+        check(kern <= ratio * plain, f"{label} {name}: error over {ratio}x the plain "
+              "version's against float64")
     # each JSON row takes the largest error over its kernel's outputs
-    dq_name, dkv_name = bwd_kernel_names(full)
+    dq_name, dkv_name = bwd_kernel_names(full, dtype)
     per_kernel = {dq_name: ("dq",) + names[3:], dkv_name: ("dk", "dv")}
     return {kname: {"err_vs_float64": max(errs["kernel", x] for x in kouts),
                     "plain_err_vs_float64": max(errs["plain", x] for x in kouts)}
@@ -627,6 +701,7 @@ def phase_pipeline(label: str, cfg: PipelineConfig, params, test_set, expect):
         check(phi.shape == (N_SAMPLES, t_out), f"phi shape {phi.shape}")
         check(bool(np.isfinite(phi).all()), "phi not finite")
         check(float(np.abs(phi).max()) > 0, "phi all zero")
+        check(phi.dtype == np.float32, f"phi is {phi.dtype}, float32 expected")
         stored = store.load(key_for(r["index"], sample["type"], sample["snr"]))
         check(np.array_equal(stored["shap_values"], phi), "store: phi differs on reload")
         check(np.array_equal(stored["audio"], sample["audio"]), "store: audio differs")
@@ -837,10 +912,10 @@ def phase_cli(base_archive: str, data_dir: str):
 
 
 PROFILE_GROUPS = (
-    ("port kernels", ("dgrad_kernel", "flash_fwd_kernel", "flash_dq_mma_kernel",
-                      "flash_dkv_mma_kernel")),
+    ("port kernels", ("dgrad_kernel", "dgrad_bf16_kernel", "flash_fwd_kernel",
+                      "flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
     ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft", "depthwise")),
-    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
 )
 
 
@@ -852,9 +927,10 @@ def _profile_group(name: str) -> str:
     return "other"
 
 
-def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> None:
+def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> dict:
     """Device time of ``n`` more draws by kernel group under torch.profiler
-    (kept apart from the wall per draw above, which runs unprofiled)."""
+    (kept apart from the wall per draw above, which runs unprofiled).
+    Returns {kernel name: device ms per draw}, empty if not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     draws = sample_draws(torch.Generator().manual_seed(6), n, ec.num_background)
@@ -871,7 +947,7 @@ def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> None:
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
         log("profile: the profiler recorded no device time; breakdown not measured")
-        return
+        return {}
     busy = sum(r[0] for r in rows)
     log(f"profile: {n} draws, wall {wall_ms:.1f} ms per draw with the profiler on; "
         f"device busy {busy:.1f} ms per draw ({100 * busy / wall_ms:.1f}% of wall)")
@@ -884,6 +960,7 @@ def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> None:
     for i, (ms, count, key) in enumerate(rows):
         if i < 12 or _profile_group(key) == "port kernels":
             log(f"profile kernel {ms:9.3f} ms/draw {count:6.1f} calls/draw  {key[:100]}")
+    return {key: ms for ms, _, key in rows}
 
 
 def phase_timing(cfg: PipelineConfig, params, test_set):
@@ -979,8 +1056,8 @@ def phase_timing(cfg: PipelineConfig, params, test_set):
         f"(ratio {pair / (layers * lib_bwd):.3f})")
     del qe, ke, ve, oe
 
-    time_slice("base", cfg, params, test_set, gen, out)
-    return out
+    per_draw, _ = time_slice("base", cfg, params, test_set, gen, out)
+    return out, per_draw
 
 
 def host_ms(fn):
@@ -1012,7 +1089,8 @@ def sweep_fwd_rows(name: str, q, k, v, bias, h) -> None:
 
 def time_slice(label: str, cfg: PipelineConfig, params, test_set, gen, out) -> None:
     """Wall per draw of sample 0's explainer (3 draws after the pipeline
-    run), launches per draw and peak device memory; then the profile."""
+    run), launches per draw and peak device memory; then the profile.
+    Returns (wall per draw in s, ``profile_draws``'s device ms by kernel)."""
     mc = cfg.model
     rows = mc.frames_for_samples(N_SAMPLES)
     x = zero_mean_unit_var(torch.from_numpy(test_set[0]["audio"]).cuda())
@@ -1035,7 +1113,7 @@ def time_slice(label: str, cfg: PipelineConfig, params, test_set, gen, out) -> N
     kernel_sum = sum(v["ms"] for v in out.values())
     log(f"slice {label}: its {len(out)} kernels' time per draw {kernel_sum:.1f} ms "
         f"({100 * kernel_sum / (per_draw * 1e3):.1f}% of the draw's wall)")
-    profile_draws(f, x, bg, ec)
+    return per_draw, profile_draws(f, x, bg, ec)
 
 
 def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
@@ -1113,12 +1191,360 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
     time_slice("conformer", cfg, params, test_set, gen, {**out, "conv_dgrad": k1_row})
     return out
 
+# ---------------------------------------------------------------- bf16 path
+
+def bf16_flash_costs(bh, n, t, d):
+    """(operations, bytes) of one launch of K2, K3 and K4 on bf16 inputs:
+    q, k, v, o, g, dq, dk, dv at 2 bytes, lse and dd at 4, each read or
+    written once, the scores counted once per residual row."""
+    return {
+        "flash_fwd_bf16": (4.0 * bh * t * t * d, 2.0 * 4 * bh * t * d + 4.0 * bh * t),
+        "flash_dq_bf16": (4.0 * n * t * t * d + 2.0 * bh * t * t * d,
+                          2.0 * (2 * n * t * d + 4 * bh * t * d) + 4.0 * (n * t + bh * t)),
+        "flash_dkv_bf16": (6.0 * n * t * t * d + 2.0 * bh * t * t * d,
+                           2.0 * (3 * n * t * d + 3 * bh * t * d) + 4.0 * (n * t + bh * t)),
+    }
+
+
+def bf16_flash_inputs(gen, b, h, t, d, v_rows, masked):
+    """``flash_inputs`` with q, k, v and g rounded to bf16 (the mask stays
+    float32, as the kernels take it)."""
+    q, k, v, bias, g = flash_inputs(gen, b, h, t, d, v_rows, masked)
+    return q.to(BF16), k.to(BF16), v.to(BF16), bias, g.to(BF16)
+
+
+def fwd_float64_check_bf16(gen, h: int, d: int, t: int) -> dict:
+    """K2 in bf16 and its plain version against the same bf16 inputs in
+    float64: o to at most BF16_F64_RATIO times the plain version's error,
+    lse (a float32 output) to at most BF16_F32_OUT_RATIO times."""
+    q, k, v, _, _ = bf16_flash_inputs(gen, 1, h, t, d, 1, False)
+    o64, lse64 = fa.flash_fwd_plain(q.double(), k.double(), v.double(), None, h)
+    errs = {}
+    for key, (o, lse) in (("kernel", fa.flash_fwd(q, k, v, None, h)),
+                          ("plain", fa.flash_fwd_plain(q, k, v, None, h))):
+        errs[key, "o"] = compare_bf16(f"flash_fwd_bf16 o BH={h} T={t}: {key} vs float64", o,
+                                      o64, 0.0, 0.0, "")
+        errs[key, "lse"] = compare(f"flash_fwd_bf16 lse BH={h} T={t}: {key} vs float64",
+                                   lse.double(), lse64, 2e-5, 2e-4,
+                                   "float32 softmax over 149 keys, against the exact sum")
+    for name, ratio in (("o", BF16_F64_RATIO), ("lse", BF16_F32_OUT_RATIO)):
+        kern, plain = errs["kernel", name], errs["plain", name]
+        log(f"flash_fwd_bf16 {name} vs float64: kernel {kern:.3e}, plain {plain:.3e} "
+            f"(ratio {kern / plain:.2f}, limit {ratio})")
+        check(kern <= ratio * plain, f"flash_fwd_bf16 {name}: error over {ratio}x the plain "
+              "version's against float64")
+    return {"err_vs_float64": errs["kernel", "o"], "plain_err_vs_float64": errs["plain", "o"]}
+
+
+def phase_checks_bf16(cfg: Wav2Vec2Config):
+    """K1-K4 in bf16 against their plain versions at the bf16 path's shapes
+    (the base path's: K1 at the six layers with 149 rows; K2-K4 at BH = 12,
+    T = 149, D = 64, N = 1,788, masked and unmasked, and over
+    ``check_bwd_shapes``'s sweep with D = 32 at T = 312), and against
+    float64 on the same bf16 inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = cfg.frames_for_samples(N_SAMPLES)
+    h, d, t = cfg.num_attention_heads, cfg.head_dim, rows
+    errs = {name: 0.0 for name in BF16_KERNELS}
+    shapes = k1_main_shapes(cfg, rows)
+    for k, s, ci, co, ti, to in shapes:
+        ybar, w = (x.to(BF16) for x in k1_inputs(gen, rows, k, ci, co, to))
+        got = k1.conv1d_dgrad(ybar, w, s, ti)
+        check(got.dtype == BF16, f"conv_dgrad_bf16 returned {got.dtype}")
+        errs["conv_dgrad_bf16"] = max(errs["conv_dgrad_bf16"], compare_bf16(
+            f"conv_dgrad_bf16 B={rows} K={k} s={s} C={ci}x{co} T_out={to}", got,
+            k1.conv1d_dgrad_plain(ybar, w, s, ti), 0.0, 0.0, ""))
+        del ybar, w, got
+    f64 = k1_float64_check(gen, rows, *shapes[0], dtype=BF16)
+    extra = {"conv_dgrad_bf16": {"err_vs_float64": f64["kernel"],
+                                 "plain_err_vs_float64": f64["plain"]}}
+
+    why_f = "float32 softmax over T keys, another summation order"
+    why_b = "float32 backward sums over 149 keys, another summation order"
+    for masked in (False, True):
+        for b, hh, tt, dd_ in ((1, h, t, d), (5, h, t, d), (1, 3, 312, 32)):
+            q, k, v, bias, _ = bf16_flash_inputs(gen, b, hh, tt, dd_, 1, masked)
+            (o, lse), (o_p, lse_p) = (fa.flash_fwd(q, k, v, bias, hh),
+                                      fa.flash_fwd_plain(q, k, v, bias, hh))
+            check(o.dtype == BF16 and lse.dtype == torch.float32, "flash_fwd_bf16 dtypes")
+            label = f"BH={b * hh} T={tt} D={dd_} mask={masked}"
+            errs["flash_fwd_bf16"] = max(
+                errs["flash_fwd_bf16"],
+                compare_bf16(f"flash_fwd_bf16 o {label}", o, o_p, 2e-5, 2e-4, why_f),
+                compare_bf16(f"flash_fwd_bf16 lse {label}", lse, lse_p, 2e-5, 2e-4, why_f))
+        q, k, v, bias, g = bf16_flash_inputs(gen, 1, h, t, d, rows, masked)
+        o, lse = fa.flash_fwd_plain(q, k, v, bias, h)
+        dq, dd, _ = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+        dq_p, dd_p, _ = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
+        check(dq.dtype == BF16 and dd.dtype == torch.float32, "flash_dq_bf16 dtypes")
+        n = g.shape[0]
+        errs["flash_dq_bf16"] = max(
+            errs["flash_dq_bf16"],
+            compare_bf16(f"flash_dq_bf16 dq N={n} mask={masked}", dq, dq_p, 5e-5, 5e-4, why_b),
+            compare_bf16(f"flash_dq_bf16 dd N={n} mask={masked}", dd, dd_p, 5e-5, 5e-4, why_b))
+        dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h)
+        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)
+        check(dk.dtype == BF16 and dv.dtype == BF16, "flash_dkv_bf16 dtypes")
+        errs["flash_dkv_bf16"] = max(
+            errs["flash_dkv_bf16"],
+            compare_bf16(f"flash_dkv_bf16 dk N={n} mask={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
+            compare_bf16(f"flash_dkv_bf16 dv N={n} mask={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
+        del q, k, v, bias, g, o, lse, dq, dd, dq_p, dd_p, dk, dv, dk_p, dv_p
+    for key, err in check_bwd_shapes(gen, h, dtype=BF16).items():
+        errs[key] = max(errs[key], err)
+    extra["flash_fwd_bf16"] = fwd_float64_check_bf16(gen, h, d, t)
+    extra.update(bwd_float64_check(gen, h, d, t, rows, dtype=BF16))
+    return errs, extra
+
+
+def expected_launches_bf16(cfg: PipelineConfig, samples: int) -> dict:
+    """Launches of each bf16 kernel on the pipeline run: per sample one
+    forward for the transcript and per draw one forward and one backward;
+    K1 once per eligible conv layer and backward, K2-K4 once per encoder
+    layer and pass."""
+    draws, layers = cfg.explainer.nsamples, cfg.model.num_hidden_layers
+    convs = len(k1_main_shapes(cfg.model, 1))
+    return {"conv_dgrad_bf16": samples * draws * convs,
+            "flash_fwd_bf16": samples * (draws + 1) * layers,
+            "flash_dq_bf16": samples * draws * layers,
+            "flash_dkv_bf16": samples * draws * layers}
+
+
+def _corr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.corrcoef(torch.stack([a.ravel().double(), b.ravel().double()]))[0, 1])
+
+
+def phase_reference_bf16(cfg: PipelineConfig, params, test_set):
+    """One full-width draw three ways: bf16 + "default" through the kernels
+    (phi_k16), bf16 + "default" through plain PyTorch (phi_p16) and float32
+    + "highest" through the kernels (phi_32). The kernel path must be no
+    further from phi_32 than the plain bf16 path (norm at most 1.5x, corr at
+    least its corr less 0.01) on every frame whose max head is defined at
+    bf16: the top two float32 logits at x_t further apart than twice the
+    larger of the two bf16 paths' largest logit errors at that frame, so no
+    bf16 path can pick another token there. On the other frames either bf16
+    path may explain another token's logit; they are logged, not gated.
+    Also logs the relative move of the |phi| checksum of bf16 + "default"
+    and of float32 + "default" against float32 + "highest"."""
+    ec = dataclasses.replace(cfg.explainer, nsamples=1)
+    x = zero_mean_unit_var(torch.from_numpy(test_set[1]["audio"]).cuda())
+    bg = 0.01 * torch.randn((ec.num_background, N_SAMPLES),
+                            generator=torch.Generator().manual_seed(1)).cuda()
+    draws = (torch.tensor([2]), torch.tensor([0.37]))
+    x_t = bg[2] + 0.37 * (x - bg[2])
+    k16 = cfg.model
+    p16 = dataclasses.replace(k16, attention_impl="xla", conv_impl="lax")
+    k32 = dataclasses.replace(k16, dtype="float32", matmul_precision="highest")
+    k32d = dataclasses.replace(k16, dtype="float32")
+    params16 = cast_params_for_compute(params, "bfloat16")
+    paths = {"k16": (k16, params16), "p16": (p16, params16), "32": (k32, params),
+             "32 default": (k32d, params)}
+    phi, logits = {}, {}
+    for key, (mc, p) in paths.items():
+        with matmul_precision_scope(mc.matmul_precision):
+            phi[key] = expected_phi(make_explained_fn(p, mc, ec), x, bg, config=ec, draws=draws)
+            with torch.no_grad():
+                logits[key] = wav2vec2_logits(p, mc, x_t[None])[0]
+        check(phi[key].dtype == torch.float32, f"phi {key}: {phi[key].dtype}")
+        check(bool(torch.isfinite(phi[key]).all()), f"phi {key}: not finite")
+    err = torch.maximum((logits["k16"] - logits["32"]).abs().amax(-1),
+                        (logits["p16"] - logits["32"]).abs().amax(-1))
+    top2 = logits["32"].topk(2, dim=-1).values
+    defined = (top2[:, 0] - top2[:, 1]) > 2 * err
+    t_out = defined.numel()
+    log(f"phi bf16: max|logit| float32 {float(logits['32'].abs().max()):.4e}; largest logit "
+        f"error at x_t: kernels {float((logits['k16'] - logits['32']).abs().max()):.4e}, "
+        f"plain {float((logits['p16'] - logits['32']).abs().max()):.4e}; max head defined "
+        f"at bf16 on {int(defined.sum())} of {t_out} frames")
+    check(int(defined.sum()) >= t_out // 10, "phi bf16: the max head is defined on under a "
+          "tenth of the frames; the comparison would say nothing")
+    ref = phi["32"]
+    for frames, sel in (("all frames", slice(None)), ("defined frames", defined)):
+        nk = float((phi["k16"][:, sel] - ref[:, sel]).norm())
+        np_ = float((phi["p16"][:, sel] - ref[:, sel]).norm())
+        ck, cp = _corr(phi["k16"][:, sel], ref[:, sel]), _corr(phi["p16"][:, sel], ref[:, sel])
+        log(f"phi bf16 ({frames}): |phi_k16 - phi_32| = {nk:.6e}, |phi_p16 - phi_32| = "
+            f"{np_:.6e} (ratio {nk / np_:.3f}, limit 1.5), |phi_32| = "
+            f"{float(ref[:, sel].norm()):.6e}; corr(phi_k16, phi_32) = {ck:.6f}, "
+            f"corr(phi_p16, phi_32) = {cp:.6f}")
+    check(nk <= 1.5 * np_, "phi bf16: the kernel path is further from float32 than 1.5x "
+          "the plain bf16 path")
+    check(ck >= cp - 0.01, "phi bf16: the kernel path correlates less with float32 than "
+          "the plain bf16 path, by over 0.01")
+    s32 = float(ref.abs().sum())
+    for key in ("k16", "32 default"):
+        s = float(phi[key].abs().sum())
+        log(f"phi checksum sum|phi| {key}: {s:.6e} against float32 + highest {s32:.6e}: "
+            f"relative move {(s - s32) / s32:+.4e}; relative L2 distance "
+            f"{float((phi[key] - ref).norm() / ref.norm()):.4e}")
+
+
+def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
+    """K1-K4 in bf16 at the bf16 path's shapes: each kernel's time per draw
+    (CUDA events) beside its bound at the bf16 rate, its plain version and
+    one library call (cuDNN's bf16 dgrad, SDPA's bf16 forward and backward
+    without a mask, as the path runs); then the bf16 slice per draw. Each
+    kernel's device time per draw comes from the slice's profile (K2's
+    host-clocked time is its launch latency, not device time). Returns
+    (rows, wall per draw)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    mc = cfg.model
+    rows = mc.frames_for_samples(N_SAMPLES)
+    h, d, t = mc.num_attention_heads, mc.head_dim, rows
+    layers = mc.num_hidden_layers
+    out = {}
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    for k, s, ci, co, ti, to in k1_main_shapes(mc, rows):
+        ybar, w = (x.to(BF16) for x in k1_inputs(gen, rows, k, ci, co, to))
+        x_nct = torch.empty((rows, ci, ti), device="cuda", dtype=BF16)
+        y_nct = ybar.transpose(1, 2).contiguous()
+        w_oik = w.permute(2, 1, 0).contiguous()
+        iters = 5 if to > 1000 else 20
+        fn = lambda: k1.conv1d_dgrad(ybar, w, s, ti)  # noqa: E731
+        ms = time_ms(fn, iters)
+        pms = time_ms(lambda: k1.conv1d_dgrad_plain(ybar, w, s, ti), iters)
+        lms = time_ms(lambda: torch.ops.aten.convolution_backward(
+            y_nct, x_nct, w_oik, None, [s], [0], [1], False, [0], 1,
+            [True, False, False]), iters)
+        fl, nb32 = k1_cost(rows, k, s, ci, co, ti, to)
+        nb = nb32 / 2  # bf16 operands and output
+        b_ms, b_by = bound_bf16(fl, nb)
+        log(f"timing conv_dgrad_bf16 B={rows} K={k} s={s} T_out={to}: ms={ms:.4f} "
+            f"plain_ms={pms:.4f} library_ms(cuDNN bf16 dgrad)={lms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) TFLOP/s={fl / ms / 1e9:.2f}")
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("flops", fl), ("bytes", nb)):
+            tot[key] += val
+        del ybar, w, x_nct, y_nct, w_oik
+    b_ms, b_by = bound_bf16(tot["flops"], tot["bytes"])
+    log(f"timing conv_dgrad_bf16 per draw: ms={tot['ms']:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    out["conv_dgrad_bf16"] = dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=tot["library_ms"], device_ms=None)
+
+    costs = bf16_flash_costs(h, rows * h, t, d)
+    q, k, v, _, g = bf16_flash_inputs(gen, 1, h, t, d, rows, False)
+    ms, ms_best = host_ms(lambda: fa.flash_fwd(q, k, v, None, h))
+    pms, pms_best = host_ms(lambda: fa.flash_fwd_plain(q, k, v, None, h))
+    q4, k4, v4 = (x.reshape(1, h, t, d) for x in (q, k, v))
+    lms, lms_best = host_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    fl, nb = costs["flash_fwd_bf16"]
+    b_ms, b_by = bound_bf16(fl, nb)
+    log(f"timing flash_fwd_bf16 BH={h} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
+        f"library_ms(SDPA bf16 forward)={lms:.4f} bound_ms={b_ms:.5f} ({b_by}); best of "
+        f"{HOST_REPEATS}: ms={ms_best:.4f} plain_ms={pms_best:.4f} library_ms={lms_best:.4f}")
+    out["flash_fwd_bf16"] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
+                                 bound_by=b_by, library_ms=layers * lms, device_ms=None)
+
+    o, lse = fa.flash_fwd(q, k, v, None, h)
+    _, dd, _ = fa.flash_dq(q, k, v, o, lse, g, None, h)
+    qe, ke, ve = (x.expand(rows, h, t, d).contiguous().requires_grad_() for x in (q4, k4, v4))
+    oe = F.scaled_dot_product_attention(qe, ke, ve)
+    g4 = g.reshape(rows, h, t, d)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve), g4, retain_graph=True), 10)
+    for name, fn, pfn in (
+        ("flash_dq_bf16", lambda: fa.flash_dq(q, k, v, o, lse, g, None, h),
+         lambda: fa.flash_dq_plain(q, k, v, o, lse, g, None, h)),
+        ("flash_dkv_bf16", lambda: fa.flash_dkv(q, k, v, lse, g, dd, None, h),
+         lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd, None, h)),
+    ):
+        ms, pms = time_ms(fn, 10), time_ms(pfn, 10)
+        fl, nb = costs[name]
+        b_ms, b_by = bound_bf16(fl, nb)
+        log(f"timing {name} N={rows * h} T={t}: ms={ms:.4f} "
+            f"plain_ms={pms:.4f} library_ms(SDPA bf16 backward, dq+dk+dv)={lib_bwd:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) TFLOP/s={fl / ms / 1e9:.2f}")
+        out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
+                         bound_by=b_by, library_ms=layers * lib_bwd, device_ms=None)
+    pair = out["flash_dq_bf16"]["ms"] + out["flash_dkv_bf16"]["ms"]
+    log(f"timing K3 + K4 bf16 per draw: {pair:.4f} ms ({layers} launches each) against the "
+        f"SDPA bf16 backward (dq+dk+dv, same inputs) per draw {layers * lib_bwd:.4f} ms "
+        f"(ratio {pair / (layers * lib_bwd):.3f})")
+    del q, k, v, g, o, lse, dd, qe, ke, ve, oe
+    time_pos_conv_bf16(mc, gen, rows)
+    with matmul_precision_scope(mc.matmul_precision):
+        per_draw, prof = time_slice("bf16", cfg, params16, test_set, gen, out)
+    for name, kname in (("conv_dgrad_bf16", "dgrad_bf16_kernel"),
+                        ("flash_fwd_bf16", "flash_fwd_kernel"),
+                        ("flash_dq_bf16", "flash_dq_mma_kernel"),
+                        ("flash_dkv_bf16", "flash_dkv_mma_kernel")):
+        seen = [ms for key, ms in prof.items() if kname in key]
+        out[name]["device_ms"] = sum(seen) if seen else None
+        log(f"timing {name}: device ms per draw {out[name]['device_ms']} (the slice's "
+            f"profile; None: not measured)")
+    return out, per_draw
+
+
+def time_pos_conv_bf16(mc: Wav2Vec2Config, gen, rows: int) -> None:
+    """The positional conv's input gradient on the bf16 path's cotangent
+    rows, as cuDNN runs it in bf16 and as the model runs it (float32
+    copies, TF32 under "default"): why a bf16 grouped conv runs in
+    float32 (``models/wav2vec2.py::_conv1d``)."""
+    h, k, groups = mc.hidden_size, mc.num_conv_pos_embeddings, mc.num_conv_pos_embedding_groups
+    x = torch.randn((rows, h, rows), generator=gen, device="cuda")
+    w = torch.randn((h, h // groups, k), generator=gen, device="cuda")
+    g = torch.randn((rows, h, rows + 1), generator=gen, device="cuda")
+    with matmul_precision_scope(mc.matmul_precision):
+        for label, dt, iters in (("cuDNN bf16", BF16, 3), ("float32 copies", torch.float32, 10)):
+            xd, wd, gd = (t.to(dt) for t in (x, w, g))
+            ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+                gd, xd, wd, None, [1], [k // 2], [1], False, [0], groups,
+                [True, False, False]), iters, warmup=1)
+            log(f"timing positional conv dgrad B={rows} C={h} K={k} groups={groups} "
+                f"({label}, {mc.matmul_precision}): {ms:.3f} ms per call")
+
+
+def phase_cli_bench(data_dir: str):
+    """``python -m asr_shap_torch bench --attn pallas`` in this process at its
+    defaults (Wav2Vec2-base, bf16, "default"): every row "ok", the bf16
+    flash kernels launched and no float32 kernel."""
+    path = f"{data_dir}/bench.json"
+    _, launches, wall = run_cli("bench", ["bench", "--attn", "pallas", "--lengths", "16000",
+                                          "48000", "--nsamples", str(NSAMPLES), "--json", path])
+    with open(path) as fh:
+        rows = json.load(fh)
+    for row in rows:
+        log(f"cli bench row: {json.dumps(row)}")
+    check(len(rows) == 2 and all(r["status"] == "ok" for r in rows),
+          f"cli bench: rows {rows}")
+    for name in ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16"):
+        check(launches.get(name, 0) > 0, f"cli bench: {name} not launched")
+    check(not any(launches.get(name, 0) for name in BASE_KERNELS + CONFORMER_KERNELS),
+          f"cli bench: a float32 kernel launched: {launches}")
+
+
+def phase_bf16(model16: Wav2Vec2Config, explainer: ExplainerConfig, test_set, data_dir: str,
+               f32_per_draw: float):
+    """The bf16 path: checks, run_shap_pipeline with exact launch counts and
+    no float32 kernel, the three-way draw, timing and the bench command.
+    Returns (errors, extra fields, launches, timing rows)."""
+    errs, extra = phase_checks_bf16(model16)
+    cfg = PipelineConfig(model=model16, explainer=explainer, seed=SEED,
+                         data_dir=f"{data_dir}/bf16")
+    params = init_wav2vec2_params(SEED, model16, device="cuda")  # float32 master params
+    launches = phase_pipeline("bf16", cfg, params, test_set, BF16_KERNELS)
+    want = expected_launches_bf16(cfg, len(test_set))
+    check(want == {"conv_dgrad_bf16": 48, "flash_fwd_bf16": 120, "flash_dq_bf16": 96,
+                   "flash_dkv_bf16": 96}, f"bf16 path: expected counts {want}")
+    for name, n in want.items():
+        check(launches[name] == n, f"bf16 path: {name} launched {launches[name]} times, "
+              f"{n} expected")
+    check(not any(launches[name] for name in BASE_KERNELS + CONFORMER_KERNELS),
+          f"bf16 path: a float32 kernel launched: {launches}")
+    phase_reference_bf16(cfg, params, test_set)
+    out, per_draw = phase_timing_bf16(cfg, cast_params_for_compute(params, "bfloat16"),
+                                      test_set)
+    log(f"slice bf16: wall per draw {per_draw * 1e3:.1f} ms against the float32 path's "
+        f"{f32_per_draw * 1e3:.1f} ms in this run (ratio {per_draw / f32_per_draw:.3f})")
+    del params
+    phase_cli_bench(data_dir)
+    return errs, extra, launches, out
+
 
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
     adds fields to a kernel's entry."""
     return [{
-        "name": name, "route": "cuda", "source": ROUTES[name][0],
+        "name": BF16_NAMES.get(name, name), "route": "cuda", "source": ROUTES[name][0],
         "replaces": ROUTES[name][1], "launches": launches[name],
         "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1153,7 +1579,7 @@ def main() -> int:
         save_params(base_archive, params, model)
         launches = phase_pipeline("base", cfg, params, test_set, BASE_KERNELS)
         phase_reference(cfg, params, test_set)
-        out = phase_timing(cfg, params, test_set)
+        out, f32_per_draw = phase_timing(cfg, params, test_set)
         del params
 
         ccfg = PipelineConfig(model=conformer, explainer=explainer, seed=SEED,
@@ -1164,8 +1590,15 @@ def main() -> int:
         cout = phase_timing_conformer(ccfg, cparams, test_set, out["conv_dgrad"])
         del cparams
         phase_cli(base_archive, data_dir)
+        model16 = Wav2Vec2Config(dtype="bfloat16", matmul_precision="default",
+                                 attention_impl="pallas", conv_impl="pallas")
+        b_errs, b_extra, blaunches, bout = phase_bf16(model16, explainer, test_set, data_dir,
+                                                      f32_per_draw)
+        errs.update(b_errs)
+        extra.update(b_extra)
         kernels = (kernel_rows(out, errs, extra, launches)
-                   + kernel_rows(cout, errs, extra, claunches))
+                   + kernel_rows(cout, errs, extra, claunches)
+                   + kernel_rows(bout, errs, extra, blaunches))
     log(smi)  # again beside the numbers, for a reader of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -85,8 +85,9 @@ def test_normalize_matches_reference(rng, with_lengths):
 
 
 def test_model_leaves_tf32_switches_alone(tiny_config):
-    """Only "highest" is ported; the model sets no process-wide switch, and
-    highest_precision() restores the switches it found."""
+    """"highest" and "default" are ported, any other precision raises; the
+    model sets no process-wide switch, and highest_precision() restores the
+    switches it found."""
     from asr_shap_torch.core.device import highest_precision, tf32_enabled
 
     params = params_from_jax(_np_tree(init_wav2vec2_params(jax.random.key(0),
@@ -94,11 +95,13 @@ def test_model_leaves_tf32_switches_alone(tiny_config):
     x = torch.zeros(1, 1600)
     with pytest.raises(NotImplementedError, match="matmul_precision"):
         port_logits(params, port_cfg(dataclasses.replace(
-            tiny_config, matmul_precision="default")), x)
+            tiny_config, matmul_precision="fastest")), x)
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     try:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
         port_logits(params, port_cfg(tiny_config), x)
+        port_logits(params, port_cfg(dataclasses.replace(
+            tiny_config, matmul_precision="default")), x)
         assert tf32_enabled()
         with highest_precision():
             assert not tf32_enabled()
