@@ -1,6 +1,6 @@
 // K2-K4: flash attention forward, dq backward and dk/dv backward, float32,
 // each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f);
-// and K2-K4 in bf16, mask or no bias (see "bf16" below).
+// and all six in bf16 (see "bf16" below).
 //
 // Replace the Pallas TPU kernels of asr_shap/kernels/flash_attention.py:
 //   K2  flash_fwd_kernel<D, false>     <- _fwd_kernel (launched by _fwd)
@@ -54,8 +54,9 @@
 // K3b stores each warp's ds tile to d(bias) from the registers it was
 // computed in.
 //
-// bf16 (the *_bf16 entry points; K2, K3 and K4, mask or no bias): q, k, v,
-// o, g and the outputs o, dq, dk, dv in bf16; lse, dd and the mask stay
+// bf16 (the *_bf16 entry points: K2, K3 and K4 with a mask or no bias, and
+// K2f, K3b and K4f with a full bias): q, k, v, o, g and the outputs o, dq,
+// dk, dv in bf16; lse, dd, the mask, the full bias and d(bias) stay
 // float32, and everything in between is float32, as in the TPU kernels,
 // which upcast their blocks and cast the result to the input's dtype once.
 // The kernels are the float32 templates with In = __nv_bfloat16: each bf16
@@ -68,7 +69,8 @@
 // not issued (EX below). The result is the reference's float32 arithmetic
 // on the upcast operands, up to float32 rounding. q is not scaled before
 // the products (that would round it for D = 32): the scale multiplies the
-// float32 scores, and dk as it is stored.
+// float32 scores, and dk as it is stored (dq carries it as in float32).
+// K3b's d(bias) is ds itself, unscaled, as in float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1146,7 +1148,7 @@ extern "C" int flash_dkv_bias_f32(const float* q, const float* k, const float* v
 }
 
 // bf16: q, k, v, o, g, dq, dk, dv are __nv_bfloat16 (passed as void*); lse,
-// dd and the mask float32. No full-bias variant (the wrapper raises).
+// dd, the mask, the full bias and d(bias) float32.
 
 using bf16 = __nv_bfloat16;
 
@@ -1176,4 +1178,33 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v, const
                           static_cast<const bf16*>(v), lse, static_cast<const bf16*>(g), dd,
                           bias, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, BH, T, D,
                           H, scale, stream);
+}
+
+extern "C" int flash_fwd_bias_bf16(const void* q, const void* k, const void* v,
+                                   const float* bias, void* o, float* lse, int BH,
+                                   int T, int D, int H, int rows, float scale, void* stream) {
+  return fwd<true, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, BH,
+                         T, D, H, rows, scale, stream);
+}
+
+extern "C" int flash_dq_dbias_bf16(const void* q, const void* k, const void* v,
+                                   const void* o, const float* lse, const void* g,
+                                   const float* bias, void* dq_, float* dd, float* dbias,
+                                   int N, int BH, int T, int D, int H, float scale,
+                                   void* stream) {
+  return dq<true, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
+                        static_cast<const bf16*>(g), bias, static_cast<bf16*>(dq_), dd,
+                        dbias, N, BH, T, D, H, scale, stream);
+}
+
+extern "C" int flash_dkv_bias_bf16(const void* q, const void* k, const void* v,
+                                   const float* lse, const void* g, const float* dd,
+                                   const float* bias, void* dk, void* dv, int N, int BH,
+                                   int T, int D, int H, float scale, void* stream) {
+  return dkv<true, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), lse, static_cast<const bf16*>(g), dd,
+                         bias, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, BH, T, D,
+                         H, scale, stream);
 }

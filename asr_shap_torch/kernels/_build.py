@@ -36,6 +36,7 @@ LAUNCHES: Dict[str, int] = {
     "conv_dgrad": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
     "flash_fwd_bias": 0, "flash_dq_dbias": 0, "flash_dkv_bias": 0,
     "conv_dgrad_bf16": 0, "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
+    "flash_fwd_bias_bf16": 0, "flash_dq_dbias_bf16": 0, "flash_dkv_bias_bf16": 0,
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

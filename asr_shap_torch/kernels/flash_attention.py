@@ -35,14 +35,14 @@ reads residual row ``n % (B*H)``, so folding the rows in copies nothing.
 the cotangent into the kernels' leading dimension; a ctypes launch cannot
 see a batched tensor.
 
-bf16 q, k, v (the model's ``dtype="bfloat16"``), with a mask or no bias,
-launch the bf16 entry points of the same source: the float32 templates
-reading and writing bf16 (o, dq, dk, dv in the inputs' dtype; lse, dd and
-the mask float32), with the products whose operand is bf16 on one TF32 mma
+bf16 q, k, v (the model's ``dtype="bfloat16"``) launch the bf16 entry
+points of the same source, with either bias kind: the float32 templates
+reading and writing bf16 (o, dq, dk, dv in the inputs' dtype; lse, dd, the
+mask, the full bias and d(bias) float32, as the reference kernels take
+and write them), with the products whose operand is bf16 on one TF32 mma
 fewer (a bf16 value is exact in TF32). The plain versions compute in
 float32 from the upcast inputs and round each bf16 output once, as the
-reference kernels do. A full bias in bf16 (the conformer's K2f, K3b, K4f)
-is not ported and raises.
+reference kernels do.
 """
 
 from __future__ import annotations
@@ -68,6 +68,9 @@ _ARGTYPES = {
     "flash_dq_dbias_f32": (_P,) * 10 + (_I,) * 5 + (_F, _P),
     "flash_dkv_f32": (_P,) * 9 + (_I,) * 5 + (_F, _P),
     "flash_dkv_bias_f32": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    "flash_fwd_bias_bf16": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "flash_dq_dbias_bf16": (_P,) * 10 + (_I,) * 5 + (_F, _P),
+    "flash_dkv_bias_bf16": (_P,) * 9 + (_I,) * 5 + (_F, _P),
 }
 # K2's query rows per block: 16 or 32 (the keys of each 16 rows are split
 # over 8 warps). The fewest rows whose grid still fits one wave on the
@@ -164,8 +167,7 @@ def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
     """Validate the inputs of one kernel wrapper; True for the CPU (plain
     version), False for CUDA (kernel). Raises on anything the kernels do
     not take: on CUDA, q, k, v, o and g must share one dtype, float32 or
-    bf16, and lse, dd and the bias must be float32; bf16 takes no full
-    bias."""
+    bf16, and lse, dd and the bias (mask or full) must be float32."""
     if q.ndim != 3:
         raise ValueError(f"flash attention: q [BH, T, D] expected, got {tuple(q.shape)}")
     bh, t, d = q.shape
@@ -180,9 +182,6 @@ def _check(q, k, v, bias, heads, o=None, lse=None, g=None, dd=None) -> bool:
     if cuda and q.dtype not in _DTYPES:
         raise NotImplementedError(f"flash attention: the CUDA kernels take float32 or "
                                   f"bf16, got {q.dtype}")
-    if cuda and q.dtype == torch.bfloat16 and _is_full(bias):
-        raise NotImplementedError("flash attention: bf16 with a full [BH, T, T] bias "
-                                  "(K2f, K3b, K4f in bf16) is not ported")
     for name, x, shape in (
             ("q", q, (bh, t, d)), ("k", k, (bh, t, d)), ("v", v, (bh, t, d)),
             ("o", o, (bh, t, d)), ("lse", lse, (bh, t)), ("g", g, (n, t, d)),
@@ -211,13 +210,12 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _entry(kernel: str, full_kernel: Optional[str], q, bias) -> Tuple[str, str]:
-    """(entry point, launch counter) of ``kernel`` for q's dtype, or of its
-    full-bias variant ``full_kernel`` (float32 only) for a full bias."""
-    if _is_full(bias):
-        return f"{full_kernel}_f32", full_kernel
+    """(entry point, launch counter) of ``kernel``, or of its full-bias
+    variant ``full_kernel`` for a full bias, for q's dtype."""
+    name = full_kernel if _is_full(bias) else kernel
     if q.dtype == torch.bfloat16:
-        return f"{kernel}_bf16", f"{kernel}_bf16"
-    return f"{kernel}_f32", kernel
+        return f"{name}_bf16", f"{name}_bf16"
+    return f"{name}_f32", name
 
 
 def _launch(name: str, counter: str, *args) -> None:
@@ -272,13 +270,11 @@ def flash_dq(q, k, v, o, lse, g, bias, heads):
     dd = torch.empty((n, t), device=g.device, dtype=torch.float32)
     ptrs = [_ptr(x) for x in (q, k, v, o, lse, g, bias, dq, dd)]
     dbias = None
-    if _is_full(bias):
+    if _is_full(bias):  # d(bias) float32 whatever q's dtype, as the reference's
         dbias = torch.empty((n, t, t), device=g.device, dtype=torch.float32)
-        _launch("flash_dq_dbias_f32", "flash_dq_dbias", *ptrs, dbias.data_ptr(),
-                n, bh, t, d, heads, d ** -0.5, _build.stream_of(q))
-    else:
-        _launch(*_entry("flash_dq", None, q, bias), *ptrs, n, bh, t, d, heads, d ** -0.5,
-                _build.stream_of(q))
+        ptrs.append(dbias.data_ptr())
+    _launch(*_entry("flash_dq", "flash_dq_dbias", q, bias), *ptrs, n, bh, t, d, heads,
+            d ** -0.5, _build.stream_of(q))
     return dq, dd, dbias
 
 

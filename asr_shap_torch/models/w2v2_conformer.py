@@ -18,6 +18,13 @@ As in HF, the encoder has no conv positional embedding (HF builds one and
 never applies it), and BatchNorm runs in inference mode. The conv module
 does not re-mask padded frames, as HF does not. The params tree is the
 reference's with one dict per encoder layer (see ``core/params_io.py``).
+
+``dtype="bfloat16"`` runs the reference's bf16 forward: params and input
+cast to bf16, the position table, the mask and the rel-pos score bias in
+bf16 (the flash kernels take the bias as float32 and return its gradient
+in the bias's dtype, as the reference's), BatchNorm with its bf16
+statistics, float32 layer-norm statistics and logits. Rotary positions
+have no bf16 path in the reference, and raise here too.
 """
 
 from __future__ import annotations
@@ -31,12 +38,14 @@ import torch.nn.functional as F
 
 from asr_shap_torch.core.config import Wav2Vec2ConformerConfig
 from asr_shap_torch.core.device import resolve_device
-from asr_shap_torch.kernels.conv_dgrad import conv1d_forward
 from asr_shap_torch.models.wav2vec2 import (
     ParamInit,
+    _conv1d,
     _gelu,
     _layer_norm,
     _linear,
+    cast_params_for_compute,
+    compute_dtype,
     frame_mask_for,
     init_conv_encoder,
     projected_features,
@@ -147,12 +156,12 @@ def _attention(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
 
 def _conv_module(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor) -> torch.Tensor:
     """LN, pointwise conv, GLU, depthwise conv (a library conv, as in the
-    reference), inference BatchNorm, SiLU, pointwise conv."""
+    reference; in bf16 on float32 copies, see ``wav2vec2._conv1d``),
+    inference BatchNorm, SiLU, pointwise conv."""
     h = _layer_norm(p["norm"], x, cfg.layer_norm_eps)
     h = F.glu(_linear(p["pw1"], h), dim=-1)                    # [B, T, d]
     ksz = cfg.conv_depthwise_kernel_size
-    h = conv1d_forward(h, p["depthwise"]["kernel"], stride=1, padding=(ksz - 1) // 2,
-                       groups=h.shape[-1])
+    h = _conv1d(h, p["depthwise"]["kernel"], padding=(ksz - 1) // 2, groups=h.shape[-1])
     bn = p["bn"]
     h = (h - bn["mean"]) * torch.rsqrt(bn["var"] + 1e-5) * bn["scale"] + bn["bias"]
     return _linear(p["pw2"], F.silu(h))
@@ -175,14 +184,20 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
                           remat: bool = False) -> torch.Tensor:
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
     ``lengths`` enables padded batching; ``remat`` is accepted for signature
-    parity and does nothing (see ``wav2vec2.encoder``). Raises where
-    ``wav2vec2_logits`` does (an unknown ``matmul_precision``, CUDA outside
-    its precision scope), and on bf16, whose full-bias kernels are not
-    ported."""
+    parity and does nothing (see ``wav2vec2.encoder``). ``config.dtype=
+    "bfloat16"`` casts params (a no-op for leaves already bf16) and input.
+    Raises where ``wav2vec2_logits`` does (an unknown ``matmul_precision``
+    or dtype, CUDA outside its precision scope), and on rotary positions in
+    bf16, as the reference does."""
     cfg = config
-    if cfg.dtype != "float32":
-        raise NotImplementedError("bfloat16 conformer: K2f/K3b/K4f bf16 not ported")
-    h = projected_features(params, cfg, input_values)
+    dtype = compute_dtype(cfg.dtype)
+    if dtype != torch.float32 and cfg.position_embeddings_type == "rotary":
+        raise NotImplementedError(
+            "rotary positions in bfloat16: the reference has no such path (its float32 "
+            "cos and sin promote q and k to float32, and its depthwise conv then refuses "
+            "a float32 input with a bf16 kernel)")
+    params = cast_params_for_compute(params, cfg.dtype)
+    h = projected_features(params, cfg, input_values.to(dtype))
     bias = None
     if lengths is not None:
         frame_mask = frame_mask_for(cfg, lengths, h)

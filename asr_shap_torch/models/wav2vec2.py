@@ -69,11 +69,13 @@ def _conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
     ``impl="pallas"`` sends the layers the dgrad kernel takes
     (``conv_dgrad.eligible``) through K1's Function; every other conv, and
     every conv under ``impl="lax"``, is ``F.conv1d``. A grouped conv (the
-    positional embedding) in bf16 runs on float32 copies of its operands
-    and rounds its output to bf16: the reference's arithmetic (float32
-    sums, output in the input's dtype), and on the H100 cuDNN's bf16 input
-    gradient of it took 433 ms per call at the base path's shape against
-    3.4 ms in float32 (``chip_smoke.py``, "timing positional conv dgrad")."""
+    positional embedding, the conformer's depthwise conv) in bf16 runs on
+    float32 copies of its operands and rounds its output to bf16: the
+    reference's arithmetic (float32 sums, output in the input's dtype), and
+    on the H100 cuDNN's bf16 input gradient of the positional conv took
+    433 ms per call at the base path's shape against 3.4 ms in float32
+    (``chip_smoke.py``, "timing positional conv dgrad"; the depthwise conv's
+    two routes: "timing depthwise conv dgrad")."""
     if impl not in ("lax", "pallas"):
         raise NotImplementedError(f"conv_impl {impl!r} is not ported")
     if impl == "pallas" and conv_dgrad.eligible(

@@ -5,12 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Three paths are driven, each through run_shap_pipeline at full width with
+Four paths are driven, each through run_shap_pipeline at full width with
 random weights from a seed: the base path (Wav2Vec2-base, kernels K1-K4),
 the conformer slice (Wav2Vec2-Conformer rel-pos-large, kernels K1 and the
-full-bias flash kernels K2f, K3b, K4f) and the bf16 path (Wav2Vec2-base
+full-bias flash kernels K2f, K3b, K4f), the bf16 path (Wav2Vec2-base
 with dtype="bfloat16", matmul_precision="default": the bf16 kernels of
-K1-K4). Phases, each reported on its own lines:
+K1-K4) and the bf16 conformer (the conformer with the same numerics: the
+bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once;
@@ -68,7 +69,19 @@ K1-K4). Phases, each reported on its own lines:
    each bf16 kernel's times beside its bound at the bf16 rate, its plain
    version and a bf16 library call; the bf16 slice per draw; and
    ``python -m asr_shap_torch bench --attn pallas`` at its bf16 defaults
-   ("cli bench" lines). Its JSON entries are K1-bf16 to K4-bf16.
+   ("cli bench" lines). Its JSON entries are K1-bf16 to K4-bf16;
+8. the bf16 conformer, last: K2f, K3b and K4f in bf16 against their plain
+   versions at its shapes and the trained archive's (D = 32), plain and
+   masked, over the backward's shape sweep, and against float64 (o, dq,
+   dk, dv at most 1.25x the plain version's error; lse and d(bias) 2x);
+   run_shap_pipeline with the exact launch counts of its four kernels and
+   no other kernel; the three-way draw ("phi bf16 conformer" lines); each
+   kernel's times beside its bound at the bf16 rate, its plain version and
+   SDPA in bf16 with a bf16 mask; the depthwise conv's dgrad in the
+   library's bf16 and on float32 copies; the slice per draw beside the
+   float32 conformer's; and ``run-shap`` then ``sweep`` on the trained
+   conformer archive switched to bf16 ("cli conformer bf16" lines). Its
+   JSON entries are K2f-bf16, K3b-bf16 and K4f-bf16.
 
 Prints one JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
@@ -109,9 +122,9 @@ from asr_shap_torch.kernels import conv_dgrad as k1
 from asr_shap_torch.kernels import flash_attention as fa
 from asr_shap_torch.metrics.eta_raw import eta_raw
 from asr_shap_torch.metrics.wer import wer
-from asr_shap_torch.models.heads import make_explained_fn
+from asr_shap_torch.models.heads import make_explained_fn, model_logits_fn
 from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
-from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params, wav2vec2_logits
+from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params
 from asr_shap_torch.ops.attention import rel_shift
 from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
 
@@ -121,12 +134,20 @@ SEED = 0
 CONFORMER_ARCHIVE = "artifacts/params_synthetic_conformer.npz"
 STUDY_ARCHIVE = "artifacts/params_synthetic_study.npz"
 STUDY_SAMPLES = 100_000  # the study archive's clips, as its committed studies
+# run-shap's test set for the conformer archive, in float32 and in bf16
+CONFORMER_CLI_ARGS = ("--num-samples", "1", "--snrs", "5", "--min-length", str(N_SAMPLES),
+                      "--max-length", str(N_SAMPLES), "--nsamples", "2")
 # the kernels each path must launch, and the TPU kernel each one replaces
 BASE_KERNELS = ("conv_dgrad", "flash_fwd", "flash_dq", "flash_dkv")
 # the bf16 path's kernels (model dtype="bfloat16"), and their JSON names
 BF16_KERNELS = ("conv_dgrad_bf16", "flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
-BF16_NAMES = dict(zip(BF16_KERNELS, ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16")))
 CONFORMER_KERNELS = ("conv_dgrad", "flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")
+# the bf16 conformer's kernels (dtype="bfloat16": K1 and the full-bias flash kernels)
+BF16_CONFORMER_KERNELS = ("conv_dgrad_bf16", "flash_fwd_bias_bf16", "flash_dq_dbias_bf16",
+                          "flash_dkv_bias_bf16")
+BF16_NAMES = dict(zip(BF16_KERNELS + BF16_CONFORMER_KERNELS[1:],
+                      ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16", "K2f-bf16", "K3b-bf16",
+                       "K4f-bf16")))
 ROUTES = {
     "conv_dgrad": ("asr_shap_torch/csrc/conv_dgrad.cu", "asr_shap/kernels/conv_dgrad.py:150"),
     "flash_fwd": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
@@ -139,6 +160,9 @@ ROUTES = {
     "flash_fwd_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
     "flash_dq_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
     "flash_dkv_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
+    "flash_fwd_bias_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
+    "flash_dq_dbias_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
+    "flash_dkv_bias_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
 }
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
@@ -299,12 +323,13 @@ def flash_inputs(gen, b, h, t, d, v_rows, masked):
 
 
 def rel_pos_bias(gen, q, masked):
-    """A [BH, T, T] full bias shaped like the conformer's: q . random
-    position projections over 2T-1 relative positions, rel-shifted and
-    scaled by D^-1/2; ``masked`` adds -1e9 on the last 29 keys."""
+    """A [BH, T, T] float32 full bias shaped like the conformer's: q (in
+    float32) . random position projections over 2T-1 relative positions,
+    rel-shifted and scaled by D^-1/2; ``masked`` adds -1e9 on the last 29
+    keys."""
     bh, t, d = q.shape
     p_proj = torch.randn((2 * t - 1, bh, d), generator=gen, device="cuda")
-    bias = rel_shift(torch.einsum("bhtd,rhd->bhtr", q[None], p_proj))[0] * d ** -0.5
+    bias = rel_shift(torch.einsum("bhtd,rhd->bhtr", q[None].float(), p_proj))[0] * d ** -0.5
     if masked:
         bias[..., t - 29:] = -1e9
     return bias.contiguous()
@@ -376,16 +401,18 @@ def k1_name(dtype) -> str:
     return "conv_dgrad_bf16" if dtype == BF16 else "conv_dgrad"
 
 
-def check_fwd_lengths(gen, h: int, d: int, full: bool) -> float:
+def check_fwd_lengths(gen, h: int, d: int, full: bool, dtype=torch.float32) -> float:
     """K2 (``full``: K2f) at both block heights against its plain version at
     T = 100 (one partial chunk; some warps hold no key) and T = 500 (three
     chunks of keys, so the online rescale runs), with the first 200 keys
     and the last 29 masked to -1e9 (for the full bias, on every other query
-    row): a row's first chunk is all masked, so its rescale factor is 0."""
+    row): a row's first chunk is all masked, so its rescale factor is 0.
+    In bf16, q, k, v are rounded to bf16 and o is held to one bf16 ulp."""
     err = 0.0
-    name = "flash_fwd_bias" if full else "flash_fwd"
+    name = ("flash_fwd_bias" if full else "flash_fwd") + ("_bf16" if dtype == BF16 else "")
     for t in (100, 500):
         q, k, v, bias, _ = flash_inputs(gen, 1, h, t, d, 1, not full)
+        q, k, v = (x.to(dtype) for x in (q, k, v))
         if full:
             bias = rel_pos_bias(gen, q, True)
             bias[:, ::2, :200] = -1e9
@@ -396,7 +423,7 @@ def check_fwd_lengths(gen, h: int, d: int, full: bool) -> float:
             fa._check(q, k, v, bias, h)
             got = fa._fwd_launch(q, k, v, bias, h, rows)
             for part, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
-                err = max(err, compare(
+                err = max(err, compare_bf16(
                     f"{name} {part} BH={h} T={t} rows/block={rows} masked", x, y, 2e-5, 2e-4,
                     f"float32 softmax over {t} keys, another summation order"))
     return err
@@ -442,9 +469,8 @@ def full_bias_lengths(gen, q, h: int, lengths) -> torch.Tensor:
 def bwd_kernel_names(full: bool, dtype=torch.float32):
     """The counters (and JSON names) of the dq and dk/dv kernels: K3b and
     K4f for a full bias, else K3 and K4 (in bf16, their bf16 variants)."""
-    if dtype == BF16:
-        return ("flash_dq_bf16", "flash_dkv_bf16")
-    return ("flash_dq_dbias", "flash_dkv_bias") if full else ("flash_dq", "flash_dkv")
+    names = ("flash_dq_dbias", "flash_dkv_bias") if full else ("flash_dq", "flash_dkv")
+    return tuple(f"{n}_bf16" for n in names) if dtype == BF16 else names
 
 
 def check_bwd_shapes(gen, h: int, full: bool = False, dtype=torch.float32) -> dict:
@@ -455,7 +481,7 @@ def check_bwd_shapes(gen, h: int, full: bool = False, dtype=torch.float32) -> di
     clips with a mask length each; 100 keys (a partial chunk) and 500 keys
     with the last 200 masked (several chunks); and D = 32. With a full bias
     d(bias) is compared too, and must be exactly 0 on masked keys. In bf16
-    (q, k, v, g rounded to bf16; mask or no bias) also D = 32 at T = 312,
+    (q, k, v, g rounded to bf16; the bias float32) also D = 32 at T = 312,
     the study archive's shape, and each bf16 output to one bf16 ulp."""
     why = "float32 backward sums over T keys, another summation order"
     dq_name, dkv_name = bwd_kernel_names(full, dtype)
@@ -507,26 +533,30 @@ def bwd_float64_check(gen, h: int, d: int, t: int, rows: int, full: bool = False
     float32's. Each is held to the backward's tolerance, and dq, dk, dv
     (and d(bias)) each to at most twice the plain version's error. The
     float32 runs take o, lse and dd from the float64 runs, rounded to
-    float32. In bf16: q, k, v, g rounded to bf16 and the float64 runs on
-    those values; o rounded to bf16; dq, dk, dv to at most BF16_F64_RATIO
-    times the plain version's error."""
+    float32. In bf16: q, k, v, g and o rounded to bf16, and the float64
+    runs on those values (o's rounding moves dd, and so d(bias), by far more
+    than the float32 tolerance); dq, dk, dv to at most BF16_F64_RATIO times
+    the plain version's error, d(bias) (a float32 output) to at most
+    BF16_F32_OUT_RATIO times."""
     q, k, v, _, g = (None if x is None else x.to(dtype)
                      for x in flash_inputs(gen, 1, h, t, d, rows, False))
     bias = rel_pos_bias(gen, q, False) if full else None
     q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
     b64 = None if bias is None else bias.double()
     o64, lse64 = fa.flash_fwd_plain(q64, k64, v64, b64, h)
+    if dtype == BF16:
+        o64 = o64.to(dtype).double()
     dq64, dd64, db64 = fa.flash_dq_plain(q64, k64, v64, o64, lse64, g64, b64, h)
     dk64, dv64 = fa.flash_dkv_plain(q64, k64, v64, lse64, g64, dd64, b64, h)
     o, lse, dd = o64.to(dtype), lse64.float(), dd64.float()
     runs = {"kernel": (fa.flash_dq, fa.flash_dkv),
             "plain": (fa.flash_dq_plain, fa.flash_dkv_plain)}
     why = "the backward's tolerance, against the exact sum"
-    label = "flash backward, full bias," if full else "flash backward"
-    if dtype == BF16:
-        label = "flash backward bf16"
-    ratio = BF16_F64_RATIO if dtype == BF16 else 2
+    label = ("flash backward" + (" bf16" if dtype == BF16 else "")
+             + (", full bias," if full else ""))
     names = ("dq", "dk", "dv") + (("dbias",) if full else ())
+    ratios = {name: 2 if dtype != BF16 else BF16_F32_OUT_RATIO if name == "dbias"
+              else BF16_F64_RATIO for name in names}
     errs = {}
     for key, (dq_fn, dkv_fn) in runs.items():
         dq, _, dbias = dq_fn(q, k, v, o, lse, g, bias, h)
@@ -539,7 +569,7 @@ def bwd_float64_check(gen, h: int, d: int, t: int, rows: int, full: bool = False
                 got if got.dtype == BF16 else got.double(), want, 5e-5, 5e-4, why)
         del dq, dk, dv, dbias, outs
     for name in names:
-        kern, plain = errs["kernel", name], errs["plain", name]
+        kern, plain, ratio = errs["kernel", name], errs["plain", name], ratios[name]
         log(f"{label} {name} vs float64: kernel {kern:.3e}, plain "
             f"{plain:.3e} (ratio {kern / plain:.2f}, limit {ratio})")
         check(kern <= ratio * plain, f"{label} {name}: error over {ratio}x the plain "
@@ -619,48 +649,63 @@ def phase_checks(cfg: Wav2Vec2Config):
     return errs, extra
 
 
-def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig):
+def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig, dtype=torch.float32):
     """K2f, K3b and K4f against their plain versions at the conformer
-    slice's shapes: BH = 16, T = 149, D = 64, N = 149 * 16 = 2,384; K3b and
-    K4f also over ``check_bwd_shapes``'s sweep and against float64."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    slice's shapes: BH = 16, T = 149, D = 64, N = 149 * 16 = 2,384, with a
+    rel-pos-like float32 bias, plain and masked; K2f also at 100 and 500
+    keys, K3b and K4f also over ``check_bwd_shapes``'s sweep and against
+    float64. In bf16 (q, k, v, g rounded to bf16: the bf16 conformer's
+    kernels) each bf16 output is held to one bf16 ulp, the trained
+    archive's 3 heads of 32 are checked too, and K2f against float64."""
+    bf16 = dtype == BF16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + (6 if bf16 else 2))
     rows = cfg.frames_for_samples(N_SAMPLES)
     h, d, t = cfg.num_attention_heads, cfg.head_dim, rows
-    errs = {key: 0.0 for key in ("flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")}
-    errs["flash_fwd_bias"] = check_fwd_lengths(gen, h, d, True)
+    fwd_name, dq_name, dkv_name = (BF16_CONFORMER_KERNELS if bf16 else CONFORMER_KERNELS)[1:]
+    errs = {fwd_name: check_fwd_lengths(gen, h, d, True, dtype), dq_name: 0.0, dkv_name: 0.0}
     why_f = "float32 softmax over 149 keys, another summation order"
     why_b = "float32 backward sums over 149 keys, another summation order"
-    for masked in (False, True):
-        q, k, v, _, g = flash_inputs(gen, 1, h, t, d, rows, False)
-        bias = rel_pos_bias(gen, q, masked)
-        got, want = fa.flash_fwd(q, k, v, bias, h), fa.flash_fwd_plain(q, k, v, bias, h)
-        for name, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
-            errs["flash_fwd_bias"] = max(errs["flash_fwd_bias"], compare(
-                f"flash_fwd_bias {name} BH={h} T={t} masked={masked}", x, y, 2e-5, 2e-4,
-                why_f))
-        o, lse = want
-        dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, h)
-        dq_p, dd_p, dbias_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
-        n = g.shape[0]
-        errs["flash_dq_dbias"] = max(
-            errs["flash_dq_dbias"],
-            compare(f"flash_dq_dbias dq N={n} masked={masked}", dq, dq_p, 5e-5, 5e-4, why_b),
-            compare(f"flash_dq_dbias dd masked={masked}", dd, dd_p, 5e-5, 5e-4, why_b),
-            compare(f"flash_dq_dbias dbias [{n}, {t}, {t}] masked={masked}", dbias, dbias_p,
-                    5e-5, 5e-4, why_b))
-        if masked:
-            check(bool((dbias[..., t - 29:] == 0).all()), "dbias: masked keys not 0")
-        del dq, dd, dbias, dq_p, dbias_p
-        dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h)
-        dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)
-        errs["flash_dkv_bias"] = max(
-            errs["flash_dkv_bias"],
-            compare(f"flash_dkv_bias dk N={n} masked={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
-            compare(f"flash_dkv_bias dv N={n} masked={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
-        del q, k, v, g, bias, dk, dv, dk_p, dv_p
-    for key, err in check_bwd_shapes(gen, h, full=True).items():
+    # the slice's heads; in bf16 also the trained archive's
+    for hh, dd_ in ((h, d),) + (((3, 32),) if bf16 else ()):
+        for masked in (False, True):
+            q, k, v, _, g = flash_inputs(gen, 1, hh, t, dd_, rows, False)
+            q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+            bias = rel_pos_bias(gen, q, masked)
+            got, want = fa.flash_fwd(q, k, v, bias, hh), fa.flash_fwd_plain(q, k, v, bias, hh)
+            check(got[0].dtype == dtype and got[1].dtype == torch.float32, f"{fwd_name} dtypes")
+            n = g.shape[0]
+            label = f"BH={hh} T={t} D={dd_} N={n} masked={masked}"
+            for name, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
+                errs[fwd_name] = max(errs[fwd_name], compare_bf16(
+                    f"{fwd_name} {name} {label}", x, y, 2e-5, 2e-4, why_f))
+            o, lse = want
+            dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, hh)
+            dq_p, dd_p, dbias_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, hh)
+            check(dq.dtype == dtype and dd.dtype == dbias.dtype == torch.float32,
+                  f"{dq_name} dtypes")
+            errs[dq_name] = max(
+                errs[dq_name],
+                compare_bf16(f"{dq_name} dq {label}", dq, dq_p, 5e-5, 5e-4, why_b),
+                compare_bf16(f"{dq_name} dd {label}", dd, dd_p, 5e-5, 5e-4, why_b),
+                compare(f"{dq_name} dbias [{n}, {t}, {t}] {label}", dbias, dbias_p, 5e-5,
+                        5e-4, why_b))
+            if masked:
+                check(bool((dbias[..., t - 29:] == 0).all()), "dbias: masked keys not 0")
+            del dq, dd, dbias, dq_p, dbias_p
+            dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, hh)
+            dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, hh)
+            check(dk.dtype == dv.dtype == dtype, f"{dkv_name} dtypes")
+            errs[dkv_name] = max(
+                errs[dkv_name],
+                compare_bf16(f"{dkv_name} dk {label}", dk, dk_p, 5e-5, 5e-4, why_b),
+                compare_bf16(f"{dkv_name} dv {label}", dv, dv_p, 5e-5, 5e-4, why_b))
+            del q, k, v, g, bias, got, want, o, lse, dd_p, dk, dv, dk_p, dv_p
+    for key, err in check_bwd_shapes(gen, h, full=True, dtype=dtype).items():
         errs[key] = max(errs[key], err)
-    return errs, bwd_float64_check(gen, h, d, t, rows, full=True)
+    extra = bwd_float64_check(gen, h, d, t, rows, full=True, dtype=dtype)
+    if bf16:
+        extra[fwd_name] = fwd_float64_check_bf16(gen, h, d, t, full=True)
+    return errs, extra
 
 
 def make_test_set():
@@ -823,31 +868,39 @@ def run_cli(label: str, argv):
     return lines, launches, wall
 
 
-def archive_with_kernels(path: str, out: str) -> str:
+def archive_with_kernels(path: str, out: str, **numerics) -> str:
     """A copy of the archive ``path`` whose embedded config selects the
-    kernel impls, written to ``out`` by the port's save_params."""
-    cfg = dataclasses.replace(load_config(path), attention_impl="pallas", conv_impl="pallas")
+    kernel impls (and ``numerics``: dtype, matmul_precision), written to
+    ``out`` by the port's save_params."""
+    cfg = dataclasses.replace(load_config(path), attention_impl="pallas", conv_impl="pallas",
+                              **numerics)
     save_params(out, load_params(path, device="cpu"), cfg)
     return out
 
 
 def cli_run(label: str, archive: str, data_dir: str, args, arch="wav2vec2"):
     """run-shap then sweep on the card; each command's kernels must launch:
-    the expected-gradients kernels of the path from run-shap, its flash
-    forward (and nothing else) from sweep. Returns the sweep's records and
-    its summary line."""
+    the expected-gradients kernels of the path (by the archive's family and
+    dtype) and no other kernel from run-shap, its flash forward and nothing
+    else from sweep. Returns the sweep's records and its summary line."""
     model = ["--params", archive, "--arch", arch]
-    kernels = CONFORMER_KERNELS if arch == "w2v2-conformer" else BASE_KERNELS
     cfg = load_config(archive)
+    conformer = arch == "w2v2-conformer"
+    if cfg.dtype == "bfloat16":
+        kernels = BF16_CONFORMER_KERNELS if conformer else BF16_KERNELS
+    else:
+        kernels = CONFORMER_KERNELS if conformer else BASE_KERNELS
+    fwd = kernels[1]
     if not k1.eligible(cfg.conv_dim[0], cfg.conv_dim[1], cfg.conv_stride[1], 1, 0):
         kernels = kernels[1:]  # no conv layer K1 takes (narrow conv channels)
     (run,), run_launches, run_wall = run_cli(label, ["run-shap", *model, "--data-dir", data_dir,
                                                      *args])
     for name in kernels:
         check(run_launches.get(name, 0) > 0, f"cli {label}: run-shap did not launch {name}")
+    check(set(run_launches) <= set(kernels), f"cli {label}: run-shap launched "
+          f"{run_launches}, only {kernels} expected")
     lines, sweep_launches, sweep_wall = run_cli(label, ["sweep", *model, "--data-dir", data_dir])
     *records, summary = lines
-    fwd = "flash_fwd_bias" if arch == "w2v2-conformer" else "flash_fwd"
     check(set(sweep_launches) == {fwd}, f"cli {label}: sweep launched {sweep_launches}, "
           f"only {fwd} expected")
     check(len(records) == run["computed"], f"cli {label}: sweep has {len(records)} records")
@@ -860,7 +913,8 @@ def cli_run(label: str, archive: str, data_dir: str, args, arch="wav2vec2"):
 def phase_cli(base_archive: str, data_dir: str):
     """The command line on the card: the base archive end to end (run-shap,
     sweep, the same sweep on the CPU, transcribe, metric), the trained study
-    archive, and the trained conformer archive."""
+    archive, and the trained conformer archive (its sweep's records
+    returned)."""
     d = f"{data_dir}/cli_base"
     records, _ = cli_run("base", base_archive, d, [
         "--num-samples", "1", "--snrs", "5", "--min-length", str(N_SAMPLES),
@@ -906,9 +960,9 @@ def phase_cli(base_archive: str, data_dir: str):
     log(f"cli study (information): noisy-row pearson_r={summary['pearson_r_noisy']}")
 
     conformer = archive_with_kernels(CONFORMER_ARCHIVE, f"{data_dir}/conformer_pallas.npz")
-    cli_run("conformer", conformer, f"{data_dir}/cli_conformer", [
-        "--num-samples", "1", "--snrs", "5", "--min-length", str(N_SAMPLES),
-        "--max-length", str(N_SAMPLES), "--nsamples", "2"], arch="w2v2-conformer")
+    records, _ = cli_run("conformer", conformer, f"{data_dir}/cli_conformer",
+                         CONFORMER_CLI_ARGS, arch="w2v2-conformer")
+    return records
 
 
 PROFILE_GROUPS = (
@@ -1119,7 +1173,8 @@ def time_slice(label: str, cfg: PipelineConfig, params, test_set, gen, out) -> N
 def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
     """K2f, K3b and K4f at the conformer slice's shapes, and the conformer
     slice per draw. K1's shapes here are the base path's (the same seven
-    512-channel conv layers), so its row ``k1_row`` is timed once, there."""
+    512-channel conv layers), so its row ``k1_row`` is timed once, there.
+    Returns (rows, wall per draw)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     mc = cfg.model
     rows = mc.frames_for_samples(N_SAMPLES)
@@ -1188,8 +1243,9 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
         f"(ratio {pair / (layers * lib_bwd):.3f}); SDPA forward+backward per draw "
         f"{layers * lib_fwd_bwd:.4f} ms")
     del q, k, v, g, bias, o, lse, dd
-    time_slice("conformer", cfg, params, test_set, gen, {**out, "conv_dgrad": k1_row})
-    return out
+    per_draw, _ = time_slice("conformer", cfg, params, test_set, gen,
+                             {**out, "conv_dgrad": k1_row})
+    return out, per_draw
 
 # ---------------------------------------------------------------- bf16 path
 
@@ -1213,25 +1269,29 @@ def bf16_flash_inputs(gen, b, h, t, d, v_rows, masked):
     return q.to(BF16), k.to(BF16), v.to(BF16), bias, g.to(BF16)
 
 
-def fwd_float64_check_bf16(gen, h: int, d: int, t: int) -> dict:
-    """K2 in bf16 and its plain version against the same bf16 inputs in
-    float64: o to at most BF16_F64_RATIO times the plain version's error,
-    lse (a float32 output) to at most BF16_F32_OUT_RATIO times."""
+def fwd_float64_check_bf16(gen, h: int, d: int, t: int, full: bool = False) -> dict:
+    """K2 (``full``: K2f, with a rel-pos-like bias) in bf16 and its plain
+    version against the same bf16 inputs in float64: o to at most
+    BF16_F64_RATIO times the plain version's error, lse (a float32 output)
+    to at most BF16_F32_OUT_RATIO times."""
     q, k, v, _, _ = bf16_flash_inputs(gen, 1, h, t, d, 1, False)
-    o64, lse64 = fa.flash_fwd_plain(q.double(), k.double(), v.double(), None, h)
+    bias = rel_pos_bias(gen, q, False) if full else None
+    o64, lse64 = fa.flash_fwd_plain(q.double(), k.double(), v.double(),
+                                    None if bias is None else bias.double(), h)
+    name = "flash_fwd_bias_bf16" if full else "flash_fwd_bf16"
     errs = {}
-    for key, (o, lse) in (("kernel", fa.flash_fwd(q, k, v, None, h)),
-                          ("plain", fa.flash_fwd_plain(q, k, v, None, h))):
-        errs[key, "o"] = compare_bf16(f"flash_fwd_bf16 o BH={h} T={t}: {key} vs float64", o,
+    for key, (o, lse) in (("kernel", fa.flash_fwd(q, k, v, bias, h)),
+                          ("plain", fa.flash_fwd_plain(q, k, v, bias, h))):
+        errs[key, "o"] = compare_bf16(f"{name} o BH={h} T={t}: {key} vs float64", o,
                                       o64, 0.0, 0.0, "")
-        errs[key, "lse"] = compare(f"flash_fwd_bf16 lse BH={h} T={t}: {key} vs float64",
+        errs[key, "lse"] = compare(f"{name} lse BH={h} T={t}: {key} vs float64",
                                    lse.double(), lse64, 2e-5, 2e-4,
                                    "float32 softmax over 149 keys, against the exact sum")
-    for name, ratio in (("o", BF16_F64_RATIO), ("lse", BF16_F32_OUT_RATIO)):
-        kern, plain = errs["kernel", name], errs["plain", name]
-        log(f"flash_fwd_bf16 {name} vs float64: kernel {kern:.3e}, plain {plain:.3e} "
+    for part, ratio in (("o", BF16_F64_RATIO), ("lse", BF16_F32_OUT_RATIO)):
+        kern, plain = errs["kernel", part], errs["plain", part]
+        log(f"{name} {part} vs float64: kernel {kern:.3e}, plain {plain:.3e} "
             f"(ratio {kern / plain:.2f}, limit {ratio})")
-        check(kern <= ratio * plain, f"flash_fwd_bf16 {name}: error over {ratio}x the plain "
+        check(kern <= ratio * plain, f"{name} {part}: error over {ratio}x the plain "
               "version's against float64")
     return {"err_vs_float64": errs["kernel", "o"], "plain_err_vs_float64": errs["plain", "o"]}
 
@@ -1300,21 +1360,21 @@ def phase_checks_bf16(cfg: Wav2Vec2Config):
 def expected_launches_bf16(cfg: PipelineConfig, samples: int) -> dict:
     """Launches of each bf16 kernel on the pipeline run: per sample one
     forward for the transcript and per draw one forward and one backward;
-    K1 once per eligible conv layer and backward, K2-K4 once per encoder
-    layer and pass."""
+    K1 once per eligible conv layer and backward, the flash kernels (K2-K4,
+    or the conformer's K2f, K3b, K4f) once per encoder layer and pass."""
     draws, layers = cfg.explainer.nsamples, cfg.model.num_hidden_layers
     convs = len(k1_main_shapes(cfg.model, 1))
-    return {"conv_dgrad_bf16": samples * draws * convs,
-            "flash_fwd_bf16": samples * (draws + 1) * layers,
-            "flash_dq_bf16": samples * draws * layers,
-            "flash_dkv_bf16": samples * draws * layers}
+    conformer = isinstance(cfg.model, Wav2Vec2ConformerConfig)
+    k1_, fwd, dq, dkv = BF16_CONFORMER_KERNELS if conformer else BF16_KERNELS
+    return {k1_: samples * draws * convs, fwd: samples * (draws + 1) * layers,
+            dq: samples * draws * layers, dkv: samples * draws * layers}
 
 
 def _corr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.corrcoef(torch.stack([a.ravel().double(), b.ravel().double()]))[0, 1])
 
 
-def phase_reference_bf16(cfg: PipelineConfig, params, test_set):
+def phase_reference_bf16(label: str, cfg: PipelineConfig, params, test_set):
     """One full-width draw three ways: bf16 + "default" through the kernels
     (phi_k16), bf16 + "default" through plain PyTorch (phi_p16) and float32
     + "highest" through the kernels (phi_32). The kernel path must be no
@@ -1340,41 +1400,42 @@ def phase_reference_bf16(cfg: PipelineConfig, params, test_set):
     paths = {"k16": (k16, params16), "p16": (p16, params16), "32": (k32, params),
              "32 default": (k32d, params)}
     phi, logits = {}, {}
+    model_logits = model_logits_fn(k16)
     for key, (mc, p) in paths.items():
         with matmul_precision_scope(mc.matmul_precision):
             phi[key] = expected_phi(make_explained_fn(p, mc, ec), x, bg, config=ec, draws=draws)
             with torch.no_grad():
-                logits[key] = wav2vec2_logits(p, mc, x_t[None])[0]
-        check(phi[key].dtype == torch.float32, f"phi {key}: {phi[key].dtype}")
-        check(bool(torch.isfinite(phi[key]).all()), f"phi {key}: not finite")
+                logits[key] = model_logits(p, mc, x_t[None])[0]
+        check(phi[key].dtype == torch.float32, f"{label} {key}: {phi[key].dtype}")
+        check(bool(torch.isfinite(phi[key]).all()), f"{label} {key}: not finite")
     err = torch.maximum((logits["k16"] - logits["32"]).abs().amax(-1),
                         (logits["p16"] - logits["32"]).abs().amax(-1))
     top2 = logits["32"].topk(2, dim=-1).values
     defined = (top2[:, 0] - top2[:, 1]) > 2 * err
     t_out = defined.numel()
-    log(f"phi bf16: max|logit| float32 {float(logits['32'].abs().max()):.4e}; largest logit "
+    log(f"{label}: max|logit| float32 {float(logits['32'].abs().max()):.4e}; largest logit "
         f"error at x_t: kernels {float((logits['k16'] - logits['32']).abs().max()):.4e}, "
         f"plain {float((logits['p16'] - logits['32']).abs().max()):.4e}; max head defined "
         f"at bf16 on {int(defined.sum())} of {t_out} frames")
-    check(int(defined.sum()) >= t_out // 10, "phi bf16: the max head is defined on under a "
+    check(int(defined.sum()) >= t_out // 10, f"{label}: the max head is defined on under a "
           "tenth of the frames; the comparison would say nothing")
     ref = phi["32"]
     for frames, sel in (("all frames", slice(None)), ("defined frames", defined)):
         nk = float((phi["k16"][:, sel] - ref[:, sel]).norm())
         np_ = float((phi["p16"][:, sel] - ref[:, sel]).norm())
         ck, cp = _corr(phi["k16"][:, sel], ref[:, sel]), _corr(phi["p16"][:, sel], ref[:, sel])
-        log(f"phi bf16 ({frames}): |phi_k16 - phi_32| = {nk:.6e}, |phi_p16 - phi_32| = "
+        log(f"{label} ({frames}): |phi_k16 - phi_32| = {nk:.6e}, |phi_p16 - phi_32| = "
             f"{np_:.6e} (ratio {nk / np_:.3f}, limit 1.5), |phi_32| = "
             f"{float(ref[:, sel].norm()):.6e}; corr(phi_k16, phi_32) = {ck:.6f}, "
             f"corr(phi_p16, phi_32) = {cp:.6f}")
-    check(nk <= 1.5 * np_, "phi bf16: the kernel path is further from float32 than 1.5x "
+    check(nk <= 1.5 * np_, f"{label}: the kernel path is further from float32 than 1.5x "
           "the plain bf16 path")
-    check(ck >= cp - 0.01, "phi bf16: the kernel path correlates less with float32 than "
+    check(ck >= cp - 0.01, f"{label}: the kernel path correlates less with float32 than "
           "the plain bf16 path, by over 0.01")
     s32 = float(ref.abs().sum())
     for key in ("k16", "32 default"):
         s = float(phi[key].abs().sum())
-        log(f"phi checksum sum|phi| {key}: {s:.6e} against float32 + highest {s32:.6e}: "
+        log(f"{label} checksum sum|phi| {key}: {s:.6e} against float32 + highest {s32:.6e}: "
             f"relative move {(s - s32) / s32:+.4e}; relative L2 distance "
             f"{float((phi[key] - ref).norm() / ref.norm()):.4e}")
 
@@ -1460,7 +1521,9 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
         f"SDPA bf16 backward (dq+dk+dv, same inputs) per draw {layers * lib_bwd:.4f} ms "
         f"(ratio {pair / (layers * lib_bwd):.3f})")
     del q, k, v, g, o, lse, dd, qe, ke, ve, oe
-    time_pos_conv_bf16(mc, gen, rows)
+    time_conv_dgrad_bf16("positional conv", rows, mc.hidden_size, mc.num_conv_pos_embeddings,
+                         mc.num_conv_pos_embedding_groups, mc.matmul_precision, gen,
+                         (("cuDNN bf16", BF16, 3), ("float32 copies", torch.float32, 10)))
     with matmul_precision_scope(mc.matmul_precision):
         per_draw, prof = time_slice("bf16", cfg, params16, test_set, gen, out)
     for name, kname in (("conv_dgrad_bf16", "dgrad_bf16_kernel"),
@@ -1474,23 +1537,24 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
     return out, per_draw
 
 
-def time_pos_conv_bf16(mc: Wav2Vec2Config, gen, rows: int) -> None:
-    """The positional conv's input gradient on the bf16 path's cotangent
-    rows, as cuDNN runs it in bf16 and as the model runs it (float32
-    copies, TF32 under "default"): why a bf16 grouped conv runs in
-    float32 (``models/wav2vec2.py::_conv1d``)."""
-    h, k, groups = mc.hidden_size, mc.num_conv_pos_embeddings, mc.num_conv_pos_embedding_groups
-    x = torch.randn((rows, h, rows), generator=gen, device="cuda")
-    w = torch.randn((h, h // groups, k), generator=gen, device="cuda")
-    g = torch.randn((rows, h, rows + 1), generator=gen, device="cuda")
-    with matmul_precision_scope(mc.matmul_precision):
-        for label, dt, iters in (("cuDNN bf16", BF16, 3), ("float32 copies", torch.float32, 10)):
+def time_conv_dgrad_bf16(name: str, rows: int, c: int, k: int, groups: int,
+                         precision: str, gen, turns) -> None:
+    """The input gradient of a grouped conv (C channels, kernel K, padding
+    K // 2) over ``rows`` cotangent rows of ``rows`` frames, as the library
+    runs it in bf16 and as the model runs it (float32 copies, TF32 under
+    "default"; ``models/wav2vec2.py::_conv1d``), in ``turns`` of (label,
+    dtype, calls timed): why a bf16 grouped conv runs in float32."""
+    x = torch.randn((rows, c, rows), generator=gen, device="cuda")
+    w = torch.randn((c, c // groups, k), generator=gen, device="cuda")
+    g = torch.randn((rows, c, rows + 2 * (k // 2) - k + 1), generator=gen, device="cuda")
+    with matmul_precision_scope(precision):
+        for label, dt, iters in turns:
             xd, wd, gd = (t.to(dt) for t in (x, w, g))
             ms = time_ms(lambda: torch.ops.aten.convolution_backward(
                 gd, xd, wd, None, [1], [k // 2], [1], False, [0], groups,
                 [True, False, False]), iters, warmup=1)
-            log(f"timing positional conv dgrad B={rows} C={h} K={k} groups={groups} "
-                f"({label}, {mc.matmul_precision}): {ms:.3f} ms per call")
+            log(f"timing {name} dgrad B={rows} C={c} K={k} groups={groups} "
+                f"({label}, {precision}): {ms:.4f} ms per call")
 
 
 def phase_cli_bench(data_dir: str):
@@ -1530,13 +1594,166 @@ def phase_bf16(model16: Wav2Vec2Config, explainer: ExplainerConfig, test_set, da
               f"{n} expected")
     check(not any(launches[name] for name in BASE_KERNELS + CONFORMER_KERNELS),
           f"bf16 path: a float32 kernel launched: {launches}")
-    phase_reference_bf16(cfg, params, test_set)
+    phase_reference_bf16("phi bf16", cfg, params, test_set)
     out, per_draw = phase_timing_bf16(cfg, cast_params_for_compute(params, "bfloat16"),
                                       test_set)
     log(f"slice bf16: wall per draw {per_draw * 1e3:.1f} ms against the float32 path's "
         f"{f32_per_draw * 1e3:.1f} ms in this run (ratio {per_draw / f32_per_draw:.3f})")
     del params
     phase_cli_bench(data_dir)
+    return errs, extra, launches, out
+
+
+# ---------------------------------------------------------------- bf16 conformer
+
+def bf16_full_flash_costs(bh, n, t, d):
+    """(operations, bytes) of one launch of K2f, K3b and K4f on bf16 inputs:
+    q, k, v, o, g, dq, dk, dv at 2 bytes; lse, dd, the bias and d(bias) at
+    4; each read or written once, the scores counted once per residual row."""
+    return {
+        "flash_fwd_bias_bf16": (4.0 * bh * t * t * d,
+                                2.0 * 4 * bh * t * d + 4.0 * (bh * t + bh * t * t)),
+        "flash_dq_dbias_bf16": (4.0 * n * t * t * d + 2.0 * bh * t * t * d,
+                                2.0 * (2 * n * t * d + 4 * bh * t * d)
+                                + 4.0 * (n * t + n * t * t + bh * t + bh * t * t)),
+        "flash_dkv_bias_bf16": (6.0 * n * t * t * d + 2.0 * bh * t * t * d,
+                                2.0 * (3 * n * t * d + 3 * bh * t * d)
+                                + 4.0 * (n * t + bh * t + bh * t * t)),
+    }
+
+
+def phase_timing_bf16_conformer(cfg: PipelineConfig, params16, test_set):
+    """K2f, K3b and K4f in bf16 at the bf16 conformer's shapes: each one's
+    time per draw (CUDA events) beside its bound at the bf16 rate (bytes at
+    2 per bf16 and 4 per float32 element), its plain version and SDPA in
+    bf16 with a bf16 float mask (forward; backward alone with d(mask), the
+    forward plus backward logged); then the depthwise conv's dgrad both
+    ways (``time_conv_dgrad_bf16``) and the slice per draw, whose profile
+    gives each kernel's device time per draw. K1-bf16's shapes are the bf16
+    base path's, timed there. Returns (rows, wall per draw)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    mc = cfg.model
+    rows = mc.frames_for_samples(N_SAMPLES)
+    h, d, t = mc.num_attention_heads, mc.head_dim, rows
+    layers = mc.num_hidden_layers
+    q, k, v, _, g = bf16_flash_inputs(gen, 1, h, t, d, rows, False)
+    bias = rel_pos_bias(gen, q, False)
+    o, lse = fa.flash_fwd(q, k, v, bias, h)
+    _, dd, _ = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+    n = g.shape[0]
+    fwd = lambda: fa.flash_fwd(q, k, v, bias, h)  # noqa: E731
+    fwd_host = host_ms(fwd), host_ms(lambda: fa.flash_fwd_plain(q, k, v, bias, h))
+    q4, k4, v4 = (x.reshape(1, h, t, d) for x in (q, k, v))
+    b4 = bias.to(BF16).reshape(1, h, t, t)
+    lib_fwd, lib_fwd_best = host_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=b4))
+    qe, ke, ve = (x.expand(rows, h, t, d).contiguous().requires_grad_() for x in (q4, k4, v4))
+    be = b4.expand(rows, h, t, t).contiguous().requires_grad_()
+    g4 = g.reshape(rows, h, t, d)
+    oe = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve, be), g4, retain_graph=True),
+                      10)
+    del oe
+    lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be), (qe, ke, ve, be), g4), 10)
+    del qe, ke, ve, be
+    costs = bf16_full_flash_costs(h, n, t, d)
+    out = {}
+    for name, fn, pfn, lms, lib_what in (
+        ("flash_fwd_bias_bf16", None, None, lib_fwd, "SDPA bf16 forward, bf16 mask"),
+        ("flash_dq_dbias_bf16", lambda: fa.flash_dq(q, k, v, o, lse, g, bias, h),
+         lambda: fa.flash_dq_plain(q, k, v, o, lse, g, bias, h), lib_bwd,
+         "SDPA bf16 backward, dq+dk+dv+d(mask)"),
+        ("flash_dkv_bias_bf16", lambda: fa.flash_dkv(q, k, v, lse, g, dd, bias, h),
+         lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd, bias, h), lib_bwd,
+         "SDPA bf16 backward, dq+dk+dv+d(mask)"),
+    ):
+        fl, nb = costs[name]
+        b_ms, b_by = bound_bf16(fl, nb)
+        if fn is None:
+            (ms, ms_best), (pms, pms_best) = fwd_host
+            more = (f"; best of {HOST_REPEATS}: ms={ms_best:.4f} plain_ms={pms_best:.4f} "
+                    f"library_ms={lib_fwd_best:.4f}")
+        else:
+            ms, pms = time_ms(fn, 10), time_ms(pfn, 10)
+            more = f" library_ms(SDPA bf16 forward+backward)={lib_fwd_bwd:.4f}"
+        log(f"timing {name} BH={h} N={n} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
+            f"library_ms({lib_what})={lms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"TFLOP/s={fl / ms / 1e9:.2f} GB/s={nb / ms / 1e6:.1f}" + more)
+        out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
+                         bound_by=b_by, library_ms=layers * lms, device_ms=None)
+    pair = out["flash_dq_dbias_bf16"]["ms"] + out["flash_dkv_bias_bf16"]["ms"]
+    log(f"timing K3b + K4f bf16 per draw: {pair:.4f} ms ({layers} launches each) against the "
+        f"SDPA bf16 backward (dq+dk+dv+d(mask), same inputs) per draw {layers * lib_bwd:.4f} ms "
+        f"(ratio {pair / (layers * lib_bwd):.3f}); SDPA forward+backward per draw "
+        f"{layers * lib_fwd_bwd:.4f} ms")
+    del q, k, v, g, bias, o, lse, dd
+    # the library's bf16 route and the model's in turns, twice
+    time_conv_dgrad_bf16("depthwise conv", rows, mc.hidden_size, mc.conv_depthwise_kernel_size,
+                         mc.hidden_size, mc.matmul_precision, gen,
+                         (("library bf16", BF16, 10), ("float32 copies", torch.float32, 10)) * 2)
+    with matmul_precision_scope(mc.matmul_precision):
+        per_draw, prof = time_slice("bf16 conformer", cfg, params16, test_set, gen, out)
+    for name, kname in (("flash_fwd_bias_bf16", "flash_fwd_kernel"),
+                        ("flash_dq_dbias_bf16", "flash_dq_mma_kernel"),
+                        ("flash_dkv_bias_bf16", "flash_dkv_mma_kernel")):
+        seen = [ms for key, ms in prof.items() if kname in key]
+        out[name]["device_ms"] = sum(seen) if seen else None
+        log(f"timing {name}: device ms per draw {out[name]['device_ms']} (the slice's "
+            f"profile; None: not measured)")
+    return out, per_draw
+
+
+def phase_cli_bf16_conformer(data_dir: str, f32_records):
+    """``run-shap`` then ``sweep`` on the trained conformer archive switched
+    to bf16 + "default" and the kernel impls (3 heads of 32): only its bf16
+    kernels launch, phi is finite, and the sweep's rows are complete; WER,
+    eta_raw and transcripts are logged beside the float32 archive's sweep
+    (argmax ties may flip at bf16, so they are not gated)."""
+    archive = archive_with_kernels(CONFORMER_ARCHIVE, f"{data_dir}/conformer_bf16.npz",
+                                   dtype="bfloat16", matmul_precision="default")
+    d = f"{data_dir}/cli_conformer_bf16"
+    records, _ = cli_run("conformer bf16", archive, d, CONFORMER_CLI_ARGS,
+                         arch="w2v2-conformer")
+    check(len(records) == len(f32_records) and all(
+        r.keys() == f.keys() for r, f in zip(records, f32_records)),
+        "cli conformer bf16: the sweep's rows differ from the float32 sweep's")
+    t_out = load_config(archive).frames_for_samples(N_SAMPLES)
+    for r, f in zip(records, f32_records):
+        phi = np.load(f"{d}/shap_values_sample_{r['index']}_{r['type']}_{r['snr']}.npy")
+        check(phi.shape == (N_SAMPLES, t_out) and bool(np.isfinite(phi).all()),
+              f"cli conformer bf16: phi {phi.shape} not finite or not [{N_SAMPLES}, {t_out}]")
+        log(f"cli conformer bf16 (information): {r['type']} snr={r['snr']}: wer bf16 "
+            f"{r['wer']:.6f} float32 {f['wer']:.6f}; eta_raw bf16 {r['eta_raw']:.6f} float32 "
+            f"{f['eta_raw']:.6f}; hypothesis bf16 {r['hypothesis']!r} float32 "
+            f"{f['hypothesis']!r}")
+
+
+def phase_bf16_conformer(model16: Wav2Vec2ConformerConfig, explainer: ExplainerConfig,
+                         test_set, data_dir: str, f32_per_draw: float, f32_cli_records):
+    """The bf16 conformer: checks, run_shap_pipeline with exact launch
+    counts and no other kernel, the three-way draw, timing and the command
+    line. Returns (errors, extra fields, launches, timing rows)."""
+    errs, extra = phase_checks_full_bias(model16, BF16)
+    cfg = PipelineConfig(model=model16, explainer=explainer, seed=SEED,
+                         data_dir=f"{data_dir}/bf16_conformer")
+    params = init_w2v2_conformer_params(SEED, model16, device="cuda")  # float32 masters
+    launches = phase_pipeline("bf16 conformer", cfg, params, test_set, BF16_CONFORMER_KERNELS)
+    want = expected_launches_bf16(cfg, len(test_set))
+    check(want == {"conv_dgrad_bf16": 48, "flash_fwd_bias_bf16": 240,
+                   "flash_dq_dbias_bf16": 192, "flash_dkv_bias_bf16": 192},
+          f"bf16 conformer: expected counts {want}")
+    for name, count in launches.items():
+        check(count == want.get(name, 0), f"bf16 conformer: {name} launched {count} times, "
+              f"{want.get(name, 0)} expected")
+    phase_reference_bf16("phi bf16 conformer", cfg, params, test_set)
+    out, per_draw = phase_timing_bf16_conformer(
+        cfg, cast_params_for_compute(params, "bfloat16"), test_set)
+    log(f"slice bf16 conformer: wall per draw {per_draw * 1e3:.1f} ms against the float32 "
+        f"conformer's {f32_per_draw * 1e3:.1f} ms in this run (ratio "
+        f"{per_draw / f32_per_draw:.3f})")
+    del params
+    phase_cli_bf16_conformer(data_dir, f32_cli_records)
     return errs, extra, launches, out
 
 
@@ -1587,18 +1804,25 @@ def main() -> int:
         cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
         claunches = phase_pipeline("conformer", ccfg, cparams, test_set, CONFORMER_KERNELS)
         phase_reference_conformer(ccfg, cparams, test_set, data_dir)
-        cout = phase_timing_conformer(ccfg, cparams, test_set, out["conv_dgrad"])
+        cout, c32_per_draw = phase_timing_conformer(ccfg, cparams, test_set, out["conv_dgrad"])
         del cparams
-        phase_cli(base_archive, data_dir)
+        c32_cli_records = phase_cli(base_archive, data_dir)
         model16 = Wav2Vec2Config(dtype="bfloat16", matmul_precision="default",
                                  attention_impl="pallas", conv_impl="pallas")
         b_errs, b_extra, blaunches, bout = phase_bf16(model16, explainer, test_set, data_dir,
                                                       f32_per_draw)
         errs.update(b_errs)
         extra.update(b_extra)
+        conformer16 = dataclasses.replace(conformer, dtype="bfloat16",
+                                          matmul_precision="default")
+        c_errs, c_extra, c16launches, c16out = phase_bf16_conformer(
+            conformer16, explainer, test_set, data_dir, c32_per_draw, c32_cli_records)
+        errs.update(c_errs)
+        extra.update(c_extra)
         kernels = (kernel_rows(out, errs, extra, launches)
                    + kernel_rows(cout, errs, extra, claunches)
-                   + kernel_rows(bout, errs, extra, blaunches))
+                   + kernel_rows(bout, errs, extra, blaunches)
+                   + kernel_rows(c16out, errs, extra, c16launches))
     log(smi)  # again beside the numbers, for a reader of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

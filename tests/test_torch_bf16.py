@@ -28,28 +28,11 @@ from asr_shap_torch.core import device as port_device
 from asr_shap_torch.explain.expected_gradients import expected_phi
 from asr_shap_torch.kernels import LAUNCHES, conv_dgrad, flash_attention as fa
 from asr_shap_torch.models.heads import make_explained_fn
-from asr_shap_torch.models.w2v2_conformer import (
-    init_w2v2_conformer_params,
-    w2v2_conformer_logits,
-)
 from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, wav2vec2_logits
 from asr_shap_torch.pipeline import benchmarks
-from torch_port_configs import (
-    jax_draws,
-    narrow_conformer_config,
-    narrow_config,
-    port_cfg,
-    shared_params,
-)
+from torch_port_configs import bf16_pair, jax_draws, narrow_config, port_cfg, shared_params
 
 BF16 = dict(dtype="bfloat16", matmul_precision="default")
-
-
-def _bf16_pair(a):
-    """numpy float32 -> (the same values rounded to bf16 as a jnp array, and
-    as a torch tensor)."""
-    j = jnp.asarray(a, jnp.bfloat16)
-    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
 
 
 @pytest.fixture(scope="module")
@@ -61,14 +44,14 @@ def kernel_outputs():
     out = {}
     k, s, t_out, c = 3, 2, 20, 128
     t_in = (t_out - 1) * s + k
-    yj, yt = _bf16_pair(rng.standard_normal((2, t_out, c)))
-    wj, wt = _bf16_pair(rng.standard_normal((k, c, c)) * 0.1)
+    yj, yt = bf16_pair(rng.standard_normal((2, t_out, c)))
+    wj, wt = bf16_pair(rng.standard_normal((k, c, c)) * 0.1)
     b, h, t, d = 1, 2, 37, 32
     (qj, qt), (kj, kt), (vj, vt), (gj, gt) = (
-        _bf16_pair(rng.standard_normal((b, h, t, d))) for _ in range(4))
+        bf16_pair(rng.standard_normal((b, h, t, d))) for _ in range(4))
     mask = np.zeros((b, 1, 1, t), np.float32)
     mask[..., 30:] = -1e9
-    mj, mt = _bf16_pair(mask)
+    mj, mt = bf16_pair(mask)
 
     @jax.jit
     def reference(y, w, q, k_, v, g, m):
@@ -211,13 +194,6 @@ def test_cast_params_gives_reference_leaf_dtypes():
     assert cast_params_for_compute(once, "bfloat16")["lm_head"]["kernel"] is (
         once["lm_head"]["kernel"])
     assert cast_params_for_compute(params, "float32") is params
-
-
-def test_bf16_conformer_raises():
-    cfg = port_cfg(narrow_conformer_config(dtype="bfloat16"))
-    params = init_w2v2_conformer_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16 conformer"):
-        w2v2_conformer_logits(params, cfg, torch.zeros(1, 1600))
 
 
 def test_bench_cli_writes_reference_rows(tmp_path, capsys):

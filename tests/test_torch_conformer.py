@@ -36,33 +36,9 @@ from asr_shap_torch.models.w2v2_conformer import (
 )
 from asr_shap_torch.ops.attention import rel_pos_embedding, rel_shift
 from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
-from torch_port_configs import jax_draws, narrow_conformer_config, port_cfg
+from torch_port_configs import conformer_params, jax_draws, narrow_conformer_config, port_cfg
 
 ARCHIVE = "artifacts/params_synthetic_conformer.npz"
-
-
-def _shared_params(cfg, seed):
-    """Params drawn by numpy through the port's init, with non-trivial u/v
-    biases and BatchNorm statistics: (port params on the CPU, the same
-    values as the reference's tree, encoder layers stacked)."""
-    params = port_init(seed, port_cfg(cfg), device="cpu")
-    rng = np.random.default_rng(seed + 1)
-
-    def fill(t, lo, hi):
-        t.copy_(torch.from_numpy(rng.uniform(lo, hi, tuple(t.shape)).astype(np.float32)))
-
-    for layer in params["encoder"]["layers"]:
-        for name in ("bias_u", "bias_v"):
-            if name in layer["attn"]:
-                fill(layer["attn"][name], -0.5, 0.5)
-        bn = layer["conv"]["bn"]
-        for name, lo, hi in (("mean", -0.2, 0.2), ("var", 0.5, 1.5), ("scale", 0.5, 1.5),
-                             ("bias", -0.2, 0.2)):
-            fill(bn[name], lo, hi)
-    tree = jax.tree.map(lambda t: t.numpy(), params)
-    tree["encoder"]["layers"] = jax.tree.map(lambda *xs: np.stack(xs),
-                                             *tree["encoder"]["layers"])
-    return params, tree
 
 
 def test_rel_pos_embedding_and_rel_shift_match_reference(rng):
@@ -83,7 +59,7 @@ def test_logits_match_reference(rng, position, padded):
     """The reference runs its Pallas flash kernel in interpret mode; a
     padded batch makes the rel-pos bias carry -1e9 on the padded keys."""
     cfg = narrow_conformer_config(position_embeddings_type=position)
-    params, ref_params = _shared_params(cfg, 0)
+    params, ref_params = conformer_params(cfg, 0)
     x = rng.standard_normal((2, 1600)).astype(np.float32)
     lengths = np.array([1600, 1100]) if padded else None
     ref = np.asarray(jax.jit(lambda p, a, n: w2v2_conformer_logits(p, cfg, a, lengths=n))(
@@ -162,7 +138,7 @@ def test_pipeline_matches_reference_forward(rng, tmp_path):
     """run_shap_pipeline on a conformer config on the CPU: the transcript and
     confidence of the reference's forward on the same params and audio."""
     cfg = narrow_conformer_config()
-    params, ref_params = _shared_params(cfg, 1)
+    params, ref_params = conformer_params(cfg, 1)
     n = 1600
     clean = np.sin(2 * np.pi * 220 * np.arange(n) / 16_000).astype(np.float32)
     noise = (0.3 * rng.standard_normal(n)).astype(np.float32)

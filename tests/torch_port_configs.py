@@ -37,6 +37,13 @@ def narrow_conformer_config(**kw):
         **kw})
 
 
+def bf16_pair(a):
+    """numpy float32 -> (the same values rounded to bf16 as a jnp array, and
+    as a torch tensor)."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
 def port_cfg(cfg):
     """The port's twin of a reference model config (same class name)."""
     return getattr(port_config, type(cfg).__name__)(**dataclasses.asdict(cfg))
@@ -69,3 +76,30 @@ def shared_params(cfg, seed=0):
 
     params = init_wav2vec2_params(seed, port_cfg(cfg), device="cpu")
     return params, jax.tree.map(jnp.asarray, params_to_jax(params))
+
+
+def conformer_params(cfg, seed):
+    """Wav2Vec2-Conformer params drawn by numpy through the port's init, with
+    non-trivial u/v biases and BatchNorm statistics: (port params on the
+    CPU, the same values as the reference's tree of numpy arrays, encoder
+    layers stacked)."""
+    from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
+
+    params = init_w2v2_conformer_params(seed, port_cfg(cfg), device="cpu")
+    rng = np.random.default_rng(seed + 1)
+
+    def fill(t, lo, hi):
+        t.copy_(torch.from_numpy(rng.uniform(lo, hi, tuple(t.shape)).astype(np.float32)))
+
+    for layer in params["encoder"]["layers"]:
+        for name in ("bias_u", "bias_v"):
+            if name in layer["attn"]:
+                fill(layer["attn"][name], -0.5, 0.5)
+        bn = layer["conv"]["bn"]
+        for name, lo, hi in (("mean", -0.2, 0.2), ("var", 0.5, 1.5), ("scale", 0.5, 1.5),
+                             ("bias", -0.2, 0.2)):
+            fill(bn[name], lo, hi)
+    tree = jax.tree.map(lambda t: t.numpy(), params)
+    tree["encoder"]["layers"] = jax.tree.map(lambda *xs: np.stack(xs),
+                                             *tree["encoder"]["layers"])
+    return params, tree
