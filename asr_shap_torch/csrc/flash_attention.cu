@@ -1,6 +1,6 @@
 // K2-K4: flash attention forward, dq backward and dk/dv backward, float32,
 // each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f);
-// and all six in bf16 (see "bf16" below).
+// and the forward (K2, K2f) in bf16 (see "bf16" below).
 //
 // Replace the Pallas TPU kernels of asr_shap/kernels/flash_attention.py:
 //   K2  flash_fwd_kernel<D, false>     <- _fwd_kernel (launched by _fwd)
@@ -54,57 +54,36 @@
 // K3b stores each warp's ds tile to d(bias) from the registers it was
 // computed in.
 //
-// bf16 (the *_bf16 entry points: K2, K3 and K4 with a mask or no bias, and
-// K2f, K3b and K4f with a full bias): q, k, v, o, g and the outputs o, dq,
-// dk, dv in bf16; lse, dd, the mask, the full bias and d(bias) stay
-// float32, and everything in between is float32, as in the TPU kernels,
-// which upcast their blocks and cast the result to the input's dtype once.
-// The kernels are the float32 templates with In = __nv_bfloat16: each bf16
-// row is widened to float32 as it is stored to shared memory (exact), and
-// the outputs are rounded to bf16 as they are stored. A bf16 value is
-// exact in TF32 (8 of its 10 mantissa bits), so its lo part is zero: a
-// product of two bf16 operands (q.k^T, g.v^T, v.g^T) takes one TF32 mma,
-// and a product of a float32 operand (p, ds) with a bf16 one (p.v, ds.k,
-// p^T.g, ds^T.q) two, lo*hi and hi*hi; the products with a zero lo part are
-// not issued (EX below). The result is the reference's float32 arithmetic
-// on the upcast operands, up to float32 rounding. q is not scaled before
-// the products (that would round it for D = 32): the scale multiplies the
-// float32 scores, and dk as it is stored (dq carries it as in float32).
-// K3b's d(bias) is ds itself, unscaled, as in float32.
+// bf16 (the flash_fwd_bf16 and flash_fwd_bias_bf16 entry points: K2 and
+// K2f): q, k, v and the output o in bf16; lse, the mask and the full bias
+// stay float32, and everything in between is float32, as in the TPU
+// kernels, which upcast their blocks and cast the result to the input's
+// dtype once. The forward is the float32 template with In = __nv_bfloat16:
+// each bf16 row is widened to float32 as it is stored to shared memory
+// (exact), and o is rounded to bf16 as it is stored. A bf16 value is exact
+// in TF32 (8 of its 10 mantissa bits), so its lo part is zero: q.k^T takes
+// one TF32 mma and p.v two, lo*hi and hi*hi; the products with a zero lo
+// part are not issued (EX below). q is not scaled before the product (that
+// would round it for D = 32): the scale multiplies the float32 scores. The
+// bf16 backward (K3, K4, K3b, K4f) is built for bf16 in flash_bwd_bf16.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-// The bias plane or row of residual row res: a [T, T] plane of the full bias,
-// or the [T] key mask of its batch entry; null without a bias.
-template <bool FULL>
-__device__ __forceinline__ const float* bias_base(const float* bias, int res,
-                                                  int H, int T) {
-  if (bias == nullptr) return nullptr;
-  return FULL ? bias + (long long)res * T * T : bias + (long long)(res / H) * T;
-}
-
-// Input element types: float, or __nv_bfloat16, whose values are exact in
-// TF32 (EX: the lo part of their split is zero, so those products are
-// skipped).
+// The forward's input element types: float, or __nv_bfloat16, whose values
+// are exact in TF32 (EX: the lo part of their split is zero, so those
+// products are skipped).
 template <typename T> struct Exact { static constexpr bool value = false; };
 template <> struct Exact<__nv_bfloat16> { static constexpr bool value = true; };
 
-__device__ __forceinline__ float load_elem(const float* p) { return *p; }
-__device__ __forceinline__ float load_elem(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-// two neighbouring outputs (p 8-byte aligned for float, 4-byte for bf16)
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 // the bf16 in the low / high half of a 32-bit word, as float32 (exact)
 __device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
@@ -165,11 +144,6 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Rows [row0, row0 + rows) of a row-major [T, D] matrix into shared rows of
@@ -498,38 +472,10 @@ __device__ __forceinline__ void split_rows(uint32_t* hi, uint32_t* lo, const flo
   }
 }
 
-// The same for rows of bf16, 8 per 16-byte load (for scale 1 the hi part
-// is the value itself and the lo part zero).
-template <int D>
-__device__ __forceinline__ void split_rows(uint32_t* hi, uint32_t* lo, const __nv_bfloat16* src,
-                                           int row0, int rows, int T, float scale) {
-  constexpr int CH = D / 8;
-  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
-    const int row = idx / CH, c = idx % CH;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < T)
-      u = *reinterpret_cast<const uint4*>(src + (long long)(row0 + row) * D + c * 8);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-    uint32_t h[8], l[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      split_tf32(lo_bf16(w[i]) * scale, h[2 * i], l[2 * i]);
-      split_tf32(hi_bf16(w[i]) * scale, h[2 * i + 1], l[2 * i + 1]);
-    }
-    uint32_t* hd = hi + row * (D + 4) + c * 8;
-    uint32_t* ldst = lo + row * (D + 4) + c * 8;
-    *reinterpret_cast<uint4*>(hd) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(hd + 4) = make_uint4(h[4], h[5], h[6], h[7]);
-    *reinterpret_cast<uint4*>(ldst) = make_uint4(l[0], l[1], l[2], l[3]);
-    *reinterpret_cast<uint4*>(ldst + 4) = make_uint4(l[4], l[5], l[6], l[7]);
-  }
-}
-
 // One 16x8 tile of A.B^T over D in 3xTF32, each 8-wide step from a zero
 // partial: A the 16 shared rows at ahi/alo, B the 8 shared rows at bhi/blo,
-// both split hi/lo with stride D + 4. The score tiles of K3 and K4. EX: both
-// operands exact in TF32 (bf16), so hi*hi alone.
-template <int D, bool EX>
+// both split hi/lo with stride D + 4. The score tiles of K3 and K4.
+template <int D>
 __device__ __forceinline__ void scores_tile(float* s, const uint32_t* ahi, const uint32_t* alo,
                                             const uint32_t* bhi, const uint32_t* blo,
                                             int lane) {
@@ -548,10 +494,8 @@ __device__ __forceinline__ void scores_tile(float* s, const uint32_t* ahi, const
     }
     const int br = gi * LDS + st * 8 + t;
     float part[4] = {0.f, 0.f, 0.f, 0.f};
-    if (!EX) {
-      mma_tf32(part, al, bhi[br], bhi[br + 4]);
-      mma_tf32(part, ah, blo[br], blo[br + 4]);
-    }
+    mma_tf32(part, al, bhi[br], bhi[br + 4]);
+    mma_tf32(part, ah, blo[br], blo[br + 4]);
     mma_tf32(part, ah, bhi[br], bhi[br + 4]);
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[c] += part[c];
@@ -561,9 +505,8 @@ __device__ __forceinline__ void scores_tile(float* s, const uint32_t* ahi, const
 // acc[nd] += A.B for one 8-wide step in 3xTF32, from a zero partial: A the
 // 16x8 fragment (a0..a3, as floats), B the 8 shared rows from `bhi` (stride
 // D + 4, taken in the order 0, 2, 4, 6, 1, 3, 5, 7), split hi/lo in `bhi`
-// and `blo`, or with FLOAT_B float rows at `bhi` that are split here. EX: B
-// exact in TF32 (bf16), so its lo*hi product is not issued.
-template <int D, bool FLOAT_B, bool EX>
+// and `blo`, or with FLOAT_B float rows at `bhi` that are split here.
+template <int D, bool FLOAT_B>
 __device__ __forceinline__ void step_3xtf32(float (*acc)[4], const float* a,
                                             const void* bhi, const uint32_t* blo, int lane) {
   constexpr int LDS = D + 4, ND = D / 8;
@@ -598,8 +541,7 @@ __device__ __forceinline__ void step_3xtf32(float (*acc)[4], const float* a,
 #pragma unroll
     for (int i = 0; i < 4; ++i) mma_tf32(part[i], al, bh[i][0], bh[i][1]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (!EX) mma_tf32(part[i], ah, bl[i][0], bl[i][1]);
+    for (int i = 0; i < 4; ++i) mma_tf32(part[i], ah, bl[i][0], bl[i][1]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) mma_tf32(part[i], ah, bh[i][0], bh[i][1]);
 #pragma unroll
@@ -611,8 +553,8 @@ __device__ __forceinline__ void step_3xtf32(float (*acc)[4], const float* a,
 
 // Store a warp's [16, D] accumulator tile (rows row0 + g and + 8, columns
 // nd * 8 + 2t, + 1), times `scale`, to rows below T of `out` [T, D].
-template <int D, typename Out>
-__device__ __forceinline__ void store_tile(Out* out, const float (*acc)[4], int row0,
+template <int D>
+__device__ __forceinline__ void store_tile(float* out, const float (*acc)[4], int row0,
                                            int T, float scale, int lane) {
   const int gi = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -621,8 +563,8 @@ __device__ __forceinline__ void store_tile(Out* out, const float (*acc)[4], int 
     if (row >= T) continue;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
-      store_pair(out + (long long)row * D + nd * 8 + 2 * t, scale * acc[nd][2 * h],
-          scale * acc[nd][2 * h + 1]);
+      *reinterpret_cast<float2*>(out + (long long)row * D + nd * 8 + 2 * t) =
+          make_float2(scale * acc[nd][2 * h], scale * acc[nd][2 * h + 1]);
   }
 }
 
@@ -630,9 +572,8 @@ __device__ __forceinline__ void store_tile(Out* out, const float (*acc)[4], int 
 // B, in 3xTF32, each 8-wide step from a zero partial: A the warp's 16 rows
 // as fragments in registers (floats, split here), B_jj the 8 shared rows at
 // bhi + jj * 8 * (D + 4), split hi/lo in bhi and blo, or with FLOAT_B float
-// rows at bhi that are split here. EX: A and B exact in TF32 (bf16), so
-// hi*hi alone.
-template <int D, int JT, bool FLOAT_B, bool EX>
+// rows at bhi that are split here.
+template <int D, int JT, bool FLOAT_B>
 __device__ __forceinline__ void dp_tiles(float (*dp)[4], const float (*a)[4], const void* bhi,
                                          const uint32_t* blo, int nt, int lane) {
   constexpr int LDS = D + 4;
@@ -671,10 +612,10 @@ __device__ __forceinline__ void dp_tiles(float (*dp)[4], const float (*a)[4], co
       for (int c = 0; c < 4; ++c) part[jj][c] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < JT; ++jj)
-      if (!EX && jj < nt) mma_tf32(part[jj], al, bh[jj][0], bh[jj][1]);
+      if (jj < nt) mma_tf32(part[jj], al, bh[jj][0], bh[jj][1]);
 #pragma unroll
     for (int jj = 0; jj < JT; ++jj)
-      if (!EX && jj < nt) mma_tf32(part[jj], ah, bl[jj][0], bl[jj][1]);
+      if (jj < nt) mma_tf32(part[jj], ah, bl[jj][0], bl[jj][1]);
 #pragma unroll
     for (int jj = 0; jj < JT; ++jj)
       if (jj < nt) mma_tf32(part[jj], ah, bh[jj][0], bh[jj][1]);
@@ -693,15 +634,14 @@ __host__ __device__ constexpr size_t dq_mma_smem_bytes() {
           (size_t)(BWD_ROWS + 1) * 16 * (D + 4) + (size_t)16 * BWD_LDP) * 4;
 }
 
-template <int D, bool FULL, typename In>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_dq_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
-                    const In* __restrict__ v, const In* __restrict__ o,
-                    const float* __restrict__ lse, const In* __restrict__ g,
-                    const float* __restrict__ bias, In* __restrict__ dq,
+flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ lse, const float* __restrict__ g,
+                    const float* __restrict__ bias, float* __restrict__ dq,
                     float* __restrict__ dd_out, float* __restrict__ dbias, int T, int H,
                     int BH, int V, int G, float scale) {
-  constexpr bool EX = Exact<In>::value;  // bf16: q, k, v, g exact in TF32
   constexpr int LDS = D + 4, KS = D / 8, CHUNK = BWD_CHUNK, LDP = BWD_LDP;
   extern __shared__ __align__(16) float smem[];
   uint32_t* khi = reinterpret_cast<uint32_t*>(smem);  // [CHUNK][LDS]
@@ -724,7 +664,7 @@ flash_dq_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
   float* gw = gs + warp * 16 * LDS;
   const bool one_chunk = T <= CHUNK;
 
-  split_rows<D>(qhi, qlo, q + rbase, q0, 16, T, EX ? 1.f : scale);
+  split_rows<D>(qhi, qlo, q + rbase, q0, 16, T, scale);
   cp_rows<D>(os, o + rbase, q0, 16, T, threadIdx.x, BWD_THREADS);
   if (grp0 * BWD_ROWS + warp < V)  // the first group's g rows of this warp
     cp_rows<D>(gw, g + (res + (long long)BH * (grp0 * BWD_ROWS + warp)) * T * D, q0, 16, T,
@@ -756,7 +696,7 @@ flash_dq_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
         // p of the block's 16 rows and the chunk's keys, once for the run
         for (int j = warp; j < nt; j += BWD_ROWS) {
           float s[4];
-          scores_tile<D, EX>(s, qhi, qlo, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
+          scores_tile<D>(s, qhi, qlo, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) {
             const int key = j * 8 + 2 * t + (cc & 1), col = kv0 + key;
@@ -764,7 +704,7 @@ flash_dq_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
             float p = 0.f;
             if (row < T && col < T) {
               const float b = FULL ? brow[(long long)row * T + col] : brow ? brow[col] : 0.f;
-              p = expf((EX ? s[cc] * scale : s[cc]) + b - lse_r[cc >> 1]);
+              p = expf(s[cc] + b - lse_r[cc >> 1]);
             }
             ps[(gi + 8 * (cc >> 1)) * LDP + key] = p;
           }
@@ -798,7 +738,7 @@ flash_dq_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
       }
       for (int j0 = 0; j0 < nt; j0 += DQ_JT) {
         float dp[DQ_JT][4];
-        dp_tiles<D, DQ_JT, false, EX>(dp, ga, vhi + j0 * 8 * LDS, vlo + j0 * 8 * LDS, nt - j0, lane);
+        dp_tiles<D, DQ_JT, false>(dp, ga, vhi + j0 * 8 * LDS, vlo + j0 * 8 * LDS, nt - j0, lane);
         // ds = p * (dP - dd) in registers, then dq += ds.k, keys 0,2,4,6,1,3,5,7
 #pragma unroll
         for (int jj = 0; jj < DQ_JT; ++jj) {
@@ -818,7 +758,7 @@ flash_dq_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
               if (col + 1 < T) out[1] = da[h + 2];
             }
           }
-          step_3xtf32<D, false, EX>(acc, da, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
+          step_3xtf32<D, false>(acc, da, khi + j * 8 * LDS, klo + j * 8 * LDS, lane);
         }
       }
     }
@@ -836,8 +776,8 @@ __host__ __device__ constexpr size_t dkv_mma_smem_bytes() {
 }
 
 // One warp's copy of 16 rows of g (rows past T zero) and of dd into a buffer.
-template <int D, typename In>
-__device__ __forceinline__ void cp_g_dd(float* gb, float* db, const In* g, const float* dd,
+template <int D>
+__device__ __forceinline__ void cp_g_dd(float* gb, float* db, const float* g, const float* dd,
                                         int row0, int T, int lane) {
   cp_rows<D>(gb, g, row0, 16, T, lane, 32);
   if (lane < 16) {
@@ -849,14 +789,13 @@ __device__ __forceinline__ void cp_g_dd(float* gb, float* db, const In* g, const
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int D, bool FULL, typename In>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_dkv_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
-                     const In* __restrict__ v, const float* __restrict__ lse,
-                     const In* __restrict__ g, const float* __restrict__ dd,
-                     const float* __restrict__ bias, In* __restrict__ dk,
-                     In* __restrict__ dv, int T, int H, int BH, int V, int G, float scale) {
-  constexpr bool EX = Exact<In>::value;  // bf16: q, k, v, g exact in TF32
+flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ lse,
+                     const float* __restrict__ g, const float* __restrict__ dd,
+                     const float* __restrict__ bias, float* __restrict__ dk,
+                     float* __restrict__ dv, int T, int H, int BH, int V, int G, float scale) {
   constexpr int LDS = D + 4, KS = D / 8, CHUNK = BWD_CHUNK, LDP = BWD_LDP;
   extern __shared__ __align__(16) float smem[];
   uint32_t* qhi = reinterpret_cast<uint32_t*>(smem);   // [CHUNK][LDS], scaled
@@ -890,14 +829,14 @@ flash_dkv_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       const int row = keys_[cc & 1], col = st * 8 + t + (cc >> 1) * 4;
-      va[st][cc] = row < T ? load_elem(v + rbase + (long long)row * D + col) : 0.f;
+      va[st][cc] = row < T ? v[rbase + (long long)row * D + col] : 0.f;
     }
 
   for (int grp = grp0; grp < grp1; ++grp) {
     const int c = grp * BWD_ROWS + warp;
     const bool active = c < V;
     const long long n = res + (long long)BH * c;
-    const In* gn = g + n * T * D;
+    const float* gn = g + n * T * D;
     const float* ddn = dd + n * T;
     float acc_k[KS][4], acc_v[KS][4];  // keys g, g + 8 x columns nd * 8 + 2t, + 1
 #pragma unroll
@@ -910,14 +849,14 @@ flash_dkv_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
       if (active) cp_g_dd<D>(gw, dw, gn, ddn, qq0, T, lane);  // the first 16 queries
       if (grp == grp0 || !one_chunk) {
         if (grp > grp0 || qq0 > 0) __syncthreads();
-        split_rows<D>(qhi, qlo, q + rbase, qq0, nt * 8, T, EX ? 1.f : scale);
+        split_rows<D>(qhi, qlo, q + rbase, qq0, nt * 8, T, scale);
         for (int i = threadIdx.x; i < nt * 8; i += BWD_THREADS)
           lses[i] = qq0 + i < T ? lse[(long long)res * T + qq0 + i] : 0.f;
         __syncthreads();
         // p^T of the block's 16 keys and the chunk's queries, once for the run
         for (int j = warp; j < nt; j += BWD_ROWS) {
           float s[4];
-          scores_tile<D, EX>(s, khi, klo, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
+          scores_tile<D>(s, khi, klo, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) {
             const int qc = j * 8 + 2 * t + (cc & 1);
@@ -925,7 +864,7 @@ flash_dkv_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
             float p = 0.f;
             if (qq0 + qc < T && key < T) {
               const float b = FULL ? brow[(long long)(qq0 + qc) * T + key] : mk[cc >> 1];
-              p = expf((EX ? s[cc] * scale : s[cc]) + b - lses[qc]);
+              p = expf(s[cc] + b - lses[qc]);
             }
             pts[(gi + 8 * (cc >> 1)) * LDP + qc] = p;
           }
@@ -946,7 +885,7 @@ flash_dkv_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
         __syncwarp();
         const float* gb = gw + b * 16 * LDS;
         float dp[DKV_JT][4];
-        dp_tiles<D, DKV_JT, true, EX>(dp, va, gb, nullptr, nt - j0, lane);
+        dp_tiles<D, DKV_JT, true>(dp, va, gb, nullptr, nt - j0, lane);
         // dv += p^T.g and dk += ds^T.(q * scale), ds^T = p^T * (dP^T - dd),
         // queries 0,2,4,6,1,3,5,7
 #pragma unroll
@@ -960,15 +899,14 @@ flash_dkv_mma_kernel(const In* __restrict__ q, const In* __restrict__ k,
           const float pa[4] = {p0.x, p1.x, p0.y, p1.y};
           const float da[4] = {p0.x * (dp[jj][0] - ddq.x), p1.x * (dp[jj][2] - ddq.x),
                                p0.y * (dp[jj][1] - ddq.y), p1.y * (dp[jj][3] - ddq.y)};
-          step_3xtf32<D, true, EX>(acc_v, pa, gb + jj * 8 * LDS, nullptr, lane);
-          step_3xtf32<D, false, EX>(acc_k, da, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
+          step_3xtf32<D, true>(acc_v, pa, gb + jj * 8 * LDS, nullptr, lane);
+          step_3xtf32<D, false>(acc_k, da, qhi + j * 8 * LDS, qlo + j * 8 * LDS, lane);
         }
         __syncwarp();  // the buffer is refilled two steps on
       }
     }
-    if (active) {
-      // float32: q was scaled before the products; bf16: scale * ds^T q here
-      store_tile<D>(dk + n * T * D, acc_k, k0, T, EX ? scale : 1.f, lane);
+    if (active) {  // q was scaled before the products
+      store_tile<D>(dk + n * T * D, acc_k, k0, T, 1.f, lane);
       store_tile<D>(dv + n * T * D, acc_v, k0, T, 1.f, lane);
     }
   }
@@ -1011,29 +949,19 @@ int fwd(const In* q, const In* k, const In* v, const float* bias,
   return (int)cudaErrorInvalidValue;
 }
 
-// Groups of BWD_ROWS cotangent rows per block for K3 and K4 (K3b, K4f), whose blocks
-// take one SM each: the run length G (at most 32) that finishes `jobs`
-// (residual row, 16-row tile) pairs of `groups` groups each in the fewest
-// group-times, ceil(jobs * ceil(groups / G) / SMs) waves of G groups each,
-// counting half a group-time per wave for a block's loads and scores.
+// Groups of BWD_ROWS cotangent rows per block for K3 and K4 (K3b, K4f), whose
+// blocks take one SM each: groups_per_block with one block per SM.
 int bwd_groups_per_block(int jobs, int groups) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int best = 1;
-  double best_cost = 1e300;
-  for (int G = 1; G <= groups && G <= 32; ++G) {
-    const long long blocks = (long long)jobs * ((groups + G - 1) / G);
-    const double cost = (double)((blocks + sms - 1) / sms) * (G + 0.5);
-    if (cost < best_cost) best = G, best_cost = cost;
-  }
-  return best;
+  return groups_per_block(jobs, groups, sms);
 }
 
 // K3 (K3b): one block per (residual row, 16 query rows, run of G groups)
-template <int D, bool FULL, typename In>
-int dq_mma_launch(const In* q, const In* k, const In* v, const In* o,
-                  const float* lse, const In* g, const float* bias, In* dq,
+template <int D, bool FULL>
+int dq_mma_launch(const float* q, const float* k, const float* v, const float* o,
+                  const float* lse, const float* g, const float* bias, float* dq,
                   float* dd, float* dbias, int N, int BH, int T, int H, float scale,
                   cudaStream_t stream) {
   const int V = N / BH, groups = (V + BWD_ROWS - 1) / BWD_ROWS, tiles = (T + 15) / 16;
@@ -1041,57 +969,57 @@ int dq_mma_launch(const In* q, const In* k, const In* v, const In* o,
   dim3 grid(BH, tiles, (groups + G - 1) / G);
   constexpr size_t smem = dq_mma_smem_bytes<D>();
   static bool ready = false;
-  int err = launch_prep(flash_dq_mma_kernel<D, FULL, In>, smem, ready);
+  int err = launch_prep(flash_dq_mma_kernel<D, FULL>, smem, ready);
   if (err) return err;
-  flash_dq_mma_kernel<D, FULL, In><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_dq_mma_kernel<D, FULL><<<grid, BWD_THREADS, smem, stream>>>(
       q, k, v, o, lse, g, bias, dq, dd, dbias, T, H, BH, V, G, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool FULL, typename In>
-int dq(const In* q, const In* k, const In* v, const In* o,
-       const float* lse, const In* g, const float* bias, In* dq_, float* dd,
+template <bool FULL>
+int dq(const float* q, const float* k, const float* v, const float* o,
+       const float* lse, const float* g, const float* bias, float* dq_, float* dd,
        float* dbias, int N, int BH, int T, int D, int H, float scale, void* stream) {
   if (N < 1 || BH < 1 || N % BH != 0 || T < 1) return (int)cudaErrorInvalidValue;
   if (FULL && (bias == nullptr || dbias == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
-    return dq_mma_launch<64, FULL, In>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H,
-                                       scale, st);
+    return dq_mma_launch<64, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H,
+                                   scale, st);
   if (D == 32)
-    return dq_mma_launch<32, FULL, In>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H,
-                                       scale, st);
+    return dq_mma_launch<32, FULL>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, H,
+                                   scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // K4 (K4f): one block per (residual row, 16 key rows, run of G groups)
-template <int D, bool FULL, typename In>
-int dkv_mma_launch(const In* q, const In* k, const In* v, const float* lse,
-                   const In* g, const float* dd, const float* bias, In* dk,
-                   In* dv, int N, int BH, int T, int H, float scale, cudaStream_t stream) {
+template <int D, bool FULL>
+int dkv_mma_launch(const float* q, const float* k, const float* v, const float* lse,
+                   const float* g, const float* dd, const float* bias, float* dk,
+                   float* dv, int N, int BH, int T, int H, float scale, cudaStream_t stream) {
   const int V = N / BH, groups = (V + BWD_ROWS - 1) / BWD_ROWS, tiles = (T + 15) / 16;
   const int G = bwd_groups_per_block(BH * tiles, groups);
   dim3 grid(BH, tiles, (groups + G - 1) / G);
   constexpr size_t smem = dkv_mma_smem_bytes<D>();
   static bool ready = false;
-  int err = launch_prep(flash_dkv_mma_kernel<D, FULL, In>, smem, ready);
+  int err = launch_prep(flash_dkv_mma_kernel<D, FULL>, smem, ready);
   if (err) return err;
-  flash_dkv_mma_kernel<D, FULL, In><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_dkv_mma_kernel<D, FULL><<<grid, BWD_THREADS, smem, stream>>>(
       q, k, v, lse, g, dd, bias, dk, dv, T, H, BH, V, G, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool FULL, typename In>
-int dkv(const In* q, const In* k, const In* v, const float* lse,
-        const In* g, const float* dd, const float* bias, In* dk, In* dv,
+template <bool FULL>
+int dkv(const float* q, const float* k, const float* v, const float* lse,
+        const float* g, const float* dd, const float* bias, float* dk, float* dv,
         int N, int BH, int T, int D, int H, float scale, void* stream) {
   if (N < 1 || BH < 1 || N % BH != 0 || T < 1 || (FULL && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
-    return dkv_mma_launch<64, FULL, In>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
+    return dkv_mma_launch<64, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
   if (D == 32)
-    return dkv_mma_launch<32, FULL, In>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
+    return dkv_mma_launch<32, FULL>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, H, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1120,7 +1048,7 @@ extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,
                             const float* bias, float* dq_, float* dd, int N,
                             int BH, int T, int D, int H, float scale,
                             void* stream) {
-  return dq<false, float>(q, k, v, o, lse, g, bias, dq_, dd, nullptr, N, BH, T, D, H, scale, stream);
+  return dq<false>(q, k, v, o, lse, g, bias, dq_, dd, nullptr, N, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dq_dbias_f32(const float* q, const float* k, const float* v,
@@ -1128,7 +1056,7 @@ extern "C" int flash_dq_dbias_f32(const float* q, const float* k, const float* v
                                   const float* bias, float* dq_, float* dd,
                                   float* dbias, int N, int BH, int T, int D, int H,
                                   float scale, void* stream) {
-  return dq<true, float>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, D, H, scale, stream);
+  return dq<true>(q, k, v, o, lse, g, bias, dq_, dd, dbias, N, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
@@ -1136,7 +1064,7 @@ extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
                              const float* bias, float* dk, float* dv, int N,
                              int BH, int T, int D, int H, float scale,
                              void* stream) {
-  return dkv<false, float>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
+  return dkv<false>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
 }
 
 extern "C" int flash_dkv_bias_f32(const float* q, const float* k, const float* v,
@@ -1144,11 +1072,12 @@ extern "C" int flash_dkv_bias_f32(const float* q, const float* k, const float* v
                                   const float* bias, float* dk, float* dv, int N,
                                   int BH, int T, int D, int H, float scale,
                                   void* stream) {
-  return dkv<true, float>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
+  return dkv<true>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
 }
 
-// bf16: q, k, v, o, g, dq, dk, dv are __nv_bfloat16 (passed as void*); lse,
-// dd, the mask, the full bias and d(bias) float32.
+// bf16 forward: q, k, v and o are __nv_bfloat16 (passed as void*); lse, the
+// mask and the full bias float32. The bf16 backward's entry points are in
+// flash_bwd_bf16.cu.
 
 using bf16 = __nv_bfloat16;
 
@@ -1160,26 +1089,6 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                           T, D, H, rows, scale, stream);
 }
 
-extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v, const void* o,
-                             const float* lse, const void* g, const float* bias, void* dq_,
-                             float* dd, int N, int BH, int T, int D, int H, float scale,
-                             void* stream) {
-  return dq<false, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
-                         static_cast<const bf16*>(g), bias, static_cast<bf16*>(dq_), dd,
-                         nullptr, N, BH, T, D, H, scale, stream);
-}
-
-extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v, const float* lse,
-                              const void* g, const float* dd, const float* bias, void* dk,
-                              void* dv, int N, int BH, int T, int D, int H, float scale,
-                              void* stream) {
-  return dkv<false, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                          static_cast<const bf16*>(v), lse, static_cast<const bf16*>(g), dd,
-                          bias, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, BH, T, D,
-                          H, scale, stream);
-}
-
 extern "C" int flash_fwd_bias_bf16(const void* q, const void* k, const void* v,
                                    const float* bias, void* o, float* lse, int BH,
                                    int T, int D, int H, int rows, float scale, void* stream) {
@@ -1188,23 +1097,3 @@ extern "C" int flash_fwd_bias_bf16(const void* q, const void* k, const void* v,
                          T, D, H, rows, scale, stream);
 }
 
-extern "C" int flash_dq_dbias_bf16(const void* q, const void* k, const void* v,
-                                   const void* o, const float* lse, const void* g,
-                                   const float* bias, void* dq_, float* dd, float* dbias,
-                                   int N, int BH, int T, int D, int H, float scale,
-                                   void* stream) {
-  return dq<true, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                        static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
-                        static_cast<const bf16*>(g), bias, static_cast<bf16*>(dq_), dd,
-                        dbias, N, BH, T, D, H, scale, stream);
-}
-
-extern "C" int flash_dkv_bias_bf16(const void* q, const void* k, const void* v,
-                                   const float* lse, const void* g, const float* dd,
-                                   const float* bias, void* dk, void* dv, int N, int BH,
-                                   int T, int D, int H, float scale, void* stream) {
-  return dkv<true, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v), lse, static_cast<const bf16*>(g), dd,
-                         bias, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, BH, T, D,
-                         H, scale, stream);
-}

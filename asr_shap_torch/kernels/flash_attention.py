@@ -36,12 +36,15 @@ the cotangent into the kernels' leading dimension; a ctypes launch cannot
 see a batched tensor.
 
 bf16 q, k, v (the model's ``dtype="bfloat16"``) launch the bf16 entry
-points of the same source, with either bias kind: the float32 templates
-reading and writing bf16 (o, dq, dk, dv in the inputs' dtype; lse, dd, the
-mask, the full bias and d(bias) float32, as the reference kernels take
-and write them), with the products whose operand is bf16 on one TF32 mma
-fewer (a bf16 value is exact in TF32). The plain versions compute in
-float32 from the upcast inputs and round each bf16 output once, as the
+points, with either bias kind: o, dq, dk, dv in the inputs' dtype; lse,
+dd, the mask, the full bias and d(bias) float32, as the reference kernels
+take and write them. The bf16 forward is the float32 template reading and
+writing bf16, with the products whose operand is bf16 on one TF32 mma
+fewer (a bf16 value is exact in TF32). The bf16 backward
+(``csrc/flash_bwd_bf16.cu``) keeps its shared rows in bf16 and runs
+m16n8k16 bf16 products: one per step for two bf16 operands, two for a
+float32 operand (p, ds) split by ``bf16_split``. The plain versions compute
+in float32 from the upcast inputs and round each bf16 output once, as the
 reference kernels do.
 """
 
@@ -57,7 +60,7 @@ from asr_shap_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# each entry point's C signature (csrc/flash_attention.cu)
+# each entry point's C signature (csrc/flash_attention.cu, flash_bwd_bf16.cu)
 _ARGTYPES = {
     "flash_fwd_f32": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     "flash_fwd_bf16": (_P,) * 6 + (_I,) * 5 + (_F, _P),
@@ -78,6 +81,9 @@ _ARGTYPES = {
 # T = 149; 32 for BH = 16.
 FWD_ROWS = (16, 32)
 _sm_count: dict = {}
+# the library of each entry point that is not in csrc/flash_attention.cu
+_LIBRARY = dict.fromkeys(("flash_dq_bf16", "flash_dkv_bf16", "flash_dq_dbias_bf16",
+                          "flash_dkv_bias_bf16"), "flash_bwd_bf16")
 
 
 # ------------------------------------------------------------ plain versions
@@ -157,6 +163,16 @@ def flash_dkv_plain(q, k, v, lse, g, dd, bias, heads
     return dk.reshape(shape).to(dtypes[0]), dv.reshape(shape).to(dtypes[1])
 
 
+def bf16_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = x rounded to bf16 (to nearest, ties to even) and
+    lo = x - hi rounded to bf16, both returned as float32: the two bf16
+    terms by which the bf16 backward kernels take a float32 operand (p, ds)
+    into a tensor-core product, lo.b + hi.b (16 mantissa bits of x)."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 # the dtypes the kernels take for q, k, v, o and g
@@ -221,7 +237,7 @@ def _entry(kernel: str, full_kernel: Optional[str], q, bias) -> Tuple[str, str]:
 def _launch(name: str, counter: str, *args) -> None:
     """Call entry point ``name`` of the flash library (resolved once) with
     ``args`` and count the launch under ``counter``; raise on a CUDA error."""
-    rc = _build.c_function("flash_attention", name, _ARGTYPES[name])(*args)
+    rc = _build.c_function(_LIBRARY.get(name, "flash_attention"), name, _ARGTYPES[name])(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
     _build.LAUNCHES[counter] += 1

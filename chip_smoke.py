@@ -14,7 +14,10 @@ K1-K4) and the bf16 conformer (the conformer with the same numerics: the
 bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
-   asr_shap_torch/csrc with nvcc, one process per source, all at once;
+   asr_shap_torch/csrc with nvcc, one process per source, all at once; log
+   each bf16 backward kernel's registers, spills, shared memory and blocks
+   per SM, and check its SASS: bf16 m16n8k16 tensor-core products
+   (HMMA.16816.F32.BF16) and no other, so no TF32 product;
 2. hold each kernel against its plain PyTorch version on the card, float32,
    at its path's shapes, with the tolerance stated beside it (the full-bias
    kernels with a rel-pos-like bias, and with the same bias masked; the
@@ -67,7 +70,8 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    kernel; one draw through the bf16 kernels, through plain bf16 PyTorch
    and in float32 ("phi bf16" lines, with the |phi| checksum's moves);
    each bf16 kernel's times beside its bound at the bf16 rate, its plain
-   version and a bf16 library call; the bf16 slice per draw; and
+   version and a bf16 library call (for the backward, the SDPA backend
+   that ran, named from its device kernels); the bf16 slice per draw; and
    ``python -m asr_shap_torch bench --attn pallas`` at its bf16 defaults
    ("cli bench" lines). Its JSON entries are K1-bf16 to K4-bf16;
 8. the bf16 conformer, last: K2f, K3b and K4f in bf16 against their plain
@@ -77,13 +81,15 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    run_shap_pipeline with the exact launch counts of its four kernels and
    no other kernel; the three-way draw ("phi bf16 conformer" lines); each
    kernel's times beside its bound at the bf16 rate, its plain version and
-   SDPA in bf16 with a bf16 mask; the depthwise conv's dgrad in the
-   library's bf16 and on float32 copies; the slice per draw beside the
+   SDPA in bf16 with a bf16 mask (its backend named); the depthwise conv's
+   dgrad in the library's bf16 and on float32 copies; the slice per draw beside the
    float32 conformer's; and ``run-shap`` then ``sweep`` on the trained
    conformer archive switched to bf16 ("cli conformer bf16" lines). Its
    JSON entries are K2f-bf16, K3b-bf16 and K4f-bf16.
 
-Prints one JSON line of per-kernel numbers, then as the last line
+Prints one JSON line of per-kernel numbers (the rows of the four bf16
+backward kernels also with their registers and blocks per SM), then as the
+last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without a CUDA device.
 """
@@ -91,13 +97,16 @@ non-zero and prints no result; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -158,11 +167,11 @@ ROUTES = {
     "flash_dkv_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
     "conv_dgrad_bf16": ("asr_shap_torch/csrc/conv_dgrad.cu", "asr_shap/kernels/conv_dgrad.py:150"),
     "flash_fwd_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
-    "flash_dq_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
-    "flash_dkv_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
+    "flash_dq_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:247"),
+    "flash_dkv_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:282"),
     "flash_fwd_bias_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
-    "flash_dq_dbias_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
-    "flash_dkv_bias_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
+    "flash_dq_dbias_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:247"),
+    "flash_dkv_bias_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:282"),
 }
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
@@ -366,7 +375,58 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line or "entry function" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    return smi
+    return smi, check_bf16_backward_build(paths["flash_bwd_bf16"])
+
+
+# the bf16 backward kernels in flash_bwd_bf16_info's order: counter, and the
+# shared memory per block of the float32 template each one replaced, KB
+BF16_BWD_KERNELS = (("flash_dq_bf16", 224), ("flash_dq_dbias_bf16", 224),
+                    ("flash_dkv_bf16", 173), ("flash_dkv_bias_bf16", 173))
+
+
+def check_bf16_backward_build(lib: Path) -> dict:
+    """The bf16 backward kernels as built, at D = 64 and 32: each one's
+    registers, spilled bytes, shared memory per block and blocks per SM
+    (``flash_bwd_bf16_info``), its shared memory under half the float32
+    template's; and their SASS (``cuobjdump -sass`` of the library, from the
+    toolkit that built it): every instantiation runs bf16 m16n8k16
+    tensor-core products (HMMA.16816.F32.BF16) and no other HMMA, so no TF32
+    product. Returns each kernel's registers and blocks per SM at D = 64,
+    the JSON line's fields."""
+    info_fn = _build.c_function("flash_bwd_bf16", "flash_bwd_bf16_info",
+                                (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    fields = {}
+    for d in (64, 32):
+        for index, (counter, f32_kb) in enumerate(BF16_BWD_KERNELS):
+            name = BF16_NAMES[counter]
+            info = (ctypes.c_int * 4)()
+            check(info_fn(index, d, ctypes.addressof(info)) == 0, f"{name}: info failed")
+            regs, spilled, smem, per_sm = info
+            if d == 64:
+                fields[counter] = {"registers": regs, "blocks_per_sm": per_sm}
+            log(f"kernel {name} D={d}: {regs} registers, {spilled} bytes spilled, {smem} bytes "
+                f"of shared memory per block (float32 template {f32_kb} KB), {per_sm} blocks "
+                "per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+            check(smem < f32_kb * 1024 / 2, f"{name} D={d}: {smem} bytes of shared memory, not "
+                  f"under half the float32 template's {f32_kb} KB")
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    check(cuobjdump.exists(), f"{cuobjdump} not found: the SASS check cannot run")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    seen = 0
+    for body in re.split(r"Function : ", sass)[1:]:
+        fn = body.split(maxsplit=1)[0]
+        if "flash_dq_bf16_kernel" not in fn and "flash_dkv_bf16_kernel" not in fn:
+            continue
+        seen += 1
+        hmma = [line for line in body.splitlines() if "HMMA" in line]
+        bf16 = sum("HMMA.16816.F32.BF16" in line for line in hmma)
+        log(f"sass {fn}: {bf16} HMMA.16816.F32.BF16 of {len(hmma)} HMMA")
+        check(bf16 > 0 and bf16 == len(hmma),
+              f"sass {fn}: not only bf16 m16n8k16 tensor-core products")
+    check(seen == 2 * len(BF16_BWD_KERNELS), f"sass: {seen} bf16 backward kernels in {lib}, "
+          f"{2 * len(BF16_BWD_KERNELS)} expected")
+    return fields
 
 
 def k1_float64_check(gen, b, k, s, ci, co, ti, to, dtype=torch.float32) -> dict:
@@ -482,7 +542,8 @@ def check_bwd_shapes(gen, h: int, full: bool = False, dtype=torch.float32) -> di
     with the last 200 masked (several chunks); and D = 32. With a full bias
     d(bias) is compared too, and must be exactly 0 on masked keys. In bf16
     (q, k, v, g rounded to bf16; the bias float32) also D = 32 at T = 312,
-    the study archive's shape, and each bf16 output to one bf16 ulp."""
+    the study archive's shape, and T = 160, and each bf16 output to one bf16
+    ulp."""
     why = "float32 backward sums over T keys, another summation order"
     dq_name, dkv_name = bwd_kernel_names(full, dtype)
     errs = {dq_name: 0.0, dkv_name: 0.0}
@@ -490,8 +551,8 @@ def check_bwd_shapes(gen, h: int, full: bool = False, dtype=torch.float32) -> di
     cases = [(1, 149, 64, 1, [120]), (1, 149, 64, 37, [120]),
              (5, 149, 64, 8, [149, 131, 100, 77, 16]), (1, 100, 64, 8, [71]),
              (1, 500, 64, 8, [300]), (1, 149, 32, 8, [120])]
-    if dtype == BF16:
-        cases.append((1, 312, 32, 8, [290]))
+    if dtype == BF16:  # T = 160: K3b's last d(bias) tile of 32 keys spans 9 units of a row
+        cases += [(1, 312, 32, 8, [290]), (1, 160, 64, 8, [131])]
     for b, t, d, v_rows, lengths in cases:
         for masked in (False, True):
             q, k, v, _, g = (None if x is None else x.to(dtype)
@@ -967,7 +1028,8 @@ def phase_cli(base_archive: str, data_dir: str):
 
 PROFILE_GROUPS = (
     ("port kernels", ("dgrad_kernel", "dgrad_bf16_kernel", "flash_fwd_kernel",
-                      "flash_dq_mma_kernel", "flash_dkv_mma_kernel")),
+                      "flash_dq_mma_kernel", "flash_dkv_mma_kernel", "flash_dq_bf16_kernel",
+                      "flash_dkv_bf16_kernel")),
     ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft", "depthwise")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
 )
@@ -1112,6 +1174,37 @@ def phase_timing(cfg: PipelineConfig, params, test_set):
 
     per_draw, _ = time_slice("base", cfg, params, test_set, gen, out)
     return out, per_draw
+
+
+# SDPA's backends, by a word of the names of their aten ops and device
+# kernels (cuDNN's kernel names also hold "flash", so it is looked for first)
+SDPA_BACKENDS = (("cudnn", "cuDNN attention"), ("flash", "flash attention"),
+                 ("efficient", "memory-efficient attention"),
+                 ("fmha", "memory-efficient attention"))
+
+
+def sdpa_backend(label: str, fn) -> str:
+    """The SDPA backend that one call of ``fn`` ran, read from the names of
+    its aten ops and device kernels under torch.profiler (the op names are
+    there when the profiler drops a short window's device records); logs
+    the attention ops and the three longest device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    names = [e.key for e in events]
+    backend = next((what for word, what in SDPA_BACKENDS
+                    if any(word in n.lower() for n in names)), "none of the fused backends")
+    ops = sorted({n for n in names if "attention" in n.lower() and n.startswith("aten::")})
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    log(f"sdpa {label}: {backend}; its aten ops {ops}; its longest device kernels "
+        f"{[(round(e.self_device_time_total / 1e3, 4), e.key[:100]) for e in kernels[:3]]} (ms)")
+    return backend
 
 
 def host_ms(fn):
@@ -1502,6 +1595,8 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
     oe = F.scaled_dot_product_attention(qe, ke, ve)
     g4 = g.reshape(rows, h, t, d)
     lib_bwd = time_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve), g4, retain_graph=True), 10)
+    backend = sdpa_backend("bf16 backward, no mask", lambda: torch.autograd.grad(
+        oe, (qe, ke, ve), g4, retain_graph=True))
     for name, fn, pfn in (
         ("flash_dq_bf16", lambda: fa.flash_dq(q, k, v, o, lse, g, None, h),
          lambda: fa.flash_dq_plain(q, k, v, o, lse, g, None, h)),
@@ -1512,8 +1607,8 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
         fl, nb = costs[name]
         b_ms, b_by = bound_bf16(fl, nb)
         log(f"timing {name} N={rows * h} T={t}: ms={ms:.4f} "
-            f"plain_ms={pms:.4f} library_ms(SDPA bf16 backward, dq+dk+dv)={lib_bwd:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) TFLOP/s={fl / ms / 1e9:.2f}")
+            f"plain_ms={pms:.4f} library_ms(SDPA bf16 backward, {backend}, dq+dk+dv)="
+            f"{lib_bwd:.4f} bound_ms={b_ms:.4f} ({b_by}) TFLOP/s={fl / ms / 1e9:.2f}")
         out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
                          bound_by=b_by, library_ms=layers * lib_bwd, device_ms=None)
     pair = out["flash_dq_bf16"]["ms"] + out["flash_dkv_bf16"]["ms"]
@@ -1528,8 +1623,8 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
         per_draw, prof = time_slice("bf16", cfg, params16, test_set, gen, out)
     for name, kname in (("conv_dgrad_bf16", "dgrad_bf16_kernel"),
                         ("flash_fwd_bf16", "flash_fwd_kernel"),
-                        ("flash_dq_bf16", "flash_dq_mma_kernel"),
-                        ("flash_dkv_bf16", "flash_dkv_mma_kernel")):
+                        ("flash_dq_bf16", "flash_dq_bf16_kernel"),
+                        ("flash_dkv_bf16", "flash_dkv_bf16_kernel")):
         seen = [ms for key, ms in prof.items() if kname in key]
         out[name]["device_ms"] = sum(seen) if seen else None
         log(f"timing {name}: device ms per draw {out[name]['device_ms']} (the slice's "
@@ -1653,6 +1748,8 @@ def phase_timing_bf16_conformer(cfg: PipelineConfig, params16, test_set):
     oe = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be)
     lib_bwd = time_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve, be), g4, retain_graph=True),
                       10)
+    backend = sdpa_backend("bf16 backward, bf16 float mask", lambda: torch.autograd.grad(
+        oe, (qe, ke, ve, be), g4, retain_graph=True))
     del oe
     lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qe, ke, ve, attn_mask=be), (qe, ke, ve, be), g4), 10)
@@ -1663,10 +1760,10 @@ def phase_timing_bf16_conformer(cfg: PipelineConfig, params16, test_set):
         ("flash_fwd_bias_bf16", None, None, lib_fwd, "SDPA bf16 forward, bf16 mask"),
         ("flash_dq_dbias_bf16", lambda: fa.flash_dq(q, k, v, o, lse, g, bias, h),
          lambda: fa.flash_dq_plain(q, k, v, o, lse, g, bias, h), lib_bwd,
-         "SDPA bf16 backward, dq+dk+dv+d(mask)"),
+         f"SDPA bf16 backward, {backend}, dq+dk+dv+d(mask)"),
         ("flash_dkv_bias_bf16", lambda: fa.flash_dkv(q, k, v, lse, g, dd, bias, h),
          lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd, bias, h), lib_bwd,
-         "SDPA bf16 backward, dq+dk+dv+d(mask)"),
+         f"SDPA bf16 backward, {backend}, dq+dk+dv+d(mask)"),
     ):
         fl, nb = costs[name]
         b_ms, b_by = bound_bf16(fl, nb)
@@ -1695,8 +1792,8 @@ def phase_timing_bf16_conformer(cfg: PipelineConfig, params16, test_set):
     with matmul_precision_scope(mc.matmul_precision):
         per_draw, prof = time_slice("bf16 conformer", cfg, params16, test_set, gen, out)
     for name, kname in (("flash_fwd_bias_bf16", "flash_fwd_kernel"),
-                        ("flash_dq_dbias_bf16", "flash_dq_mma_kernel"),
-                        ("flash_dkv_bias_bf16", "flash_dkv_mma_kernel")):
+                        ("flash_dq_dbias_bf16", "flash_dq_bf16_kernel"),
+                        ("flash_dkv_bias_bf16", "flash_dkv_bf16_kernel")):
         seen = [ms for key, ms in prof.items() if kname in key]
         out[name]["device_ms"] = sum(seen) if seen else None
         log(f"timing {name}: device ms per draw {out[name]['device_ms']} (the slice's "
@@ -1775,7 +1872,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
               "CUDA device", file=sys.stderr)
         return 1
-    smi = phase_build()
+    smi, build_fields = phase_build()
     model = Wav2Vec2Config(attention_impl="pallas", conv_impl="pallas")
     conformer = Wav2Vec2ConformerConfig(attention_impl="pallas", conv_impl="pallas")
     explainer = ExplainerConfig(nsamples=NSAMPLES, method="grad", aggregation="max",
@@ -1819,6 +1916,8 @@ def main() -> int:
             conformer16, explainer, test_set, data_dir, c32_per_draw, c32_cli_records)
         errs.update(c_errs)
         extra.update(c_extra)
+        for name, fields in build_fields.items():
+            extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)
                    + kernel_rows(cout, errs, extra, claunches)
                    + kernel_rows(bout, errs, extra, blaunches)

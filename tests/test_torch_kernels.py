@@ -232,6 +232,64 @@ def test_flash_backward_3xtf32_keeps_the_card_checks_tolerance(rng, full, masked
     assert all(excess(x, want) > 0 for x, want in list(zip(one_product, ref))[:held])
 
 
+def _mm_bf16_split(a, b):
+    """a @ b as the bf16 backward kernels take it, b bf16-valued: a split by
+    ``bf16_split`` into two bf16 terms, lo.b + hi.b, in float32 (a bf16 a
+    has lo = 0: one bf16 product)."""
+    hi, lo = fa.bf16_split(a)
+    return lo @ b + hi @ b
+
+
+def _mm_bf16_one(a, b):
+    """a @ b with a rounded to one bf16 term (hi alone)."""
+    return fa.bf16_split(a)[0] @ b
+
+
+@pytest.mark.parametrize("full,masked", [
+    pytest.param(False, False, id="False"), pytest.param(False, True, id="True"),
+    pytest.param(True, False, id="full-False"), pytest.param(True, True, id="full-True")])
+def test_flash_backward_bf16_split_keeps_the_card_checks_gate(rng, full, masked):
+    """The numeric contract of the bf16 K3 and K4 (and of K3b and K4f, with
+    a full bias): q, k, v, g and o rounded to bf16; bf16 x bf16 products
+    (the scores, dP) in float32; p, p^T and ds split by ``bf16_split`` into
+    two bf16 terms for dq, dk and dv. Against float64 on the same bf16
+    inputs, dq, dk and dv rounded to bf16 stay within 1.25x the plain
+    version's error (the plain version: float32 products, outputs rounded
+    to bf16) and d(bias) = ds within 2x: the card check's gates
+    (``chip_smoke.py``, BF16_F64_RATIO and BF16_F32_OUT_RATIO). With p and
+    ds rounded to one bf16 term, an output of each case exceeds 1.25x.
+    T = 149, D = 64; BH = 2 with 4 cotangent rows per residual row; the bias
+    a key mask of zeros or a unit-normal [BH, T, T] score bias; ``masked``:
+    the last 29 keys at -1e9."""
+    bh, t, d, rows = 2, 149, 64, 4
+    r16 = lambda shape: _t(rng.standard_normal(shape)).to(torch.bfloat16).float()
+    q, k, v = (r16((bh, t, d)) for _ in range(3))
+    g = r16((rows, bh, t, d))
+    bias = _t(rng.standard_normal((bh, t, t))) if full else torch.zeros(t)
+    if masked:
+        bias[..., t - 29:] = -1e9
+    o64, lse64 = fa.flash_fwd_plain(q.double(), k.double(), v.double(),
+                                    bias.double() if full else bias.double()[None], bh)
+    o64 = o64.to(torch.bfloat16).double()  # the kernels take o in bf16
+    ref = _flash_backward(q.double(), k.double(), v.double(), o64, lse64, g.double(),
+                          bias.double(), torch.matmul, torch.matmul)
+    args = (q, k, v, o64.float(), lse64.float(), g, bias)
+    runs = {"two": _flash_backward(*args, torch.matmul, _mm_bf16_split),
+            "one": _flash_backward(*args, torch.matmul, _mm_bf16_one),
+            "plain": _flash_backward(*args, torch.matmul, torch.matmul)}
+
+    def err(run, i):  # dq, dk, dv rounded to bf16 as the kernels store them
+        x = runs[run][i]
+        x = x.to(torch.bfloat16) if i < 3 else x
+        return float((x.double() - ref[i]).abs().max())
+
+    for i in range(3):
+        assert err("two", i) <= 1.25 * err("plain", i)
+    if full:  # d(bias) = ds is an output only with a full bias
+        assert err("two", 3) <= 2 * err("plain", 3)
+    assert max(err("one", i) / err("plain", i) for i in range(3)) > 1.25
+
+
 def _full_bias(rng, shape, masked_keys=0):
     """A random score bias; the last ``masked_keys`` keys of batch entry 0
     get -1e9, as the conformer's rel + mask does on a padded clip."""
@@ -351,12 +409,12 @@ def test_build_starts_one_nvcc_per_source_and_reuses_libraries(tmp_path, monkeyp
             _build.build_all()
         return
     paths = _build.build_all()
-    assert sorted(paths) == ["conv_dgrad", "flash_attention"]
+    assert sorted(paths) == ["conv_dgrad", "flash_attention", "flash_bwd_bf16"]
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     lines = calls.read_text().splitlines()
-    assert len(lines) == 2 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
+    assert len(lines) == 3 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
     assert _build.build_all() == paths
-    assert len(calls.read_text().splitlines()) == 2
+    assert len(calls.read_text().splitlines()) == 3
 
 
 @pytest.mark.parametrize("shape", [(2, 16), (2, 1, 16)])
