@@ -42,21 +42,8 @@
 // Sums are stored from registers at the phase-interleaved address, in
 // 16-byte stores after a swap between neighbouring lanes.
 //
-// bf16 (dgrad_bf16_kernel, entry conv1d_dgrad_bf16): ybar, w and xbar in
-// bf16, the sum in float32 and xbar rounded once, as the TPU kernel's
-// float32 accumulator cast to ybar's dtype. The product of two bf16 values
-// is exact in float32, so one mma.sync.m16n8k16 bf16 with a float32
-// accumulator is the reference's float32 dot of the upcast operands: no
-// split. Its bound is ops / 989 TFLOP/s (bf16 dense). The layout is the
-// float32 kernel's, in bf16: the same 128 x 128 block and warp tiles, and a
-// reduction step of 64 bf16 (the same 128-byte tile rows and 16-byte
-// chunks, so the same swizzle and cp.async ring; 8 bf16 per copy). Here the
-// sums stay inside the mma: its rounding toward zero adds about 2^-23 of
-// the sum per 16-wide step, some 2^-17 over a layer's reduction, far under
-// the 2^-9 of the final rounding to bf16 (chip_smoke.py holds the kernel
-// to at most 1.25x the plain version's error against float64).
+// The bf16 kernel of the same function is in conv_dgrad_bf16.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -247,160 +234,6 @@ dgrad_kernel(const float* __restrict__ ybar, const float* __restrict__ w,
   }
 }
 
-// ------------------------------------------------------------------ bf16
-
-constexpr int BK16 = 64;  // reduction step over C_out, in bf16
-constexpr int TILE_BF16 = BM * BK16;
-static_assert(TILE_BF16 * 2 == TILE_FLOATS * 4, "bf16 tiles take the float32 ring");
-
-// Offset of (row, col) in a [rows][BK16] bf16 tile: 8 chunks of 16 bytes per
-// row, XOR-swizzled by the row's low three bits (swz in bf16 units).
-__device__ __forceinline__ int swz16(int row, int col) {
-  return row * BK16 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // a in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-dgrad_bf16_kernel(const __nv_bfloat16* __restrict__ ybar, const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ xbar, int B, int T_out, int T_in, int C_out,
-                  int C_in, int K, int S, int V) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem16[];  // [STAGES][A tile, B tile]
-  __shared__ int2 rows_bv[BM];
-
-  const int per_tile = (C_in / BN) * S;
-  const long long m0 = (long long)(blockIdx.x / per_tile) * BM;
-  const int r = blockIdx.x % per_tile / (C_in / BN);
-  const int n0 = blockIdx.x % (C_in / BN) * BN;
-  const long long M = (long long)B * V;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * WM, wn = (warp & 1) * WN;
-
-  for (int i = tid; i < BM; i += THREADS) {
-    const long long m = m0 + i;
-    rows_bv[i] = m < M ? make_int2((int)(m / V) * T_out, (int)(m % V))
-                       : make_int2(0, -(1 << 30));
-  }
-  __syncthreads();
-
-  constexpr int LROWS = BM * (BK16 / 8) / THREADS;  // 8 rows per thread
-  const int lchunk = tid & 7;
-  const int lrow0 = tid >> 3;
-
-  const int ntaps = r < K ? (K - 1 - r) / S + 1 : 0;
-  const int steps_per_tap = C_out / BK16;
-  const int nsteps = ntaps * steps_per_tap;
-  const uint32_t smem0 = (uint32_t)__cvta_generic_to_shared(smem16);
-
-  auto load = [&](int step, int slot) {
-    const int d = step / steps_per_tap;
-    const int co0 = (step % steps_per_tap) * BK16 + lchunk * 8;
-    const int k = d * S + r;
-    const uint32_t a_s = smem0 + (uint32_t)(slot * 2 * TILE_BF16) * 2u;
-    const uint32_t b_s = a_s + (uint32_t)TILE_BF16 * 2u;
-#pragma unroll
-    for (int i = 0; i < LROWS; ++i) {
-      const int row = lrow0 + 16 * i;
-      const int2 bv = rows_bv[row];
-      const int u = bv.y - d;
-      const bool ok = u >= 0 && u < T_out;
-      const __nv_bfloat16* src = ok ? ybar + ((long long)bv.x + u) * C_out + co0 : ybar;
-      const uint32_t off = (uint32_t)swz16(row, lchunk * 8) * 2u;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a_s + off),
-                   "l"(src), "r"(ok ? 16 : 0));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, 16;\n" ::"r"(b_s + off),
-                   "l"(w + ((long long)k * C_in + n0 + row) * C_out + co0));
-    }
-  };
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load(s, s);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-
-  for (int step = 0; step < nsteps; ++step) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();
-    const int next = step + STAGES - 1;
-    if (next < nsteps) load(next, next % STAGES);
-    asm volatile("cp.async.commit_group;\n" ::);
-
-    const __nv_bfloat16* As = smem16 + (step % STAGES) * 2 * TILE_BF16;
-    const __nv_bfloat16* Bs = As + TILE_BF16;
-#pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      // m16n8k16 fragments: each register holds the bf16 pair (k, k + 1),
-      // k = 2t (+ 8); A rows g and g + 8, B column g (PTX ISA, .bf16)
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int row = wm + i * 16 + g;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(As + swz16(row, kk + 2 * t));
-        a[i][1] = *reinterpret_cast<const uint32_t*>(As + swz16(row + 8, kk + 2 * t));
-        a[i][2] = *reinterpret_cast<const uint32_t*>(As + swz16(row, kk + 8 + 2 * t));
-        a[i][3] = *reinterpret_cast<const uint32_t*>(As + swz16(row + 8, kk + 8 + 2 * t));
-      }
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int col = wn + j * 8 + g;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(Bs + swz16(col, kk + 2 * t));
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(Bs + swz16(col, kk + 8 + 2 * t));
-#pragma unroll
-        for (int i = 0; i < MI; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
-      }
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-
-  // Epilogue as the float32 kernel's: after the swap between neighbouring
-  // lanes each stores 4 channels of one row, 8 bytes of bf16.
-  const bool odd = t & 1;
-  const int ccol = wn + 2 * (t & ~1);
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const long long m = m0 + wm + i * 16 + g + (odd ? 8 : 0);
-    __nv_bfloat16* out = nullptr;
-    if (m < M) {
-      const int b = (int)(m / V);
-      const int tt = (int)(m % V) * S + r;
-      if (tt < T_in) out = xbar + ((long long)b * T_in + tt) * C_in + n0 + ccol;
-    }
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const float* c = acc[i][j];
-      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
-      if (out != nullptr) {
-        *reinterpret_cast<uint2*>(out + j * 8) =
-            odd ? make_uint2(pack_bf16(r0, r1), pack_bf16(c[2], c[3]))
-                : make_uint2(pack_bf16(c[0], c[1]), pack_bf16(r0, r1));
-      }
-    }
-  }
-}
-
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). ybar, w and xbar must
@@ -424,30 +257,5 @@ extern "C" int conv1d_dgrad_f32(const float* ybar, const float* w, float* xbar,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dgrad_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       ybar, w, xbar, B, T_out, T_in, C_out, C_in, K, S, V);
-  return (int)cudaGetLastError();
-}
-
-// The bf16 kernel: ybar, w and xbar bf16, 16-byte aligned; C_in a multiple of
-// 128 and C_out of 64.
-extern "C" int conv1d_dgrad_bf16(const void* ybar, const void* w, void* xbar, int B,
-                                 int T_out, int T_in, int C_out, int C_in, int K, int S,
-                                 void* stream) {
-  if (C_in % BN != 0 || C_out % BK16 != 0 || S < 1 || K < 1 || B < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dgrad_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  const int V = (T_in + S - 1) / S;
-  const long long M = (long long)B * V;
-  const long long blocks = (M + BM - 1) / BM * (C_in / BN) * S;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dgrad_bf16_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(ybar), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(xbar), B, T_out, T_in, C_out, C_in, K, S, V);
   return (int)cudaGetLastError();
 }

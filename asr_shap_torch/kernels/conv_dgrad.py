@@ -29,11 +29,13 @@ halo rows ``v - d`` outside the clip; the phase interleave is the store
 address (see the source note).
 
 bf16 ybar and W (the model's ``dtype="bfloat16"``) launch the bf16 kernel
-of the same source: the same tiles in bf16, one ``mma.sync`` m16n8k16 bf16
-per product with a float32 sum (a product of two bf16 values is exact in
-float32), and xbar rounded to bf16 once, as the reference's float32
-accumulator cast to ybar's dtype. Its bound is its operations at the
-card's 989 TFLOP/s bf16 rate.
+of ``csrc/conv_dgrad_bf16.cu``, its own library: ``wgmma`` m64n128k16 bf16
+products with float32 sums (a product of two bf16 values is exact in
+float32) fed by TMA through a ring of shared-memory tiles, one persistent
+block per SM taking 128 rows v of one clip, 128 input channels and both
+phases of a stride-2 layer at once, and xbar rounded to bf16 once, as the
+reference's float32 accumulator cast to ybar's dtype. Its bound is its
+operations at the card's 989 TFLOP/s bf16 rate.
 
 The forward of the eligible layers stays ``F.conv1d``, as the reference
 leaves it to ``lax.conv``. ``ConvDgrad`` carries a ``vmap`` rule that folds
@@ -111,9 +113,9 @@ def _check(ybar: torch.Tensor, kernel: torch.Tensor, stride: int, t_in: int):
 
 
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
-# the entry point and launch counter of each dtype the kernels take
-_ENTRIES = {torch.float32: ("conv1d_dgrad_f32", "conv_dgrad"),
-            torch.bfloat16: ("conv1d_dgrad_bf16", "conv_dgrad_bf16")}
+# the library, entry point and launch counter of each dtype the kernels take
+_ENTRIES = {torch.float32: ("conv_dgrad", "conv1d_dgrad_f32", "conv_dgrad"),
+            torch.bfloat16: ("conv_dgrad_bf16", "conv1d_dgrad_bf16", "conv_dgrad_bf16")}
 
 
 def conv1d_dgrad(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
@@ -145,8 +147,10 @@ def conv1d_dgrad(ybar: torch.Tensor, kernel: torch.Tensor, stride: int,
     out = torch.empty((b, t_in, c_in), device=ybar.device, dtype=ybar.dtype)
     if out.numel() == 0:
         return out
-    fn_name, counter = entry
-    fn = _build.c_function("conv_dgrad", fn_name, _ARGTYPES)
+    if t_out == 0:  # no tap reaches any row
+        return out.zero_()
+    lib, fn_name, counter = entry
+    fn = _build.c_function(lib, fn_name, _ARGTYPES)
     rc = fn(ybar.data_ptr(), kernel.data_ptr(), out.data_ptr(), b, t_out, t_in,
             c_out, c_in, k_taps, stride, _build.stream_of(ybar))
     if rc != 0:

@@ -17,7 +17,9 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    asr_shap_torch/csrc with nvcc, one process per source, all at once; log
    each bf16 backward kernel's registers, spills, shared memory and blocks
    per SM, and check its SASS: bf16 m16n8k16 tensor-core products
-   (HMMA.16816.F32.BF16) and no other, so no TF32 product;
+   (HMMA.16816.F32.BF16) and no other, so no TF32 product; the same for
+   the bf16 K1 (csrc/conv_dgrad_bf16.cu), whose SASS must hold bf16
+   warpgroup products (HGMMA ... F32.BF16) and no HMMA;
 2. hold each kernel against its plain PyTorch version on the card, float32,
    at its path's shapes, with the tolerance stated beside it (the full-bias
    kernels with a rel-pos-like bias, and with the same bias masked; the
@@ -63,9 +65,12 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    timing); forward plus backward is logged beside it;
 7. the bf16 path, after the others: K1-K4 in bf16 against their plain
    versions at its shapes (each bf16 output within one bf16 ulp, lse and dd
-   at the float32 tolerances; K2-K4 also at D = 32, T = 312, and over the
+   at the float32 tolerances; K1 also at 144 edge shapes: 1 and 3 clips,
+   T_out 1-300, (K, s) (3, 2), (2, 2), (5, 3), three channel pairs, rows
+   past the taps' reach; K2-K4 also at D = 32, T = 312, and over the
    backward's shape sweep) and against float64 on the same bf16 inputs (at
-   most 1.25x the plain version's error; lse 2x); run_shap_pipeline with
+   most 1.25x the plain version's error, K1 at each of its main-path and
+   edge shapes; lse 2x); run_shap_pipeline with
    the exact launch counts of its bf16 kernels and none of a float32
    kernel; one draw through the bf16 kernels, through plain bf16 PyTorch
    and in float32 ("phi bf16" lines, with the |phi| checksum's moves);
@@ -87,9 +92,9 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    conformer archive switched to bf16 ("cli conformer bf16" lines). Its
    JSON entries are K2f-bf16, K3b-bf16 and K4f-bf16.
 
-Prints one JSON line of per-kernel numbers (the rows of the four bf16
-backward kernels also with their registers and blocks per SM), then as the
-last line
+Prints one JSON line of per-kernel numbers (the rows of the bf16 K1 and
+the four bf16 backward kernels also with their registers and blocks per SM),
+then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without a CUDA device.
 """
@@ -100,6 +105,7 @@ import contextlib
 import ctypes
 import dataclasses
 import io
+import itertools
 import json
 import re
 import subprocess
@@ -165,7 +171,8 @@ ROUTES = {
     "flash_fwd_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
     "flash_dq_dbias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:247"),
     "flash_dkv_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
-    "conv_dgrad_bf16": ("asr_shap_torch/csrc/conv_dgrad.cu", "asr_shap/kernels/conv_dgrad.py:150"),
+    "conv_dgrad_bf16": ("asr_shap_torch/csrc/conv_dgrad_bf16.cu",
+                        "asr_shap/kernels/conv_dgrad.py:150"),
     "flash_fwd_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
     "flash_dq_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:247"),
     "flash_dkv_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:282"),
@@ -373,9 +380,49 @@ def phase_build():
     log(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
     for name in paths:
         for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line or "entry function" in line:
+            if any(key in line for key in ("Used", "spill", "entry function", "wgmma")):
                 log(f"ptxas {name}: {line.strip()}")
-    return smi, check_bf16_backward_build(paths["flash_bwd_bf16"])
+    fields = check_bf16_backward_build(paths["flash_bwd_bf16"])
+    fields["conv_dgrad_bf16"] = check_conv_dgrad_bf16_build(paths["conv_dgrad_bf16"])
+    return smi, fields
+
+
+def sass_functions(lib: Path) -> dict:
+    """Each kernel's SASS in ``lib`` (``cuobjdump -sass``, from the toolkit
+    that built it), by its mangled name."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    check(cuobjdump.exists(), f"{cuobjdump} not found: the SASS check cannot run")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return {body.split(maxsplit=1)[0]: body for body in re.split(r"Function : ", sass)[1:]}
+
+
+def check_conv_dgrad_bf16_build(lib: Path) -> dict:
+    """The bf16 K1 as built: its registers, spilled bytes, shared memory per
+    block and blocks per SM (``conv_dgrad_bf16_info``), and its SASS: bf16
+    warpgroup products with float32 sums (HGMMA ... F32.BF16) and no other
+    tensor-core product (no HGMMA of another type, no HMMA). Returns its
+    registers, blocks per SM and shared bytes, the JSON line's fields."""
+    info_fn = _build.c_function("conv_dgrad_bf16", "conv_dgrad_bf16_info", (ctypes.c_void_p,))
+    info = (ctypes.c_int * 4)()
+    check(info_fn(ctypes.addressof(info)) == 0, "K1-bf16: info failed")
+    regs, spilled, smem, per_sm = info
+    log(f"kernel K1-bf16: {regs} registers, {spilled} bytes spilled, {smem} bytes of shared "
+        f"memory per block, {per_sm} blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    bodies = [body for fn, body in sass_functions(lib).items() if "dgrad_bf16_wgmma_kernel" in fn]
+    check(len(bodies) == 1, f"sass: {len(bodies)} bf16 K1 kernels in {lib}, 1 expected")
+    lines = bodies[0].splitlines()
+    hgmma = [line for line in lines if "HGMMA" in line]
+    bf16 = sum(".F32.BF16" in line for line in hgmma)
+    hmma = sum("HMMA" in line for line in lines)
+    log(f"sass dgrad_bf16_wgmma_kernel: {bf16} HGMMA ... F32.BF16 of {len(hgmma)} HGMMA, "
+        f"{hmma} HMMA")
+    for line in hgmma:
+        if ".F32.BF16" not in line:
+            log(f"sass dgrad_bf16_wgmma_kernel, not bf16: {line.strip()}")
+    check(bf16 > 0 and bf16 == len(hgmma) and hmma == 0,
+          "sass dgrad_bf16_wgmma_kernel: not only bf16 warpgroup products")
+    return {"registers": regs, "blocks_per_sm": per_sm, "shared_bytes": smem}
 
 
 # the bf16 backward kernels in flash_bwd_bf16_info's order: counter, and the
@@ -409,13 +456,8 @@ def check_bf16_backward_build(lib: Path) -> dict:
                 "per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
             check(smem < f32_kb * 1024 / 2, f"{name} D={d}: {smem} bytes of shared memory, not "
                   f"under half the float32 template's {f32_kb} KB")
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    check(cuobjdump.exists(), f"{cuobjdump} not found: the SASS check cannot run")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
     seen = 0
-    for body in re.split(r"Function : ", sass)[1:]:
-        fn = body.split(maxsplit=1)[0]
+    for fn, body in sass_functions(lib).items():
         if "flash_dq_bf16_kernel" not in fn and "flash_dkv_bf16_kernel" not in fn:
             continue
         seen += 1
@@ -455,6 +497,50 @@ def k1_float64_check(gen, b, k, s, ci, co, ti, to, dtype=torch.float32) -> dict:
     check(errs["kernel"] <= ratio * errs["plain"],
           f"{k1_name(dtype)}: {what} error over {ratio}x the plain version's against float64")
     return errs
+
+
+# the bf16 K1's edge shapes: clips, output rows, (taps, stride) and
+# (C_in, C_out); each at T_in = the last row a tap reaches, and s - 1 rows
+# past it (rows no tap reaches, zero)
+K1_EDGES = ((1, 3), (1, 2, 7, 300), ((3, 2), (2, 2), (5, 3)),
+            ((128, 128), (256, 512), (512, 384)))
+
+
+def check_k1_bf16_edges(gen):
+    """The bf16 K1 at every edge shape of K1_EDGES (tiles that end ragged
+    inside a clip, one-row clips, a stride of 3 with a phase group of one,
+    rows past the taps' reach): each output within one bf16 ulp of the plain
+    version, and against float64 on the same bf16 inputs at most
+    BF16_F64_RATIO times the plain version's error. Logs one line per
+    (B, K, s, C) over its T_out and T_in; returns the largest error against
+    the plain version and the largest ratio to its float64 error."""
+    worst = worst_ratio = 0.0
+    for b, (k, s), (ci, co) in itertools.product(K1_EDGES[0], K1_EDGES[2], K1_EDGES[3]):
+        group_err = group_ratio = 0.0
+        for to, extra in itertools.product(K1_EDGES[1], sorted({0, s - 1})):
+            ti = (to - 1) * s + k + extra
+            ybar, w = (x.to(BF16) for x in k1_inputs(gen, b, k, ci, co, to))
+            got = k1.conv1d_dgrad(ybar, w, s, ti).float()
+            plain = k1.conv1d_dgrad_plain(ybar, w, s, ti).float()
+            want = k1.conv1d_dgrad_plain(ybar.double(), w.double(), s, ti)
+            label = f"conv_dgrad_bf16 edge B={b} K={k} s={s} C={ci}x{co} T_out={to} T_in={ti}"
+            err = (got - plain).abs()
+            excess = float((err - BF16_RTOL * plain.abs()).max())
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+            check(excess <= BF16_ATOL_REL * float(plain.abs().max()),
+                  f"{label}: over one bf16 ulp from the plain version")
+            e_k = float((got.double() - want).abs().max())
+            e_p = float((plain.double() - want).abs().max())
+            check(e_k <= BF16_F64_RATIO * e_p, f"{label}: error against float64 {e_k:.3e} over "
+                  f"{BF16_F64_RATIO}x the plain version's {e_p:.3e}")
+            group_err = max(group_err, float(err.max()))
+            group_ratio = max(group_ratio, e_k / e_p if e_p else 0.0)
+        log(f"check conv_dgrad_bf16 edges B={b} K={k} s={s} C={ci}x{co} T_out "
+            f"{K1_EDGES[1]}: max_abs_err={group_err:.3e} (one bf16 ulp: rtol {BF16_RTOL:g}, "
+            f"atol {BF16_ATOL_REL:g} x max|plain|); vs float64 ratio to the plain version "
+            f"{group_ratio:.3f} (limit {BF16_F64_RATIO})")
+        worst, worst_ratio = max(worst, group_err), max(worst_ratio, group_ratio)
+    return worst, worst_ratio
 
 
 def k1_name(dtype) -> str:
@@ -1027,7 +1113,7 @@ def phase_cli(base_archive: str, data_dir: str):
 
 
 PROFILE_GROUPS = (
-    ("port kernels", ("dgrad_kernel", "dgrad_bf16_kernel", "flash_fwd_kernel",
+    ("port kernels", ("dgrad_kernel", "dgrad_bf16_wgmma_kernel", "flash_fwd_kernel",
                       "flash_dq_mma_kernel", "flash_dkv_mma_kernel", "flash_dq_bf16_kernel",
                       "flash_dkv_bf16_kernel")),
     ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft", "depthwise")),
@@ -1408,9 +1494,14 @@ def phase_checks_bf16(cfg: Wav2Vec2Config):
             f"conv_dgrad_bf16 B={rows} K={k} s={s} C={ci}x{co} T_out={to}", got,
             k1.conv1d_dgrad_plain(ybar, w, s, ti), 0.0, 0.0, ""))
         del ybar, w, got
-    f64 = k1_float64_check(gen, rows, *shapes[0], dtype=BF16)
-    extra = {"conv_dgrad_bf16": {"err_vs_float64": f64["kernel"],
-                                 "plain_err_vs_float64": f64["plain"]}}
+    # against float64 at every main-path shape: the JSON line takes the
+    # largest errors
+    f64 = [k1_float64_check(gen, rows, *shape, dtype=BF16) for shape in shapes]
+    edge_err, edge_ratio = check_k1_bf16_edges(gen)
+    errs["conv_dgrad_bf16"] = max(errs["conv_dgrad_bf16"], edge_err)
+    extra = {"conv_dgrad_bf16": {"err_vs_float64": max(e["kernel"] for e in f64),
+                                 "plain_err_vs_float64": max(e["plain"] for e in f64),
+                                 "edge_f64_ratio": edge_ratio}}
 
     why_f = "float32 softmax over T keys, another summation order"
     why_b = "float32 backward sums over 149 keys, another summation order"
@@ -1621,7 +1712,7 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
                          (("cuDNN bf16", BF16, 3), ("float32 copies", torch.float32, 10)))
     with matmul_precision_scope(mc.matmul_precision):
         per_draw, prof = time_slice("bf16", cfg, params16, test_set, gen, out)
-    for name, kname in (("conv_dgrad_bf16", "dgrad_bf16_kernel"),
+    for name, kname in (("conv_dgrad_bf16", "dgrad_bf16_wgmma_kernel"),
                         ("flash_fwd_bf16", "flash_fwd_kernel"),
                         ("flash_dq_bf16", "flash_dq_bf16_kernel"),
                         ("flash_dkv_bf16", "flash_dkv_bf16_kernel")):

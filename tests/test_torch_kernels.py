@@ -14,6 +14,7 @@ from asr_shap.kernels.conv_dgrad import conv1d_dgrad as jax_conv1d_dgrad
 from asr_shap.kernels.flash_attention import flash_attention as jax_flash
 from asr_shap.models.wav2vec2 import _conv1d as jax_conv1d
 from asr_shap_torch.kernels import LAUNCHES, _build, conv_dgrad, flash_attention as fa
+from torch_port_configs import bf16_pair
 
 
 def _t(a):
@@ -56,6 +57,30 @@ def test_conv_dgrad_vmapped_rows_match_pallas(rng):
         conv_dgrad.conv1d(_t(x), wt, s).numpy(),
         np.asarray(jax_conv1d(jnp.asarray(x), jnp.asarray(w), stride=s, impl="lax")),
         atol=2e-4, rtol=1e-5)
+
+
+# bf16 conv dgrad: one bf16 ulp (rtol 2^-7, atol 2^-8 x max|ref|), the card
+# check's gate for the bf16 kernel (float32 sums in another order may round
+# to the neighbouring bf16)
+@pytest.mark.parametrize("k,s", [(3, 2), (2, 2), (5, 3)])
+@pytest.mark.parametrize("t_out", [1, 7])
+def test_conv_dgrad_bf16_plain_matches_pallas(rng, k, s, t_out):
+    """The bf16 plain version, which the card holds the bf16 kernel to,
+    against the Pallas kernel in interpret mode on bf16 inputs: 3 clips,
+    tiny T (one output row, and a tile that ends ragged) and s - 1 rows past
+    the taps' reach, which must be zero."""
+    c, b = 128, 3
+    t_in = (t_out - 1) * s + k + s - 1
+    yj, yt = bf16_pair(rng.standard_normal((b, t_out, c)))
+    wj, wt = bf16_pair(rng.standard_normal((k, c, c)) * 0.1)
+    ref = jax_conv1d_dgrad(yj, wj, s, t_in)
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = conv_dgrad.conv1d_dgrad(yt, wt, s, t_in)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, t_in, c)
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, ref, atol=2.0 ** -8 * np.abs(ref).max(), rtol=2.0 ** -7)
+    assert not out[:, (t_out - 1) * s + k:].any()
 
 
 def test_conv_dgrad_wrapper_rejects_what_the_kernel_cannot_take():
@@ -409,12 +434,13 @@ def test_build_starts_one_nvcc_per_source_and_reuses_libraries(tmp_path, monkeyp
             _build.build_all()
         return
     paths = _build.build_all()
-    assert sorted(paths) == ["conv_dgrad", "flash_attention", "flash_bwd_bf16"]
+    assert sorted(paths) == ["conv_dgrad", "conv_dgrad_bf16", "flash_attention",
+                             "flash_bwd_bf16"]
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     lines = calls.read_text().splitlines()
-    assert len(lines) == 3 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
+    assert len(lines) == 4 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
     assert _build.build_all() == paths
-    assert len(calls.read_text().splitlines()) == 3
+    assert len(calls.read_text().splitlines()) == 4
 
 
 @pytest.mark.parametrize("shape", [(2, 16), (2, 1, 16)])
