@@ -1,6 +1,5 @@
 // K2-K4: flash attention forward, dq backward and dk/dv backward, float32,
-// each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f);
-// and the forward (K2, K2f) in bf16 (see "bf16" below).
+// each with a key-mask or no bias, or with a full score bias (K2f, K3b, K4f).
 //
 // Replace the Pallas TPU kernels of asr_shap/kernels/flash_attention.py:
 //   K2  flash_fwd_kernel<D, false>     <- _fwd_kernel (launched by _fwd)
@@ -54,20 +53,11 @@
 // K3b stores each warp's ds tile to d(bias) from the registers it was
 // computed in.
 //
-// bf16 (the flash_fwd_bf16 and flash_fwd_bias_bf16 entry points: K2 and
-// K2f): q, k, v and the output o in bf16; lse, the mask and the full bias
-// stay float32, and everything in between is float32, as in the TPU
-// kernels, which upcast their blocks and cast the result to the input's
-// dtype once. The forward is the float32 template with In = __nv_bfloat16:
-// each bf16 row is widened to float32 as it is stored to shared memory
-// (exact), and o is rounded to bf16 as it is stored. A bf16 value is exact
-// in TF32 (8 of its 10 mantissa bits), so its lo part is zero: q.k^T takes
-// one TF32 mma and p.v two, lo*hi and hi*hi; the products with a zero lo
-// part are not issued (EX below). q is not scaled before the product (that
-// would round it for D = 32): the scale multiplies the float32 scores. The
-// bf16 backward (K3, K4, K3b, K4f) is built for bf16 in flash_bwd_bf16.cu.
+// bf16: the same functions on bf16 q, k, v (o, dq, dk, dv in bf16) are
+// kernels of their own, built for the bf16 tensor cores: the forward (K2,
+// K2f) in flash_fwd_bf16.cu, the backward (K3, K4, K3b, K4f) in
+// flash_bwd_bf16.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,18 +65,6 @@
 #include "flash_common.cuh"
 
 namespace {
-
-// The forward's input element types: float, or __nv_bfloat16, whose values
-// are exact in TF32 (EX: the lo part of their split is zero, so those
-// products are skipped).
-template <typename T> struct Exact { static constexpr bool value = false; };
-template <> struct Exact<__nv_bfloat16> { static constexpr bool value = true; };
-
-__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-// the bf16 in the low / high half of a 32-bit word, as float32 (exact)
-__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 // ------------------------------------------------------------------ K2
 //
@@ -141,11 +119,6 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
 // Rows [row0, row0 + rows) of a row-major [T, D] matrix into shared rows of
 // stride D + 4 floats, 16 bytes per copy; rows past T are zero filled. The
 // copies are dealt out over `nthreads` threads, this one being `tid`.
@@ -164,26 +137,6 @@ __device__ __forceinline__ void cp_rows(float* dst, const float* src, int row0, 
   }
 }
 
-// The same for rows of bf16: 8 values per 16-byte load, widened to float32
-// in shared memory by the thread itself (so there is no cp.async group of
-// these for the caller's waits to find).
-template <int D>
-__device__ __forceinline__ void cp_rows(float* dst, const __nv_bfloat16* src, int row0,
-                                        int rows, int T, int tid, int nthreads) {
-  constexpr int CH = D / 8;
-  for (int idx = tid; idx < rows * CH; idx += nthreads) {
-    const int row = idx / CH, c = idx % CH;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < T)
-      u = *reinterpret_cast<const uint4*>(src + (long long)(row0 + row) * D + c * 8);
-    float* d = dst + row * (D + 4) + c * 8;
-    *reinterpret_cast<float4*>(d) =
-        make_float4(lo_bf16(u.x), hi_bf16(u.x), lo_bf16(u.y), hi_bf16(u.y));
-    *reinterpret_cast<float4*>(d + 4) =
-        make_float4(lo_bf16(u.z), hi_bf16(u.z), lo_bf16(u.w), hi_bf16(u.w));
-  }
-}
-
 // Shared memory of one launch: K and V of a chunk, the block's q rows, then
 // each warp's partial O [16][D + 4], row max [16] and row sum [16].
 template <int D>
@@ -195,13 +148,12 @@ __host__ __device__ constexpr size_t fwd_smem_bytes(int groups) {
           (size_t)groups * FWD_SPLITS * fwd_part_floats<D>()) * sizeof(float);
 }
 
-template <int D, bool FULL, typename In>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(FWD_MAX_THREADS)
-flash_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
-                 const In* __restrict__ v, const float* __restrict__ bias,
-                 In* __restrict__ o, float* __restrict__ lse, int T, int H,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ o, float* __restrict__ lse, int T, int H,
                  float scale) {
-  constexpr bool EX = Exact<In>::value;  // bf16: q, k, v exact in TF32
   constexpr int LDS = D + 4;  // shared row stride: conflict-free fragments
   constexpr int KS = D / 8;   // 8-wide steps over D (4 or 8)
   constexpr int CHUNK = FWD_CHUNK;
@@ -264,7 +216,7 @@ flash_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           qa[st][c] = qs[(grp * 16 + g + (c & 1) * 8) * LDS + st * 8 + t + (c >> 1) * 4] *
-                      (EX ? 1.f : scale);
+                      scale;
     }
 
     // scores s[jj]: rows g, g + 8 x keys 8(j0 + jj) + 2t, + 1
@@ -288,10 +240,10 @@ flash_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
       }
 #pragma unroll
       for (int jj = 0; jj < KTW; ++jj)
-        if (!EX && j0 + jj < nt) mma_tf32(s[jj], alo, bh[jj][0], bh[jj][1]);
+        if (j0 + jj < nt) mma_tf32(s[jj], alo, bh[jj][0], bh[jj][1]);
 #pragma unroll
       for (int jj = 0; jj < KTW; ++jj)
-        if (!EX && j0 + jj < nt) mma_tf32(s[jj], ahi, bl[jj][0], bl[jj][1]);
+        if (j0 + jj < nt) mma_tf32(s[jj], ahi, bl[jj][0], bl[jj][1]);
 #pragma unroll
       for (int jj = 0; jj < KTW; ++jj)
         if (j0 + jj < nt) mma_tf32(s[jj], ahi, bh[jj][0], bh[jj][1]);
@@ -302,7 +254,7 @@ flash_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
     for (int jj = 0; jj < KTW; ++jj) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float x = j0 + jj < nt ? (EX ? s[jj][c] * scale : s[jj][c]) + bb[jj][c] : -INFINITY;
+        const float x = j0 + jj < nt ? s[jj][c] + bb[jj][c] : -INFINITY;
         s[jj][c] = x;
         mx[c >> 1] = fmaxf(mx[c >> 1], x);
       }
@@ -354,7 +306,7 @@ flash_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
           for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], alo, bh[i][0], bh[i][1]);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            if (!EX) mma_tf32(acc[d0 + i], ahi, bl[i][0], bl[i][1]);
+            mma_tf32(acc[d0 + i], ahi, bl[i][0], bl[i][1]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) mma_tf32(acc[d0 + i], ahi, bh[i][0], bh[i][1]);
         }
@@ -394,7 +346,7 @@ flash_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
       l_all += e * pw[16 * LDS + 16 + row];
       o_all += e * pw[row * LDS + col];
     }
-    store_elem(o + base + (long long)(q0 + row) * D + col, o_all / l_all);
+    o[base + (long long)(q0 + row) * D + col] = o_all / l_all;
     if (col == 0) lse[(long long)n * T + q0 + row] = m_all + logf(l_all);
   }
 }
@@ -923,29 +875,29 @@ int launch_prep(Kernel kernel, size_t smem, bool& ready) {
   return (int)err;
 }
 
-template <int D, bool FULL, typename In>
-int fwd_launch(const In* q, const In* k, const In* v, const float* bias,
-               In* o, float* lse, int BH, int T, int H, int groups, float scale,
+template <int D, bool FULL>
+int fwd_launch(const float* q, const float* k, const float* v, const float* bias,
+               float* o, float* lse, int BH, int T, int H, int groups, float scale,
                cudaStream_t stream) {
   dim3 grid(BH, (T + 16 * groups - 1) / (16 * groups));
   static bool ready = false;
-  int err = launch_prep(flash_fwd_kernel<D, FULL, In>, fwd_smem_bytes<D>(FWD_MAX_GROUPS), ready);
+  int err = launch_prep(flash_fwd_kernel<D, FULL>, fwd_smem_bytes<D>(FWD_MAX_GROUPS), ready);
   if (err) return err;
-  flash_fwd_kernel<D, FULL, In><<<grid, 32 * FWD_SPLITS * groups, fwd_smem_bytes<D>(groups),
-                                  stream>>>(q, k, v, bias, o, lse, T, H, scale);
+  flash_fwd_kernel<D, FULL><<<grid, 32 * FWD_SPLITS * groups, fwd_smem_bytes<D>(groups),
+                              stream>>>(q, k, v, bias, o, lse, T, H, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool FULL, typename In>
-int fwd(const In* q, const In* k, const In* v, const float* bias,
-        In* o, float* lse, int BH, int T, int D, int H, int rows, float scale,
+template <bool FULL>
+int fwd(const float* q, const float* k, const float* v, const float* bias,
+        float* o, float* lse, int BH, int T, int D, int H, int rows, float scale,
         void* stream) {
   if (BH < 1 || T < 1 || (FULL && bias == nullptr)) return (int)cudaErrorInvalidValue;
   if (rows != 16 && rows != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int groups = rows / 16;
-  if (D == 64) return fwd_launch<64, FULL, In>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
-  if (D == 32) return fwd_launch<32, FULL, In>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
+  if (D == 64) return fwd_launch<64, FULL>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
+  if (D == 32) return fwd_launch<32, FULL>(q, k, v, bias, o, lse, BH, T, H, groups, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1033,14 +985,14 @@ int dkv(const float* q, const float* k, const float* v, const float* lse,
 extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
                              const float* bias, float* o, float* lse, int BH,
                              int T, int D, int H, int rows, float scale, void* stream) {
-  return fwd<false, float>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
+  return fwd<false>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
 }
 
 extern "C" int flash_fwd_bias_f32(const float* q, const float* k, const float* v,
                                   const float* bias, float* o, float* lse, int BH,
                                   int T, int D, int H, int rows, float scale,
                                   void* stream) {
-  return fwd<true, float>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
+  return fwd<true>(q, k, v, bias, o, lse, BH, T, D, H, rows, scale, stream);
 }
 
 extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,
@@ -1074,26 +1026,3 @@ extern "C" int flash_dkv_bias_f32(const float* q, const float* k, const float* v
                                   void* stream) {
   return dkv<true>(q, k, v, lse, g, dd, bias, dk, dv, N, BH, T, D, H, scale, stream);
 }
-
-// bf16 forward: q, k, v and o are __nv_bfloat16 (passed as void*); lse, the
-// mask and the full bias float32. The bf16 backward's entry points are in
-// flash_bwd_bf16.cu.
-
-using bf16 = __nv_bfloat16;
-
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              const float* bias, void* o, float* lse, int BH,
-                              int T, int D, int H, int rows, float scale, void* stream) {
-  return fwd<false, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                          static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, BH,
-                          T, D, H, rows, scale, stream);
-}
-
-extern "C" int flash_fwd_bias_bf16(const void* q, const void* k, const void* v,
-                                   const float* bias, void* o, float* lse, int BH,
-                                   int T, int D, int H, int rows, float scale, void* stream) {
-  return fwd<true, bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, BH,
-                         T, D, H, rows, scale, stream);
-}
-

@@ -24,7 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("conv_dgrad", "conv_dgrad_bf16", "flash_attention", "flash_bwd_bf16")
+SOURCES = ("conv_dgrad", "conv_dgrad_bf16", "flash_attention", "flash_bwd_bf16",
+           "flash_fwd_bf16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

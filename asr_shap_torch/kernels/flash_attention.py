@@ -38,11 +38,9 @@ see a batched tensor.
 bf16 q, k, v (the model's ``dtype="bfloat16"``) launch the bf16 entry
 points, with either bias kind: o, dq, dk, dv in the inputs' dtype; lse,
 dd, the mask, the full bias and d(bias) float32, as the reference kernels
-take and write them. The bf16 forward is the float32 template reading and
-writing bf16, with the products whose operand is bf16 on one TF32 mma
-fewer (a bf16 value is exact in TF32). The bf16 backward
-(``csrc/flash_bwd_bf16.cu``) keeps its shared rows in bf16 and runs
-m16n8k16 bf16 products: one per step for two bf16 operands, two for a
+take and write them. The bf16 forward (``csrc/flash_fwd_bf16.cu``) and
+backward (``csrc/flash_bwd_bf16.cu``) keep their shared rows in bf16 and
+run m16n8k16 bf16 products: one per step for two bf16 operands, two for a
 float32 operand (p, ds) split by ``bf16_split``. The plain versions compute
 in float32 from the upcast inputs and round each bf16 output once, as the
 reference kernels do.
@@ -60,7 +58,8 @@ from asr_shap_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# each entry point's C signature (csrc/flash_attention.cu, flash_bwd_bf16.cu)
+# each entry point's C signature (csrc/flash_attention.cu, flash_fwd_bf16.cu,
+# flash_bwd_bf16.cu)
 _ARGTYPES = {
     "flash_fwd_f32": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     "flash_fwd_bf16": (_P,) * 6 + (_I,) * 5 + (_F, _P),
@@ -76,14 +75,16 @@ _ARGTYPES = {
     "flash_dkv_bias_bf16": (_P,) * 9 + (_I,) * 5 + (_F, _P),
 }
 # K2's query rows per block: 16 or 32 (the keys of each 16 rows are split
-# over 8 warps). The fewest rows whose grid still fits one wave on the
-# card's SMs was the fastest on the H100 (PERF.md): 16 for BH = 12,
-# T = 149; 32 for BH = 16.
+# over 8 warps, 4 in bf16). The fewest rows whose grid still fits one wave
+# on the card's SMs was the fastest on the H100, in float32 (PERF.md) and
+# in bf16 (utils/flash_fwd_ablation.py): 16 for BH = 12, T = 149; 32 for
+# BH = 16 and for the sweep's BH = 96.
 FWD_ROWS = (16, 32)
 _sm_count: dict = {}
 # the library of each entry point that is not in csrc/flash_attention.cu
-_LIBRARY = dict.fromkeys(("flash_dq_bf16", "flash_dkv_bf16", "flash_dq_dbias_bf16",
-                          "flash_dkv_bias_bf16"), "flash_bwd_bf16")
+_LIBRARY = {**dict.fromkeys(("flash_fwd_bf16", "flash_fwd_bias_bf16"), "flash_fwd_bf16"),
+            **dict.fromkeys(("flash_dq_bf16", "flash_dkv_bf16", "flash_dq_dbias_bf16",
+                             "flash_dkv_bias_bf16"), "flash_bwd_bf16")}
 
 
 # ------------------------------------------------------------ plain versions

@@ -14,11 +14,12 @@ With ``--bf16`` the same is done for the bf16 kernels of
 and d(bias) of K3b, each error beside the plain float32 version's, as
 ``chip_smoke.py``'s float64 check takes them.
 
-Each variant is a copy of ``csrc/flash_attention.cu`` with one part removed
-by a text substitution (the results are wrong; only the times count), built
-with the port's nvcc flags, all builds at once, and launched through its C
-entry points: K3 and K4 at the Wav2Vec2-base main-path shape (BH = 12,
-T = 149, D = 64, N = 1,788, no mask), K3b and K4f at the conformer's
+Each variant is a copy of ``csrc/flash_attention.cu`` (``flash_common.cuh``
+inlined, so that a substitution reaches its helpers too) with one part
+removed by a text substitution (the results are wrong; only the times
+count), built with the port's nvcc flags, all builds at once, and launched
+through its C entry points: K3 and K4 at the Wav2Vec2-base main-path shape
+(BH = 12, T = 149, D = 64, N = 1,788, no mask), K3b and K4f at the conformer's
 (BH = 16, N = 2,384, a [16, 149, 149] full bias). One template serves
 each kernel and its full-bias variant, so a change to its body shows in
 both. A variant's time against the whole kernel's bounds what that part
@@ -150,23 +151,28 @@ VARIANTS_BF16 = {
 
 
 def variant_source(src: str, change) -> str:
-    if change is None:
-        return src
-    anchor, old, new = change
-    start = src.index(anchor) if anchor else 0
-    at = src.find(old, start)
-    if at < 0:
-        raise ValueError(f"ablation text not found in the source: {old!r}")
-    if anchor is None:
-        return src.replace(old, new)
-    return src[:at] + new + src[at + len(old):]
+    """``src`` with ``change`` made: None (the source as it is), one
+    (anchor, text, replacement) or a list of them, each made in turn. With an
+    anchor, the first ``text`` after it is replaced; without, every one."""
+    for anchor, old, new in [] if change is None else [change] if isinstance(change, tuple) \
+            else change:
+        start = src.index(anchor) if anchor else 0
+        at = src.find(old, start)
+        if at < 0:
+            raise ValueError(f"ablation text not found in the source: {old!r}")
+        src = src.replace(old, new) if anchor is None else src[:at] + new + src[at + len(old):]
+    return src
 
 
-def build(workdir: Path, bf16: bool) -> dict:
-    """Build every variant at once; name -> (library, ptxas report)."""
-    src = (SOURCE_BF16 if bf16 else SOURCE).read_text()
+def build_variants(workdir: Path, source: Path, variants: dict, entries: dict) -> dict:
+    """Build a copy of ``source`` for each of ``variants`` (name -> change,
+    as ``variant_source`` takes it), with the shared header inlined, all
+    nvcc processes at once; declare each library's ``entries`` (entry point
+    -> argtypes). Returns name -> (library, nvcc's output)."""
+    header = (_build.CSRC / "flash_common.cuh").read_text().replace("#pragma once\n", "")
+    src = source.read_text().replace('#include "flash_common.cuh"', header)
     procs = {}
-    for i, (name, change) in enumerate((VARIANTS_BF16 if bf16 else VARIANTS).items()):
+    for i, (name, change) in enumerate(variants.items()):
         cu = workdir / f"v{i}.cu"
         cu.write_text(variant_source(src, change))
         procs[name] = (cu.with_suffix(".so"), subprocess.Popen(
@@ -178,19 +184,30 @@ def build(workdir: Path, bf16: bool) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(so))
+        for fn_name, argtypes in entries.items():
+            getattr(lib, fn_name).argtypes = argtypes
+        out[name] = (lib, log)
+    return out
+
+
+def build(workdir: Path, bf16: bool) -> dict:
+    """Build every variant at once; name -> (library, ptxas report)."""
+    # the entry points of csrc/flash_attention.cu or flash_bwd_bf16.cu
+    entries = {fn_name: (ctypes.c_void_p,) * pointers + (ctypes.c_int,) * 5
+               + (ctypes.c_float, ctypes.c_void_p)
+               for fn_name, pointers in zip(ENTRIES[bf16], (9, 9, 10, 9))}
+    libs = build_variants(workdir, SOURCE_BF16 if bf16 else SOURCE,
+                          VARIANTS_BF16 if bf16 else VARIANTS, entries)
+    out = {}
+    for name, (lib, log) in libs.items():
         report = [(KERNEL_NAMES[kern, full], spill, regs) for kern, full, _, spill, regs in
                   re.findall(r"entry function '\S*?(flash_d\w*?_(?:mma|bf16)_kernel)"
                              r"ILi64ELb([01])E\S*'"
                              r"[^\n]*\n[^\n]*\n *(\d+) bytes stack frame, (\d+) bytes spill "
                              r"stores[^\n]*\n[^\n]*Used (\d+) registers", log)]
-        lib = ctypes.CDLL(str(so))
-        # the entry points of csrc/flash_attention.cu or flash_bwd_bf16.cu
-        for fn_name, pointers in zip(ENTRIES[bf16], (9, 9, 10, 9)):
-            getattr(lib, fn_name).argtypes = (ctypes.c_void_p,) * pointers + (ctypes.c_int,) * 5 + (
-                ctypes.c_float, ctypes.c_void_p)
         out[name] = (lib, report)
     return out
-
 
 
 def time_ms(fn, iters: int = 20) -> float:

@@ -19,16 +19,18 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    per SM, and check its SASS: bf16 m16n8k16 tensor-core products
    (HMMA.16816.F32.BF16) and no other, so no TF32 product; the same for
    the bf16 K1 (csrc/conv_dgrad_bf16.cu), whose SASS must hold bf16
-   warpgroup products (HGMMA ... F32.BF16) and no HMMA;
+   warpgroup products (HGMMA ... F32.BF16) and no HMMA; and the same as the
+   bf16 backward's for the bf16 forward (csrc/flash_fwd_bf16.cu: K2-bf16,
+   K2f-bf16, at both block heights);
 2. hold each kernel against its plain PyTorch version on the card, float32,
    at its path's shapes, with the tolerance stated beside it (the full-bias
    kernels with a rel-pos-like bias, and with the same bias masked; the
-   flash forward also at 100 and 500 keys; K3 and K4, and K3b and K4f with
-   a rel-pos-like bias, also at one and 37 cotangent rows per residual row,
-   five clips with a mask length each, 100 and 500 keys and D = 32; K1, K3
-   and K4, K3b and K4f and their plain versions also against float64; K2
-   also at the sweep's batched shapes, 8 clips, no bias, T = 149 and 312,
-   D = 64 and 32);
+   flash forward also at 1, 100, 500 and 1,499 keys; K3 and K4, and K3b and
+   K4f with a rel-pos-like bias, also at one and 37 cotangent rows per
+   residual row, five clips with a mask length each, 100 and 500 keys and
+   D = 32; K1, K3 and K4, K3b and K4f and their plain versions also against
+   float64; K2 also at the sweep's batched shapes, 8 clips, no bias,
+   T = 149 and 312, D = 64 and 32);
 3. drive each path: run_shap_pipeline on a 48,000-sample clip and its 5 dB
    white-noise mix, 4 expected-gradients draws each, with the launch counts
    set to 0 just before and read just after; check phi, the store and the
@@ -67,7 +69,8 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    versions at its shapes (each bf16 output within one bf16 ulp, lse and dd
    at the float32 tolerances; K1 also at 144 edge shapes: 1 and 3 clips,
    T_out 1-300, (K, s) (3, 2), (2, 2), (5, 3), three channel pairs, rows
-   past the taps' reach; K2-K4 also at D = 32, T = 312, and over the
+   past the taps' reach; K2-K4 also at D = 32, T = 312, K2 also at 1, 100,
+   500 and 1,499 keys and at the sweep's 8-clip batches, K3 and K4 over the
    backward's shape sweep) and against float64 on the same bf16 inputs (at
    most 1.25x the plain version's error, K1 at each of its main-path and
    edge shapes; lse 2x); run_shap_pipeline with
@@ -92,8 +95,9 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    conformer archive switched to bf16 ("cli conformer bf16" lines). Its
    JSON entries are K2f-bf16, K3b-bf16 and K4f-bf16.
 
-Prints one JSON line of per-kernel numbers (the rows of the bf16 K1 and
-the four bf16 backward kernels also with their registers and blocks per SM),
+Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
+two bf16 forward and the four bf16 backward kernels also with their
+registers and blocks per SM),
 then as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; so does a machine without a CUDA device.
@@ -173,10 +177,11 @@ ROUTES = {
     "flash_dkv_bias": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:282"),
     "conv_dgrad_bf16": ("asr_shap_torch/csrc/conv_dgrad_bf16.cu",
                         "asr_shap/kernels/conv_dgrad.py:150"),
-    "flash_fwd_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
+    "flash_fwd_bf16": ("asr_shap_torch/csrc/flash_fwd_bf16.cu", "asr_shap/kernels/flash_attention.py:118"),
     "flash_dq_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:247"),
     "flash_dkv_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:282"),
-    "flash_fwd_bias_bf16": ("asr_shap_torch/csrc/flash_attention.cu", "asr_shap/kernels/flash_attention.py:118"),
+    "flash_fwd_bias_bf16": ("asr_shap_torch/csrc/flash_fwd_bf16.cu",
+                            "asr_shap/kernels/flash_attention.py:118"),
     "flash_dq_dbias_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:247"),
     "flash_dkv_bias_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:282"),
 }
@@ -383,6 +388,7 @@ def phase_build():
             if any(key in line for key in ("Used", "spill", "entry function", "wgmma")):
                 log(f"ptxas {name}: {line.strip()}")
     fields = check_bf16_backward_build(paths["flash_bwd_bf16"])
+    fields.update(check_bf16_forward_build(paths["flash_fwd_bf16"]))
     fields["conv_dgrad_bf16"] = check_conv_dgrad_bf16_build(paths["conv_dgrad_bf16"])
     return smi, fields
 
@@ -435,11 +441,10 @@ def check_bf16_backward_build(lib: Path) -> dict:
     """The bf16 backward kernels as built, at D = 64 and 32: each one's
     registers, spilled bytes, shared memory per block and blocks per SM
     (``flash_bwd_bf16_info``), its shared memory under half the float32
-    template's; and their SASS (``cuobjdump -sass`` of the library, from the
-    toolkit that built it): every instantiation runs bf16 m16n8k16
-    tensor-core products (HMMA.16816.F32.BF16) and no other HMMA, so no TF32
-    product. Returns each kernel's registers and blocks per SM at D = 64,
-    the JSON line's fields."""
+    template's; and their SASS: every instantiation runs bf16 m16n8k16
+    tensor-core products only (``check_bf16_mma_only``), no TF32 product.
+    Returns each kernel's registers and blocks per SM at D = 64, the JSON
+    line's fields."""
     info_fn = _build.c_function("flash_bwd_bf16", "flash_bwd_bf16_info",
                                 (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
     fields = {}
@@ -456,9 +461,19 @@ def check_bf16_backward_build(lib: Path) -> dict:
                 "per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
             check(smem < f32_kb * 1024 / 2, f"{name} D={d}: {smem} bytes of shared memory, not "
                   f"under half the float32 template's {f32_kb} KB")
+    check_bf16_mma_only(lib, ("flash_dq_bf16_kernel", "flash_dkv_bf16_kernel"),
+                        2 * len(BF16_BWD_KERNELS))
+    return fields
+
+
+def check_bf16_mma_only(lib: Path, kernels, expected: int) -> None:
+    """The SASS (``cuobjdump -sass`` of ``lib``, from the toolkit that built
+    it) of every function whose name holds one of ``kernels``: each runs
+    bf16 m16n8k16 tensor-core products (HMMA.16816.F32.BF16) and no other
+    HMMA, so no TF32 product; ``expected`` such functions."""
     seen = 0
     for fn, body in sass_functions(lib).items():
-        if "flash_dq_bf16_kernel" not in fn and "flash_dkv_bf16_kernel" not in fn:
+        if not any(kernel in fn for kernel in kernels):
             continue
         seen += 1
         hmma = [line for line in body.splitlines() if "HMMA" in line]
@@ -466,8 +481,40 @@ def check_bf16_backward_build(lib: Path) -> dict:
         log(f"sass {fn}: {bf16} HMMA.16816.F32.BF16 of {len(hmma)} HMMA")
         check(bf16 > 0 and bf16 == len(hmma),
               f"sass {fn}: not only bf16 m16n8k16 tensor-core products")
-    check(seen == 2 * len(BF16_BWD_KERNELS), f"sass: {seen} bf16 backward kernels in {lib}, "
-          f"{2 * len(BF16_BWD_KERNELS)} expected")
+    check(seen == expected, f"sass: {seen} functions of {kernels} in {lib}, {expected} expected")
+
+
+# the bf16 forward kernels (flash_fwd_bf16_info's `full` 0 and 1): counter,
+# and the query rows per block of the path's launches (fwd_block_rows: 16
+# for BH = 12, 32 for BH = 16)
+BF16_FWD_KERNELS = (("flash_fwd_bf16", 16), ("flash_fwd_bias_bf16", 32))
+
+
+def check_bf16_forward_build(lib: Path) -> dict:
+    """The bf16 flash forward as built (``csrc/flash_fwd_bf16.cu``), K2 with a
+    key mask and K2f, at D = 64 and 32, 16 and 32 query rows per block and
+    T = 149: each one's registers, spilled bytes, shared memory per block and
+    blocks per SM (``flash_fwd_bf16_info``); and its SASS: bf16 m16n8k16
+    tensor-core products only (``check_bf16_mma_only``), no TF32 product.
+    Returns each kernel's registers, blocks per SM and shared bytes at D = 64
+    and its path's rows per block, the JSON line's fields."""
+    info_fn = _build.c_function("flash_fwd_bf16", "flash_fwd_bf16_info",
+                                (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+    fields = {}
+    for d in (64, 32):
+        for full, (counter, path_rows) in enumerate(BF16_FWD_KERNELS):
+            for rows in fa.FWD_ROWS:
+                info = (ctypes.c_int * 4)()
+                check(info_fn(full, d, rows, 149, ctypes.addressof(info)) == 0,
+                      f"{BF16_NAMES[counter]}: info failed")
+                regs, spilled, smem, per_sm = info
+                if d == 64 and rows == path_rows:
+                    fields[counter] = {"registers": regs, "blocks_per_sm": per_sm,
+                                       "shared_bytes": smem}
+                log(f"kernel {BF16_NAMES[counter]} D={d} rows/block={rows} T=149: {regs} "
+                    f"registers, {spilled} bytes spilled, {smem} bytes of shared memory per "
+                    f"block, {per_sm} blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    check_bf16_mma_only(lib, ("flash_fwd_bf16_kernel",), 4)
     return fields
 
 
@@ -549,14 +596,16 @@ def k1_name(dtype) -> str:
 
 def check_fwd_lengths(gen, h: int, d: int, full: bool, dtype=torch.float32) -> float:
     """K2 (``full``: K2f) at both block heights against its plain version at
-    T = 100 (one partial chunk; some warps hold no key) and T = 500 (three
-    chunks of keys, so the online rescale runs), with the first 200 keys
-    and the last 29 masked to -1e9 (for the full bias, on every other query
-    row): a row's first chunk is all masked, so its rescale factor is 0.
-    In bf16, q, k, v are rounded to bf16 and o is held to one bf16 ulp."""
+    T = 1 (one key), T = 100 (one partial chunk; some warps hold no key),
+    T = 500 (several chunks of keys, so the online rescale runs) and
+    T = 1,499 (30 s of audio: eight chunks of the float32 kernel, ten of the
+    bf16 one), with the first 200 keys and the last 29 masked to -1e9 (for
+    the full bias, on every other query row): a row's first chunk is all
+    masked, so its rescale factor is 0. In bf16, q, k, v are rounded to bf16
+    and o is held to one bf16 ulp."""
     err = 0.0
     name = ("flash_fwd_bias" if full else "flash_fwd") + ("_bf16" if dtype == BF16 else "")
-    for t in (100, 500):
+    for t in (1, 100, 500, 1499):
         q, k, v, bias, _ = flash_inputs(gen, 1, h, t, d, 1, not full)
         q, k, v = (x.to(dtype) for x in (q, k, v))
         if full:
@@ -575,21 +624,24 @@ def check_fwd_lengths(gen, h: int, d: int, full: bool, dtype=torch.float32) -> f
     return err
 
 
-def check_fwd_sweep_shapes(gen) -> float:
+def check_fwd_sweep_shapes(gen, dtype=torch.float32) -> float:
     """K2 at the sweep's batched forward: 8 clips of one length, no bias,
     T = 149 (48,000 samples) and 312 (100,000), with the base model's 12
-    heads of 64 and the study archive's 3 heads of 32; both block heights."""
+    heads of 64 and the study archive's 3 heads of 32; both block heights.
+    In bf16, q, k, v are rounded to bf16 and o is held to one bf16 ulp."""
     err = 0.0
+    name = "flash_fwd_bf16" if dtype == BF16 else "flash_fwd"
     for h, d in ((12, 64), (3, 32)):
         for t in (149, 312):
             q, k, v, _, _ = flash_inputs(gen, 8, h, t, d, 1, False)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
             want = fa.flash_fwd_plain(q, k, v, None, h)
             fa._check(q, k, v, None, h)
             for rows in fa.FWD_ROWS:
                 got = fa._fwd_launch(q, k, v, None, h, rows)
                 for part, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
-                    err = max(err, compare(
-                        f"flash_fwd {part} B=8 H={h} T={t} D={d} rows/block={rows} (sweep)",
+                    err = max(err, compare_bf16(
+                        f"{name} {part} B=8 H={h} T={t} D={d} rows/block={rows} (sweep)",
                         x, y, 2e-5, 2e-4, f"float32 softmax over {t} keys, another "
                         "summation order"))
     return err
@@ -1114,8 +1166,8 @@ def phase_cli(base_archive: str, data_dir: str):
 
 PROFILE_GROUPS = (
     ("port kernels", ("dgrad_kernel", "dgrad_bf16_wgmma_kernel", "flash_fwd_kernel",
-                      "flash_dq_mma_kernel", "flash_dkv_mma_kernel", "flash_dq_bf16_kernel",
-                      "flash_dkv_bf16_kernel")),
+                      "flash_fwd_bf16_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
+                      "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")),
     ("convolution (cuDNN)", ("cudnn", "convolve", "winograd", "fft", "depthwise")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
 )
@@ -1478,9 +1530,10 @@ def fwd_float64_check_bf16(gen, h: int, d: int, t: int, full: bool = False) -> d
 def phase_checks_bf16(cfg: Wav2Vec2Config):
     """K1-K4 in bf16 against their plain versions at the bf16 path's shapes
     (the base path's: K1 at the six layers with 149 rows; K2-K4 at BH = 12,
-    T = 149, D = 64, N = 1,788, masked and unmasked, and over
-    ``check_bwd_shapes``'s sweep with D = 32 at T = 312), and against
-    float64 on the same bf16 inputs."""
+    T = 149, D = 64, N = 1,788, masked and unmasked; K2 also over
+    ``check_fwd_lengths``'s key counts and at the sweep's batched shapes;
+    K3, K4 over ``check_bwd_shapes``'s sweep with D = 32 at T = 312), and
+    against float64 on the same bf16 inputs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = cfg.frames_for_samples(N_SAMPLES)
     h, d, t = cfg.num_attention_heads, cfg.head_dim, rows
@@ -1534,6 +1587,8 @@ def phase_checks_bf16(cfg: Wav2Vec2Config):
             compare_bf16(f"flash_dkv_bf16 dk N={n} mask={masked}", dk, dk_p, 5e-5, 5e-4, why_b),
             compare_bf16(f"flash_dkv_bf16 dv N={n} mask={masked}", dv, dv_p, 5e-5, 5e-4, why_b))
         del q, k, v, bias, g, o, lse, dq, dd, dq_p, dd_p, dk, dv, dk_p, dv_p
+    errs["flash_fwd_bf16"] = max(errs["flash_fwd_bf16"], check_fwd_lengths(gen, h, d, False, BF16),
+                                 check_fwd_sweep_shapes(gen, BF16))
     for key, err in check_bwd_shapes(gen, h, dtype=BF16).items():
         errs[key] = max(errs[key], err)
     extra["flash_fwd_bf16"] = fwd_float64_check_bf16(gen, h, d, t)
@@ -1713,7 +1768,7 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
     with matmul_precision_scope(mc.matmul_precision):
         per_draw, prof = time_slice("bf16", cfg, params16, test_set, gen, out)
     for name, kname in (("conv_dgrad_bf16", "dgrad_bf16_wgmma_kernel"),
-                        ("flash_fwd_bf16", "flash_fwd_kernel"),
+                        ("flash_fwd_bf16", "flash_fwd_bf16_kernel"),
                         ("flash_dq_bf16", "flash_dq_bf16_kernel"),
                         ("flash_dkv_bf16", "flash_dkv_bf16_kernel")):
         seen = [ms for key, ms in prof.items() if kname in key]
@@ -1882,7 +1937,7 @@ def phase_timing_bf16_conformer(cfg: PipelineConfig, params16, test_set):
                          (("library bf16", BF16, 10), ("float32 copies", torch.float32, 10)) * 2)
     with matmul_precision_scope(mc.matmul_precision):
         per_draw, prof = time_slice("bf16 conformer", cfg, params16, test_set, gen, out)
-    for name, kname in (("flash_fwd_bias_bf16", "flash_fwd_kernel"),
+    for name, kname in (("flash_fwd_bias_bf16", "flash_fwd_bf16_kernel"),
                         ("flash_dq_dbias_bf16", "flash_dq_bf16_kernel"),
                         ("flash_dkv_bias_bf16", "flash_dkv_bf16_kernel")):
         seen = [ms for key, ms in prof.items() if kname in key]

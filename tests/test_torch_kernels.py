@@ -315,6 +315,68 @@ def test_flash_backward_bf16_split_keeps_the_card_checks_gate(rng, full, masked)
     assert max(err("one", i) / err("plain", i) for i in range(3)) > 1.25
 
 
+def _flash_forward_bf16(q, k, v, bias, mm, splits=4):
+    """o and lse as the bf16 K2 (K2f) computes them, in float32: scores
+    (q.k^T) * scale + bias; each of ``splits`` warps takes every
+    ``splits``-th 16-key tile, with its own row max m_w, p = exp(s - m_w),
+    l_w = sum p and O_w = ``mm``(p, v); then o = sum_w e^(m_w - M) O_w / L
+    and lse = M + log L, M = max_w m_w, L = sum_w e^(m_w - M) l_w."""
+    s = (q @ k.transpose(1, 2)) * q.shape[-1] ** -0.5 + bias
+    tile = torch.arange(q.shape[1]) // 16
+    parts = []
+    for w in range(splits):
+        keys = tile % splits == w
+        m = s[..., keys].amax(-1, keepdim=True)
+        p = torch.exp(s[..., keys] - m)
+        parts.append((m, p.sum(-1, keepdim=True), mm(p, v[:, keys])))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_all = sum(torch.exp(m - m_all) * l for m, l, _ in parts)
+    o = sum(torch.exp(m - m_all) * o_w for m, _, o_w in parts) / l_all
+    return o, (m_all + torch.log(l_all))[..., 0]
+
+
+@pytest.mark.parametrize("full,masked", [
+    pytest.param(False, False, id="False"), pytest.param(False, True, id="True"),
+    pytest.param(True, False, id="full-False"), pytest.param(True, True, id="full-True")])
+def test_flash_forward_bf16_split_keeps_the_card_checks_gate(rng, full, masked):
+    """The numeric contract of the bf16 K2 (and of K2f, with a full bias):
+    q, k, v rounded to bf16; bf16 x bf16 scores in float32; each of four
+    key splits' p split by ``bf16_split`` into two bf16 terms for p.v; the
+    splits merged in float32 and o rounded to bf16. Against float64 on the
+    same bf16 inputs, o stays within 1.25x the plain version's error (the
+    plain version: float32 products, o rounded to bf16) and lse within 2x:
+    the card check's gates (``chip_smoke.py``, BF16_F64_RATIO and
+    BF16_F32_OUT_RATIO). With p rounded to one bf16 term, o exceeds 1.25x
+    in the case with neither a full bias nor masked keys (1.30x; in the
+    other three cases one term stayed at 1.00x on these inputs, but the
+    card checks more shapes and inputs, so the kernel takes two terms).
+    T = 149, D = 64, BH = 2; the bias a key mask of zeros or a unit-normal
+    [BH, T, T] score bias; ``masked``: the last 29 keys at -1e9."""
+    bh, t, d = 2, 149, 64
+    r16 = lambda shape: _t(rng.standard_normal(shape)).to(torch.bfloat16).float()
+    q, k, v = (r16((bh, t, d)) for _ in range(3))
+    bias = _t(rng.standard_normal((bh, t, t))) if full else torch.zeros(t)
+    if masked:
+        bias[..., t - 29:] = -1e9
+    kernel_bias = bias if full else bias[None]
+    o64, lse64 = fa.flash_fwd_plain(q.double(), k.double(), v.double(), kernel_bias.double(), bh)
+    runs = {"plain": fa.flash_fwd_plain(*(x.to(torch.bfloat16) for x in (q, k, v)),
+                                        kernel_bias, bh),
+            "two": _flash_forward_bf16(q, k, v, bias, _mm_bf16_split),
+            "one": _flash_forward_bf16(q, k, v, bias, _mm_bf16_one)}
+
+    def err(run, i):  # o rounded to bf16, as the kernel stores it; lse float32
+        x = runs[run][i]
+        x = x.to(torch.bfloat16) if i == 0 else x
+        return float((x.double() - (o64, lse64)[i]).abs().max())
+
+    assert runs["plain"][0].dtype == torch.bfloat16
+    assert err("two", 0) <= 1.25 * err("plain", 0)
+    assert err("two", 1) <= 2 * err("plain", 1)
+    if not full and not masked:
+        assert err("one", 0) > 1.25 * err("plain", 0)
+
+
 def _full_bias(rng, shape, masked_keys=0):
     """A random score bias; the last ``masked_keys`` keys of batch entry 0
     get -1e9, as the conformer's rel + mask does on a padded clip."""
@@ -435,12 +497,12 @@ def test_build_starts_one_nvcc_per_source_and_reuses_libraries(tmp_path, monkeyp
         return
     paths = _build.build_all()
     assert sorted(paths) == ["conv_dgrad", "conv_dgrad_bf16", "flash_attention",
-                             "flash_bwd_bf16"]
+                             "flash_bwd_bf16", "flash_fwd_bf16"]
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     lines = calls.read_text().splitlines()
-    assert len(lines) == 4 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
+    assert len(lines) == 5 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
     assert _build.build_all() == paths
-    assert len(calls.read_text().splitlines()) == 4
+    assert len(calls.read_text().splitlines()) == 5
 
 
 @pytest.mark.parametrize("shape", [(2, 16), (2, 1, 16)])
