@@ -1,12 +1,14 @@
 """Command-line entry points of the port, ``python -m asr_shap_torch``:
 
-  run-shap   : build the controlled test set, compute and persist
-               attributions (expected gradients)
-  sweep      : eta_raw-vs-WER sweep over the store, with correlation
-               statistics
-  metric     : single-sample eta_raw from stored npy files
-  transcribe : greedy CTC transcription of wav/npy clips
-  bench      : explainer runtime-vs-length sweep
+  run-shap     : build the controlled test set, compute and persist
+                 attributions (expected gradients, DeepSHAP, KernelSHAP or
+                 LIME)
+  sweep        : eta_raw-vs-WER sweep over the store, with correlation
+                 statistics
+  faithfulness : deletion/insertion faithfulness curves over the store
+  metric       : single-sample eta_raw from stored npy files
+  transcribe   : greedy CTC transcription of wav/npy clips
+  bench        : explainer runtime-vs-length sweep
 
 The flags, defaults and printed JSON lines are the reference package's
 (``python -m asr_shap``), plus ``--device {cuda,cpu}``: every command runs
@@ -18,6 +20,7 @@ work, naming the ``ROADMAP.md`` item that ports them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 
@@ -128,10 +131,6 @@ def cmd_run_shap(args):
     from asr_shap_torch.pipeline.testset import create_test_set
 
     _check_model_args(args)
-    if args.method != "grad":
-        raise NotImplementedError(
-            f"--method {args.method} is not ported (ROADMAP.md queue 1, 'The "
-            "other explainers')")
     if args.mesh:
         raise NotImplementedError(
             "--mesh is not ported (ROADMAP.md queue 1, 'After these': scale-out)")
@@ -152,6 +151,9 @@ def cmd_run_shap(args):
                                   num_background=args.num_background,
                                   kmeans_background=args.kmeans,
                                   kernel_num_segments=args.kernel_segments,
+                                  # --method lime reads the shared flags:
+                                  # --nsamples = perturbations, --kernel-
+                                  # segments = coalition features
                                   lime_num_samples=args.nsamples,
                                   lime_num_segments=args.kernel_segments),
         testset=tcfg, data_dir=args.data_dir, seed=args.seed,
@@ -193,6 +195,51 @@ def cmd_sweep(args):
     # the headline r leaves out the snr=inf rows, whose eta_raw is 1 by construction
     print(json.dumps({"pearson_r": summary["pearson_r_noisy"],
                       "n": len(records), **summary}))
+
+
+def cmd_faithfulness(args):
+    import numpy as np
+
+    from asr_shap_torch.core.store import AttributionStore
+    from asr_shap_torch.metrics.faithfulness import (
+        faithfulness_curve,
+        faithfulness_summary,
+        make_transcribe_fn,
+    )
+
+    _check_model_args(args)
+    if args.plot:
+        raise NotImplementedError(
+            f"--plot {args.plot}: the curves figure is not ported (ROADMAP.md queue 1, "
+            "'After these': viz/*)")
+    params, cfg = _load_model(args)
+    store = AttributionStore(args.data_dir)
+    transcribe = make_transcribe_fn(params, cfg)
+
+    records = []
+    with open(args.out, "w") if args.out else contextlib.nullcontext() as out_fh:
+        for i, data in enumerate(store.iter_samples()):
+            if args.limit and i >= args.limit:
+                break
+            rec = faithfulness_curve(
+                transcribe, np.asarray(data["audio"]), np.asarray(data["shap_values"]),
+                str(data["text"]), fractions=tuple(args.fractions), mode=args.mode,
+                fill=args.fill, n_random=args.n_random, seed=args.seed + i)
+            k = data["key"]
+            rec["key"] = f"sample_{k.index}_{k.type}_{k.snr}"
+            records.append(rec)
+            line = json.dumps(rec)
+            print(line)
+            if out_fh:
+                out_fh.write(line + "\n")
+                out_fh.flush()
+        summary = faithfulness_summary(records)
+        summary["mode"] = args.mode
+        summary["fill"] = args.fill
+        summary["fractions"] = list(args.fractions)
+        print(json.dumps(summary))
+        if out_fh:
+            out_fh.write(json.dumps(summary) + "\n")
 
 
 def cmd_metric(args):
@@ -307,7 +354,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for the reference's CLI; the port writes "
                         "synchronously, with the same results")
     p.add_argument("--method", choices=["grad", "deep", "kernel", "lime"], default="grad",
-                   help="grad = expected gradients (the only one ported)")
+                   help="grad = expected gradients; deep = DeepSHAP rescale rules; "
+                        "kernel = KernelSHAP over waveform segments; lime = LIME "
+                        "linear surrogate over the same segments")
     p.add_argument("--kernel-segments", type=int, default=32,
                    help="coalition segments over the waveform (--method kernel/lime)")
     p.add_argument("--num-background", type=int, default=5,
@@ -330,6 +379,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plot", type=str, default="",
                    help="scatter plot path (not ported; default none)")
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("faithfulness",
+                       help="deletion/insertion faithfulness curves over a stored "
+                            "attribution set (occlusion AUC vs seeded random rankings)")
+    _add_model_args(p)
+    p.add_argument("--data-dir", default="data")
+    p.add_argument("--fractions", type=float, nargs="+",
+                   default=[0.01, 0.02, 0.05, 0.1, 0.2])
+    p.add_argument("--mode", choices=["deletion", "insertion"], default="deletion")
+    p.add_argument("--fill", choices=["zero", "noise"], default="zero")
+    p.add_argument("--n-random", type=int, default=3,
+                   help="random-ranking control repetitions per fraction")
+    p.add_argument("--limit", type=int, default=0, help="stop after N samples (0 = all)")
+    p.add_argument("--out", type=str, default=None,
+                   help="also write the records and the summary as JSONL here")
+    p.add_argument("--plot", type=str, default=None,
+                   help="curves figure path (not ported)")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_faithfulness)
 
     p = sub.add_parser("metric", help="single-sample eta_raw")
     p.add_argument("--audio", required=True)

@@ -42,18 +42,27 @@ def model_logits_fn(model_cfg: Wav2Vec2Config):
     return wav2vec2_logits
 
 
+def make_batched_fn(params, model_config: Wav2Vec2Config,
+                    explainer_config: ExplainerConfig,
+                    remat: bool | None = None
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """f: normalized waveforms [B, N] -> explained outputs [B, T_out], one
+    batched forward (the perturbation explainers' batches)."""
+    logits_fn = model_logits_fn(model_config)
+    use_remat = explainer_config.remat if remat is None else remat
+    ec = explainer_config
+
+    def f(xs: torch.Tensor) -> torch.Tensor:
+        logits = logits_fn(params, model_config, xs, remat=use_remat)
+        return aggregation_head(logits, ec.aggregation, ec.token_timestep, ec.token_id)
+
+    return f
+
+
 def make_explained_fn(params, model_config: Wav2Vec2Config,
                       explainer_config: ExplainerConfig,
                       remat: bool | None = None
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """f: normalized waveform [N] -> explained outputs [T_out]."""
-    logits_fn = model_logits_fn(model_config)
-    use_remat = explainer_config.remat if remat is None else remat
-    ec = explainer_config
-
-    def f(x: torch.Tensor) -> torch.Tensor:
-        logits = logits_fn(params, model_config, x[None, :], remat=use_remat)
-        return aggregation_head(logits, ec.aggregation, ec.token_timestep,
-                                ec.token_id)[0]
-
-    return f
+    f_batch = make_batched_fn(params, model_config, explainer_config, remat)
+    return lambda x: f_batch(x[None, :])[0]

@@ -34,10 +34,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from asr_shap_torch.core.config import Wav2Vec2ConformerConfig
 from asr_shap_torch.core.device import resolve_device
+from asr_shap_torch.models.conformer import PLAIN_RULES, Rules
 from asr_shap_torch.models.wav2vec2 import (
     ParamInit,
     _conv1d,
@@ -154,26 +154,28 @@ def _attention(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
     return _linear(p["out"], o.transpose(1, 2).reshape(b, t, d))
 
 
-def _conv_module(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor) -> torch.Tensor:
+def _conv_module(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
+                 rules: Rules) -> torch.Tensor:
     """LN, pointwise conv, GLU, depthwise conv (a library conv, as in the
     reference; in bf16 on float32 copies, see ``wav2vec2._conv1d``),
-    inference BatchNorm, SiLU, pointwise conv."""
+    inference BatchNorm, SiLU, pointwise conv (GLU and SiLU from ``rules``)."""
     h = _layer_norm(p["norm"], x, cfg.layer_norm_eps)
-    h = F.glu(_linear(p["pw1"], h), dim=-1)                    # [B, T, d]
+    h = rules.glu(_linear(p["pw1"], h), -1)                    # [B, T, d]
     ksz = cfg.conv_depthwise_kernel_size
     h = _conv1d(h, p["depthwise"]["kernel"], padding=(ksz - 1) // 2, groups=h.shape[-1])
     bn = p["bn"]
     h = (h - bn["mean"]) * torch.rsqrt(bn["var"] + 1e-5) * bn["scale"] + bn["bias"]
-    return _linear(p["pw2"], F.silu(h))
+    return _linear(p["pw2"], rules.silu(h))
 
 
 def _conformer_block(layer: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
-                     pe: Optional[torch.Tensor], bias: Optional[torch.Tensor]) -> torch.Tensor:
+                     pe: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                     rules: Rules, gelu) -> torch.Tensor:
     eps = cfg.layer_norm_eps
-    act = F.silu if cfg.hidden_act in ("swish", "silu") else _gelu
+    act = rules.silu if cfg.hidden_act in ("swish", "silu") else gelu
     x = x + 0.5 * _ffn(layer["ffn1"], x, act, eps)
     x = x + _attention(layer["attn"], cfg, x, pe, bias)
-    x = x + _conv_module(layer["conv"], cfg, x)
+    x = x + _conv_module(layer["conv"], cfg, x, rules)
     x = x + 0.5 * _ffn(layer["ffn2"], x, act, eps)
     return _layer_norm(layer["final_norm"], x, eps)
 
@@ -181,10 +183,14 @@ def _conformer_block(layer: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tenso
 def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
                           input_values: torch.Tensor,
                           lengths: Optional[torch.Tensor] = None,
-                          remat: bool = False) -> torch.Tensor:
+                          remat: bool = False, rules: Rules = PLAIN_RULES,
+                          gelu=_gelu) -> torch.Tensor:
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
     ``lengths`` enables padded batching; ``remat`` is accepted for signature
-    parity and does nothing (see ``wav2vec2.encoder``). ``config.dtype=
+    parity and does nothing (see ``wav2vec2.encoder``). ``rules`` and
+    ``gelu`` plug in the blocks' SiLU/GLU and every GELU (DeepSHAP passes
+    ``conformer.deepshap_rules()`` and ``explain.deepshap.gelu_rescale``, the
+    batch axis carrying the (actual, reference) pair). ``config.dtype=
     "bfloat16"`` casts params (a no-op for leaves already bf16) and input.
     Raises where ``wav2vec2_logits`` does (an unknown ``matmul_precision``
     or dtype, CUDA outside its precision scope), and on rotary positions in
@@ -197,7 +203,7 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
             "cos and sin promote q and k to float32, and its depthwise conv then refuses "
             "a float32 input with a bf16 kernel)")
     params = cast_params_for_compute(params, cfg.dtype)
-    h = projected_features(params, cfg, input_values.to(dtype))
+    h = projected_features(params, cfg, input_values.to(dtype), gelu)
     bias = None
     if lengths is not None:
         frame_mask = frame_mask_for(cfg, lengths, h)
@@ -207,6 +213,6 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
     if cfg.position_embeddings_type == "relative":
         pe = rel_pos_embedding(h.shape[1], cfg.hidden_size, device=h.device).to(h.dtype)
     for layer in params["encoder"]["layers"]:
-        h = _conformer_block(layer, cfg, h, pe, bias)
+        h = _conformer_block(layer, cfg, h, pe, bias, rules, gelu)
     h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     return _linear(params["lm_head"], h).to(torch.float32)

@@ -218,10 +218,11 @@ def feature_lengths(config: Wav2Vec2Config, lengths: torch.Tensor) -> torch.Tens
 
 
 def feature_encoder(params: Params, config: Wav2Vec2Config,
-                    x: torch.Tensor) -> torch.Tensor:
+                    x: torch.Tensor, gelu=_gelu) -> torch.Tensor:
     """Raw waveform [B, N] -> features [B, T, C]; x320 total stride. The
     compute dtype is the waveform's (float32, bf16 or float16; anything
-    else is taken as float32)."""
+    else is taken as float32). ``gelu`` is the activation after each conv
+    layer (``explain.deepshap.gelu_rescale`` on a dual batch)."""
     h = x[..., None]
     if h.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         h = h.to(torch.float32)
@@ -233,12 +234,12 @@ def feature_encoder(params: Params, config: Wav2Vec2Config,
                             eps=config.layer_norm_eps)
         elif config.feat_extract_norm == "layer":
             h = _layer_norm(layer["norm"], h, eps=config.layer_norm_eps)
-        h = _gelu(h)
+        h = gelu(h)
     return h
 
 
 def _pos_conv_embedding(params: Params, config: Wav2Vec2Config,
-                        h: torch.Tensor) -> torch.Tensor:
+                        h: torch.Tensor, gelu=_gelu) -> torch.Tensor:
     """Grouped, padded conv positional embedding; an even kernel drops the
     last frame (the 'same' trim); then GELU."""
     p = params["encoder"]["pos_conv"]
@@ -247,11 +248,11 @@ def _pos_conv_embedding(params: Params, config: Wav2Vec2Config,
                 groups=config.num_conv_pos_embedding_groups, bias=p["bias"])
     if config.num_conv_pos_embeddings % 2 == 0:
         y = y[:, :-1, :]
-    return _gelu(y)
+    return gelu(y)
 
 
 def _encoder_layer(layer: Params, config: Wav2Vec2Config, h: torch.Tensor,
-                   bias: Optional[torch.Tensor]) -> torch.Tensor:
+                   bias: Optional[torch.Tensor], gelu=_gelu) -> torch.Tensor:
     """One encoder layer: post-LN (base) or pre-LN (do_stable_layer_norm)."""
     cfg = config
     b, t, d = h.shape
@@ -268,7 +269,7 @@ def _encoder_layer(layer: Params, config: Wav2Vec2Config, h: torch.Tensor,
 
     def ffn(x):
         return _linear(layer["ffn"]["output"],
-                       _gelu(_linear(layer["ffn"]["intermediate"], x)))
+                       gelu(_linear(layer["ffn"]["intermediate"], x)))
 
     if cfg.do_stable_layer_norm:
         h = h + attend(_layer_norm(layer["layer_norm"], h, cfg.layer_norm_eps))
@@ -281,8 +282,9 @@ def _encoder_layer(layer: Params, config: Wav2Vec2Config, h: torch.Tensor,
 
 def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
             frame_mask: Optional[torch.Tensor] = None,
-            remat: bool = False) -> torch.Tensor:
-    """Transformer encoder over features [B, T, H].
+            remat: bool = False, gelu=_gelu) -> torch.Tensor:
+    """Transformer encoder over features [B, T, H]; ``gelu`` is the
+    positional conv's and the FFNs' activation.
 
     ``remat`` is accepted for signature parity and does nothing: the
     explainer's forward runs at batch 1, so its saved activations are small
@@ -292,11 +294,11 @@ def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
     if frame_mask is not None:
         h = h * frame_mask[..., None]
         bias = torch.where(frame_mask[:, None, None, :] != 0, 0.0, -1e9).to(h.dtype)
-    h = h + _pos_conv_embedding(params, cfg, h)
+    h = h + _pos_conv_embedding(params, cfg, h, gelu)
     if not cfg.do_stable_layer_norm:
         h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     for layer in params["encoder"]["layers"]:
-        h = _encoder_layer(layer, cfg, h, bias)
+        h = _encoder_layer(layer, cfg, h, bias, gelu)
     if cfg.do_stable_layer_norm:
         h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     return h
@@ -305,26 +307,28 @@ def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
 def wav2vec2_logits(params: Params, config: Wav2Vec2Config,
                     input_values: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False, gelu=_gelu) -> torch.Tensor:
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
-    ``lengths`` enables padded batching. ``config.dtype="bfloat16"`` runs
+    ``lengths`` enables padded batching. ``gelu`` replaces every GELU of the
+    model (DeepSHAP passes ``explain.deepshap.gelu_rescale``, the batch axis
+    carrying the (actual, reference) pair). ``config.dtype="bfloat16"`` runs
     activations and params in bf16 (params cast here, a no-op for leaves
     already bf16; norm statistics stay float32). On CUDA it must run inside
     ``core.device.matmul_precision_scope(config.matmul_precision)``, else it
     raises: the model does not change torch's process-wide switches itself."""
     cfg = config
     params = cast_params_for_compute(params, cfg.dtype)
-    h = projected_features(params, cfg, input_values.to(compute_dtype(cfg.dtype)))
+    h = projected_features(params, cfg, input_values.to(compute_dtype(cfg.dtype)), gelu)
     frame_mask = None if lengths is None else frame_mask_for(cfg, lengths, h)
-    h = encoder(params, cfg, h, frame_mask, remat=remat)
+    h = encoder(params, cfg, h, frame_mask, remat=remat, gelu=gelu)
     return _linear(params["lm_head"], h).to(torch.float32)
 
 
 def projected_features(params: Params, config: Wav2Vec2Config,
-                       input_values: torch.Tensor) -> torch.Tensor:
+                       input_values: torch.Tensor, gelu=_gelu) -> torch.Tensor:
     """Waveform [B, N] (in the compute dtype) -> projected features [B, T,
-    hidden]: the numerics checks, the conv feature encoder and the feature
-    projection."""
+    hidden]: the numerics checks, the conv feature encoder (``gelu`` after
+    each conv layer) and the feature projection."""
     cfg = config
     check_matmul_precision(cfg.matmul_precision)
     if input_values.is_cuda and not precision_active(cfg.matmul_precision):
@@ -332,7 +336,7 @@ def projected_features(params: Params, config: Wav2Vec2Config,
             f"matmul_precision={cfg.matmul_precision!r} but torch's precision switches "
             f"are not its own: run the model inside core.device.matmul_precision_scope("
             f"{cfg.matmul_precision!r})")
-    feats = feature_encoder(params, cfg, input_values)
+    feats = feature_encoder(params, cfg, input_values, gelu)
     fp = params["feature_projection"]
     return _linear(fp["projection"], _layer_norm(fp["layer_norm"], feats,
                                                  cfg.layer_norm_eps))

@@ -1,7 +1,9 @@
-"""End-to-end attribution pipeline, expected-gradients branch, one device.
+"""End-to-end attribution pipeline, one device.
 
 Per sample: normalize -> one forward for the confidence and the greedy
-transcript -> expected-gradients attribution matrix -> persist the
+transcript -> the attribution matrix of ``ExplainerConfig.method``
+(expected gradients "grad", DeepSHAP "deep", KernelSHAP "kernel" or LIME
+"lime") -> persist the
 (audio, noise, shap_values, text) quadruple under the store's naming
 contract. The model config's type selects the forward (Wav2Vec2 or
 Wav2Vec2-Conformer, ``models.heads.model_logits_fn``); both share the
@@ -13,7 +15,11 @@ the reference's key paths), so a sample's result does not depend on
 bucketing or on which other samples the run holds.
 
 ``ExplainerConfig.kmeans_background`` > 0 reduces the background to that
-many centroids before explaining. ``host_draw_chunk`` > 0 splits the draws
+many centroids before explaining, for every method. DeepSHAP explains
+against each background row, with the dual forward of the model's family.
+KernelSHAP and LIME take the mean background row as their baseline and draw
+their coalitions from the draws' stream (seed, i, 1). ``host_draw_chunk`` > 0
+(expected gradients only, as in the reference) splits the draws
 into ceil(nsamples / host_draw_chunk) chunks of ``nsamples=host_draw_chunk``
 each (rounded up to ``draw_chunk``), chunk c drawing from (seed, i, 1, c);
 phi is the mean of the chunk means, as in the reference.
@@ -30,19 +36,31 @@ import numpy as np
 import torch
 
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
-from asr_shap_torch.core.config import ExplainerConfig, PipelineConfig, WAV2VEC2_VOCAB
+from asr_shap_torch.core.config import (
+    ExplainerConfig,
+    PipelineConfig,
+    WAV2VEC2_VOCAB,
+    Wav2Vec2ConformerConfig,
+)
 from asr_shap_torch.core.device import matmul_precision_scope, resolve_device
 from asr_shap_torch.core.prng import generator
 from asr_shap_torch.core.store import AttributionStore, key_for
 from asr_shap_torch.explain.baselines import kmeans_background, zeros_noise_background
+from asr_shap_torch.explain.deepshap import (
+    deep_shap_values,
+    w2v2_conformer_dual_fn,
+    wav2vec2_dual_fn,
+)
 from asr_shap_torch.explain.expected_gradients import (
     Draws,
     expected_phi,
     num_draws,
     sample_draws,
 )
+from asr_shap_torch.explain.kernel_shap import kernel_shap_attributions
+from asr_shap_torch.explain.lime import lime_attributions
 from asr_shap_torch.metrics.confidence import mean_max_softmax_confidence
-from asr_shap_torch.models.heads import make_explained_fn, model_logits_fn
+from asr_shap_torch.models.heads import make_batched_fn, make_explained_fn, model_logits_fn
 from asr_shap_torch.models.wav2vec2 import cast_params_for_compute
 from asr_shap_torch.ops.ctc import ctc_greedy_decode, ctc_ids_to_text
 from asr_shap_torch.utils.debug import check_finite
@@ -74,13 +92,36 @@ def chunked_phi(f, x: torch.Tensor, background: torch.Tensor,
     return acc / len(chunks)
 
 
+def explain_phi(params, cfg: PipelineConfig, x: torch.Tensor, background: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """phi [N, T_out] of the "deep", "kernel" or "lime" method at x against
+    ``background`` (after k-means). The coalitions of KernelSHAP and LIME
+    come from ``generator``, or are ``masks`` when given (the tests feed the
+    reference's)."""
+    mc, ec = cfg.model, cfg.explainer
+    if ec.method == "deep":
+        dual_builder = (w2v2_conformer_dual_fn if isinstance(mc, Wav2Vec2ConformerConfig)
+                        else wav2vec2_dual_fn)
+        return deep_shap_values(dual_builder(params, mc, ec), x, background,
+                                ec.output_chunk).values
+    f_batch = make_batched_fn(params, mc, ec)
+    if ec.method == "kernel":
+        return kernel_shap_attributions(
+            f_batch, x, generator, num_segments=ec.kernel_num_segments,
+            num_samples=ec.nsamples, baseline=background.mean(dim=0), masks=masks).values
+    if ec.method == "lime":
+        return lime_attributions(
+            f_batch, x, generator, num_segments=ec.lime_num_segments,
+            num_samples=ec.lime_num_samples, keep_prob=ec.lime_keep_prob,
+            ridge_alpha=ec.lime_ridge_alpha, baseline=background.mean(dim=0),
+            masks=masks).values
+    raise ValueError(f"unknown explainer method {ec.method!r}")
+
+
 def _explain_sample(params, cfg: PipelineConfig, x: torch.Tensor, index: int):
     """(phi [N, T_out], confidence, ids [T], keep [T]) for one sample."""
     mc, ec = cfg.model, cfg.explainer
-    if ec.method != "grad":
-        raise NotImplementedError(f"explainer method {ec.method!r} is not ported")
-    f = make_explained_fn(params, mc, ec)
-
     with torch.no_grad():
         logits = model_logits_fn(mc)(params, mc, x[None, :])
         conf = mean_max_softmax_confidence(logits)[0]
@@ -91,13 +132,16 @@ def _explain_sample(params, cfg: PipelineConfig, x: torch.Tensor, index: int):
     if ec.kmeans_background > 0:
         init = torch.randperm(bg.shape[0], generator=generator(cfg.seed, index, _KMEANS))
         bg = kmeans_background(bg, ec.kmeans_background, init[:ec.kmeans_background])
+    if ec.method != "grad":
+        phi = explain_phi(params, cfg, x, bg, generator(cfg.seed, index, _DRAWS))
+        return phi, conf, ids[0], keep[0]
     chunks = draw_chunks(ec)
     if ec.host_draw_chunk <= 0:
         streams = [generator(cfg.seed, index, _DRAWS)]
     else:
         streams = [generator(cfg.seed, index, _DRAWS, c) for c in range(len(chunks))]
     draws = [sample_draws(g, num_draws(c), bg.shape[0]) for g, c in zip(streams, chunks)]
-    phi = chunked_phi(f, x, bg, chunks, draws)
+    phi = chunked_phi(make_explained_fn(params, mc, ec), x, bg, chunks, draws)
     return phi, conf, ids[0], keep[0]
 
 

@@ -11,7 +11,9 @@ the conformer slice (Wav2Vec2-Conformer rel-pos-large, kernels K1 and the
 full-bias flash kernels K2f, K3b, K4f), the bf16 path (Wav2Vec2-base
 with dtype="bfloat16", matmul_precision="default": the bf16 kernels of
 K1-K4) and the bf16 conformer (the conformer with the same numerics: the
-bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
+bf16 K1, K2f, K3b and K4f); then the base path (and, for DeepSHAP, the
+conformer) again through the other explainers, DeepSHAP, KernelSHAP and
+LIME. Phases, each reported on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once; log
@@ -93,7 +95,23 @@ bf16 K1, K2f, K3b and K4f). Phases, each reported on its own lines:
    dgrad in the library's bf16 and on float32 copies; the slice per draw beside the
    float32 conformer's; and ``run-shap`` then ``sweep`` on the trained
    conformer archive switched to bf16 ("cli conformer bf16" lines). Its
-   JSON entries are K2f-bf16, K3b-bf16 and K4f-bf16.
+   JSON entries are K2f-bf16, K3b-bf16 and K4f-bf16;
+9. the explainers, last: every kernel at the shapes DeepSHAP, KernelSHAP,
+   LIME and faithfulness give it, in float32 and bf16, against its plain
+   version at its tolerance and timed beside its bound and a library call
+   (K1 at DeepSHAP's dual batch of 2 x 149 rows; K3/K4 and K3b/K4f at a
+   residual batch of 2; K2 at 16 and 21 clips, K2f at 16; "timing
+   explainers" lines); DeepSHAP (5 background rows), KernelSHAP and LIME
+   (64 coalitions of 32 segments) through run_shap_pipeline on the base
+   path in float32 and bf16, and DeepSHAP on the conformer, each with the
+   exact launch counts of its kernels; DeepSHAP's phi of one background
+   row and KernelSHAP's and LIME's segment values, model output and base
+   value (intercept) through the kernels against plain PyTorch (2e-3 of
+   max|.|); in bf16 the rule of phase 7; wall, device-busy time and peak
+   memory per explained sample ("explainers time" lines); and run-shap
+   --method deep, kernel and lime, then faithfulness over each store, on
+   the trained conformer archive on the card and on the CPU (phi within
+   2e-3 of max|phi|, equal faithfulness records).
 
 Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
 two bf16 forward and the four bf16 backward kernels also with their
@@ -134,18 +152,25 @@ from asr_shap_torch.core.config import (
 from asr_shap_torch.core.device import highest_precision, matmul_precision_scope
 from asr_shap_torch.core.params_io import load_config, load_params, save_params
 from asr_shap_torch.core.store import AttributionStore, key_for
+from asr_shap_torch.explain.deepshap import (
+    deep_shap_values,
+    w2v2_conformer_dual_fn,
+    wav2vec2_dual_fn,
+)
 from asr_shap_torch.explain.expected_gradients import expected_phi, sample_draws
+from asr_shap_torch.explain.kernel_shap import kernel_shap_attributions, sample_coalitions
+from asr_shap_torch.explain.lime import lime_attributions, lime_masks
 from asr_shap_torch.kernels import LAUNCHES, build_all, reset_launches
 from asr_shap_torch.kernels import _build
 from asr_shap_torch.kernels import conv_dgrad as k1
 from asr_shap_torch.kernels import flash_attention as fa
 from asr_shap_torch.metrics.eta_raw import eta_raw
 from asr_shap_torch.metrics.wer import wer
-from asr_shap_torch.models.heads import make_explained_fn, model_logits_fn
+from asr_shap_torch.models.heads import make_batched_fn, make_explained_fn, model_logits_fn
 from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
 from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params
 from asr_shap_torch.ops.attention import rel_shift
-from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
+from asr_shap_torch.pipeline.run_shap import explain_phi, run_shap_pipeline
 
 N_SAMPLES = 48_000
 NSAMPLES = 4
@@ -279,6 +304,23 @@ def device_ms(fn, kernel: str, iters: int = 50, tries: int = 3) -> float:
             return total / count / 1e3
         log(f"profiler saw {count} launches of {kernel} of {iters}; profiling again")
     raise CheckFailed(f"profiler saw under half the launches of {kernel} in {tries} tries")
+
+
+def device_ms_per_call(fn, iters: int = 50) -> float:
+    """Device time per call of ``fn`` (all its kernels), from torch.profiler
+    over ``iters`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "the profiler recorded no device time")
+    return total / iters / 1e3
 
 
 def compare_bf16(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -936,7 +978,8 @@ def phase_pipeline(label: str, cfg: PipelineConfig, params, test_set, expect):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    log(f"pipeline {label}: {len(results)} samples x {NSAMPLES} draws in {wall:.2f} s; "
+    log(f"pipeline {label}: {len(results)} samples, method {cfg.explainer.method} "
+        f"(nsamples {cfg.explainer.nsamples}) in {wall:.2f} s; "
         f"launches {json.dumps(launches)}")
     t_out = cfg.model.frames_for_samples(N_SAMPLES)
     check(len(results) == len(test_set), "pipeline: missing samples")
@@ -1077,6 +1120,14 @@ def archive_with_kernels(path: str, out: str, **numerics) -> str:
     return out
 
 
+def path_kernels(mc: Wav2Vec2Config) -> tuple:
+    """The (K1, forward, dq, dk/dv) launch counters of a model's path."""
+    conformer = isinstance(mc, Wav2Vec2ConformerConfig)
+    if mc.dtype == "bfloat16":
+        return BF16_CONFORMER_KERNELS if conformer else BF16_KERNELS
+    return CONFORMER_KERNELS if conformer else BASE_KERNELS
+
+
 def cli_run(label: str, archive: str, data_dir: str, args, arch="wav2vec2"):
     """run-shap then sweep on the card; each command's kernels must launch:
     the expected-gradients kernels of the path (by the archive's family and
@@ -1084,11 +1135,7 @@ def cli_run(label: str, archive: str, data_dir: str, args, arch="wav2vec2"):
     else from sweep. Returns the sweep's records and its summary line."""
     model = ["--params", archive, "--arch", arch]
     cfg = load_config(archive)
-    conformer = arch == "w2v2-conformer"
-    if cfg.dtype == "bfloat16":
-        kernels = BF16_CONFORMER_KERNELS if conformer else BF16_KERNELS
-    else:
-        kernels = CONFORMER_KERNELS if conformer else BASE_KERNELS
+    kernels = path_kernels(cfg)
     fwd = kernels[1]
     if not k1.eligible(cfg.conv_dim[0], cfg.conv_dim[1], cfg.conv_stride[1], 1, 0):
         kernels = kernels[1:]  # no conv layer K1 takes (narrow conv channels)
@@ -1603,14 +1650,52 @@ def expected_launches_bf16(cfg: PipelineConfig, samples: int) -> dict:
     or the conformer's K2f, K3b, K4f) once per encoder layer and pass."""
     draws, layers = cfg.explainer.nsamples, cfg.model.num_hidden_layers
     convs = len(k1_main_shapes(cfg.model, 1))
-    conformer = isinstance(cfg.model, Wav2Vec2ConformerConfig)
-    k1_, fwd, dq, dkv = BF16_CONFORMER_KERNELS if conformer else BF16_KERNELS
+    k1_, fwd, dq, dkv = path_kernels(cfg.model)
     return {k1_: samples * draws * convs, fwd: samples * (draws + 1) * layers,
             dq: samples * draws * layers, dkv: samples * draws * layers}
 
 
 def _corr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.corrcoef(torch.stack([a.ravel().double(), b.ravel().double()]))[0, 1])
+
+
+def defined_frames(label: str, logits: dict) -> torch.Tensor:
+    """[T] mask of the frames whose max head is defined at bf16: the top two
+    float32 logits (logits["32"], [T, V]) further apart than twice the
+    larger of the two bf16 paths' (logits["k16"], logits["p16"]) largest
+    logit errors at that frame. Fails if under a tenth of the frames are."""
+    err = torch.maximum((logits["k16"] - logits["32"]).abs().amax(-1),
+                        (logits["p16"] - logits["32"]).abs().amax(-1))
+    top2 = logits["32"].topk(2, dim=-1).values
+    defined = (top2[:, 0] - top2[:, 1]) > 2 * err
+    t_out = defined.numel()
+    log(f"{label}: max|logit| float32 {float(logits['32'].abs().max()):.4e}; largest logit "
+        f"error at the input: kernels {float((logits['k16'] - logits['32']).abs().max()):.4e}, "
+        f"plain {float((logits['p16'] - logits['32']).abs().max()):.4e}; max head defined "
+        f"at bf16 on {int(defined.sum())} of {t_out} frames")
+    check(int(defined.sum()) >= t_out // 10, f"{label}: the max head is defined on under a "
+          "tenth of the frames; the comparison would say nothing")
+    return defined
+
+
+def phi_rule(label: str, phi: dict, frame_sets) -> None:
+    """The bf16 rule for phi [N, T_out]: the kernel path (phi["k16"]) no
+    further from float32 (phi["32"]) than 1.5x the plain bf16 path
+    (phi["p16"]), and correlating with it at least as well less 0.01. Logged
+    on each (name, frame selection) of ``frame_sets``, gated on the last."""
+    ref = phi["32"]
+    for frames, sel in frame_sets:
+        nk = float((phi["k16"][:, sel] - ref[:, sel]).norm())
+        np_ = float((phi["p16"][:, sel] - ref[:, sel]).norm())
+        ck, cp = _corr(phi["k16"][:, sel], ref[:, sel]), _corr(phi["p16"][:, sel], ref[:, sel])
+        log(f"{label} ({frames}): |phi_k16 - phi_32| = {nk:.6e}, |phi_p16 - phi_32| = "
+            f"{np_:.6e} (ratio {nk / np_:.3f}, limit 1.5), |phi_32| = "
+            f"{float(ref[:, sel].norm()):.6e}; corr(phi_k16, phi_32) = {ck:.6f}, "
+            f"corr(phi_p16, phi_32) = {cp:.6f}")
+    check(nk <= 1.5 * np_, f"{label}: the kernel path is further from float32 than 1.5x "
+          "the plain bf16 path")
+    check(ck >= cp - 0.01, f"{label}: the kernel path correlates less with float32 than "
+          "the plain bf16 path, by over 0.01")
 
 
 def phase_reference_bf16(label: str, cfg: PipelineConfig, params, test_set):
@@ -1647,30 +1732,9 @@ def phase_reference_bf16(label: str, cfg: PipelineConfig, params, test_set):
                 logits[key] = model_logits(p, mc, x_t[None])[0]
         check(phi[key].dtype == torch.float32, f"{label} {key}: {phi[key].dtype}")
         check(bool(torch.isfinite(phi[key]).all()), f"{label} {key}: not finite")
-    err = torch.maximum((logits["k16"] - logits["32"]).abs().amax(-1),
-                        (logits["p16"] - logits["32"]).abs().amax(-1))
-    top2 = logits["32"].topk(2, dim=-1).values
-    defined = (top2[:, 0] - top2[:, 1]) > 2 * err
-    t_out = defined.numel()
-    log(f"{label}: max|logit| float32 {float(logits['32'].abs().max()):.4e}; largest logit "
-        f"error at x_t: kernels {float((logits['k16'] - logits['32']).abs().max()):.4e}, "
-        f"plain {float((logits['p16'] - logits['32']).abs().max()):.4e}; max head defined "
-        f"at bf16 on {int(defined.sum())} of {t_out} frames")
-    check(int(defined.sum()) >= t_out // 10, f"{label}: the max head is defined on under a "
-          "tenth of the frames; the comparison would say nothing")
+    defined = defined_frames(label, logits)
+    phi_rule(label, phi, (("all frames", slice(None)), ("defined frames", defined)))
     ref = phi["32"]
-    for frames, sel in (("all frames", slice(None)), ("defined frames", defined)):
-        nk = float((phi["k16"][:, sel] - ref[:, sel]).norm())
-        np_ = float((phi["p16"][:, sel] - ref[:, sel]).norm())
-        ck, cp = _corr(phi["k16"][:, sel], ref[:, sel]), _corr(phi["p16"][:, sel], ref[:, sel])
-        log(f"{label} ({frames}): |phi_k16 - phi_32| = {nk:.6e}, |phi_p16 - phi_32| = "
-            f"{np_:.6e} (ratio {nk / np_:.3f}, limit 1.5), |phi_32| = "
-            f"{float(ref[:, sel].norm()):.6e}; corr(phi_k16, phi_32) = {ck:.6f}, "
-            f"corr(phi_p16, phi_32) = {cp:.6f}")
-    check(nk <= 1.5 * np_, f"{label}: the kernel path is further from float32 than 1.5x "
-          "the plain bf16 path")
-    check(ck >= cp - 0.01, f"{label}: the kernel path correlates less with float32 than "
-          "the plain bf16 path, by over 0.01")
     s32 = float(ref.abs().sum())
     for key in ("k16", "32 default"):
         s = float(phi[key].abs().sum())
@@ -2000,6 +2064,447 @@ def phase_bf16_conformer(model16: Wav2Vec2ConformerConfig, explainer: ExplainerC
     return errs, extra, launches, out
 
 
+# ---------------------------------------------------------------- explainers
+
+METHODS = ("deep", "kernel", "lime")
+# DeepSHAP's background rows; KernelSHAP's coalitions and LIME's
+# perturbations per sample (4 batches of 16 whole clips) over 32 segments
+DEEP_BACKGROUND, COALITIONS, SEGMENTS = 5, 64, 32
+# the perturbation explainers' batch of whole clips (explain/kernel_shap.py)
+CLIP_BATCH = 16
+# the command line on the trained conformer archive, on the card and the CPU
+EXPLAINER_CLI_ARGS = ("--num-samples", "1", "--snrs", "5", "--min-length", str(N_SAMPLES),
+                      "--max-length", str(N_SAMPLES), "--num-background", "2",
+                      "--nsamples", "32", "--kernel-segments", "16")
+
+
+def method_config(explainer: ExplainerConfig, method: str) -> ExplainerConfig:
+    return dataclasses.replace(explainer, method=method, num_background=DEEP_BACKGROUND,
+                               nsamples=COALITIONS, kernel_num_segments=SEGMENTS,
+                               lime_num_samples=COALITIONS, lime_num_segments=SEGMENTS)
+
+
+def expected_launches_method(cfg: PipelineConfig, samples: int) -> dict:
+    """Launches of each kernel on a pipeline run of the deep, kernel or lime
+    method (no k-means) on clips of N_SAMPLES, counted from the code: per
+    sample one forward for the transcript; DeepSHAP per background row one
+    forward of the dual batch and one backward per chunk of
+    ``output_chunk`` cotangent rows, then f at (x, x) and at each (r, r);
+    KernelSHAP
+    f(x) and f(b) as one batch, then ceil(M / 16) batches of masked clips;
+    LIME the ceil(M / 16) batches. K1 once per eligible conv layer and
+    backward, the flash kernels once per encoder layer and pass."""
+    ec, mc = cfg.explainer, cfg.model
+    check(ec.kmeans_background == 0, "expected_launches_method: no k-means")
+    layers, convs = mc.num_hidden_layers, len(k1_main_shapes(mc, 1))
+    b, t_out, oc = ec.num_background, mc.frames_for_samples(N_SAMPLES), ec.output_chunk
+    chunks = -(-t_out // oc) if 0 < oc < t_out else 1
+    fwd, bwd = {"deep": (2 + 2 * b, b * chunks),
+                "kernel": (2 + -(-ec.nsamples // CLIP_BATCH), 0),
+                "lime": (1 + -(-ec.lime_num_samples // CLIP_BATCH), 0)}[ec.method]
+    k1_, f, dq, dkv = path_kernels(mc)
+    want = {f: samples * fwd * layers, k1_: samples * bwd * convs,
+            dq: samples * bwd * layers, dkv: samples * bwd * layers}
+    return {name: n for name, n in want.items() if n}
+
+
+def explainer_inputs(test_set):
+    """(x, background): the 5 dB clip, normalized, on the card, and
+    DEEP_BACKGROUND rows of 0.01 N(0, 1) from a fixed seed (those of
+    ``reference_draw``)."""
+    x = zero_mean_unit_var(torch.from_numpy(test_set[1]["audio"]).cuda())
+    bg = 0.01 * torch.randn((DEEP_BACKGROUND, N_SAMPLES),
+                            generator=torch.Generator().manual_seed(1)).cuda()
+    return x, bg
+
+
+def dual_builder(mc: Wav2Vec2Config):
+    return (w2v2_conformer_dual_fn if isinstance(mc, Wav2Vec2ConformerConfig)
+            else wav2vec2_dual_fn)
+
+
+def perturbation_explain(method: str, params, mc: Wav2Vec2Config, ec: ExplainerConfig,
+                         x, baseline):
+    """KernelSHAP or LIME at x with fixed coalitions (seed 3)."""
+    f_batch = make_batched_fn(params, mc, ec)
+    if method == "kernel":
+        masks = sample_coalitions(torch.Generator().manual_seed(3), ec.kernel_num_segments,
+                                  ec.nsamples)
+        return kernel_shap_attributions(f_batch, x, num_segments=ec.kernel_num_segments,
+                                        baseline=baseline, masks=masks)
+    masks = lime_masks(torch.Generator().manual_seed(3), ec.lime_num_segments,
+                       ec.lime_num_samples, ec.lime_keep_prob)
+    return lime_attributions(f_batch, x, num_segments=ec.lime_num_segments,
+                             keep_prob=ec.lime_keep_prob, ridge_alpha=ec.lime_ridge_alpha,
+                             baseline=baseline, masks=masks)
+
+
+def deep_gate(label: str, cfg: PipelineConfig, params, test_set) -> None:
+    """DeepSHAP's phi against one background row through the kernels and
+    through plain PyTorch on the card, within 2e-3 of max|phi|; the sum of
+    phi over the samples against f(x) - f(r) per frame is logged."""
+    mc, ec = cfg.model, cfg.explainer
+    x, bg = explainer_inputs(test_set)
+    plain = dataclasses.replace(mc, attention_impl="xla", conv_impl="lax")
+    build = dual_builder(mc)
+    out_k = deep_shap_values(build(params, mc, ec), x, bg[2:3], ec.output_chunk)
+    out_p = deep_shap_values(build(params, plain, ec), x, bg[2:3], ec.output_chunk)
+    scale = float(out_p.values.abs().max())
+    err = compare(f"deep {label}: phi of one background row, kernels vs plain PyTorch",
+                  out_k.values, out_p.values, 2e-3 * scale, 0.0,
+                  f"2e-3 of max|phi|: float32 through {mc.num_hidden_layers} layers and the "
+                  "rescale rules, another summation order in every product")
+    gap = out_k.model_output - out_k.base_values
+    miss = (out_k.values.sum(dim=0) - gap).abs()
+    log(f"deep {label}: max_abs_err / max|phi| = {err / scale:.3e}; (information) "
+        f"completeness: max_t |sum_n phi - (f(x) - f(r))| = {float(miss.max()):.4e} against "
+        f"max_t |f(x) - f(r)| = {float(gap.abs().max()):.4e} (not exact: the norms and "
+        "attention take their plain gradient)")
+
+
+def perturbation_gate(label: str, method: str, cfg: PipelineConfig, params, test_set) -> None:
+    """KernelSHAP or LIME with the same coalitions through the kernels and
+    through plain PyTorch on the card: segment values, model output and the
+    base value (LIME: intercept), each within 2e-3 of its max|.|."""
+    mc, ec = cfg.model, cfg.explainer
+    x, bg = explainer_inputs(test_set)
+    plain = dataclasses.replace(mc, attention_impl="xla", conv_impl="lax")
+    got = perturbation_explain(method, params, mc, ec, x, bg.mean(dim=0))
+    want = perturbation_explain(method, params, plain, ec, x, bg.mean(dim=0))
+    for field in ("segment_values", "model_output",
+                  "base_value" if method == "kernel" else "intercept"):
+        a, b = getattr(got, field), getattr(want, field)
+        compare(f"{method} {label} {field} {tuple(b.shape)}, kernels vs plain PyTorch", a, b,
+                2e-3 * float(b.abs().max()), 0.0,
+                f"2e-3 of max|.|: float32 forwards of {CLIP_BATCH} clips per batch, another "
+                "summation order, through the same least-squares solve")
+
+
+def bf16_method_rule(label: str, method: str, cfg16: PipelineConfig, params, test_set) -> None:
+    """phi of a method three ways, as ``phase_reference_bf16`` holds expected
+    gradients: bf16 + "default" through the kernels, through plain PyTorch,
+    and float32 + "highest" through the kernels (DeepSHAP against one
+    background row, gated on the frames whose max head is defined at bf16;
+    KernelSHAP and LIME with fixed coalitions, on every frame: they take the
+    max head's values only, which move continuously)."""
+    ec = cfg16.explainer
+    x, bg = explainer_inputs(test_set)
+    k16 = cfg16.model
+    paths = {"k16": (k16, cast_params_for_compute(params, "bfloat16")),
+             "p16": (dataclasses.replace(k16, attention_impl="xla", conv_impl="lax"),
+                     cast_params_for_compute(params, "bfloat16")),
+             "32": (dataclasses.replace(k16, dtype="float32", matmul_precision="highest"),
+                    params)}
+    phi, logits = {}, {}
+    for key, (mc, p) in paths.items():
+        with matmul_precision_scope(mc.matmul_precision):
+            if method == "deep":
+                phi[key] = deep_shap_values(dual_builder(mc)(p, mc, ec), x, bg[2:3],
+                                            ec.output_chunk).values
+            else:
+                phi[key] = perturbation_explain(method, p, mc, ec, x, bg.mean(dim=0)).values
+            with torch.no_grad():
+                logits[key] = model_logits_fn(mc)(p, mc, x[None])[0]
+        check(phi[key].dtype == torch.float32 and bool(torch.isfinite(phi[key]).all()),
+              f"{label} {key}: phi {phi[key].dtype} not finite float32")
+    frame_sets = [("all frames", slice(None))]
+    if method == "deep":
+        frame_sets.append(("defined frames", defined_frames(label, logits)))
+    phi_rule(label, phi, frame_sets)
+
+
+def time_method(label: str, cfg: PipelineConfig, params, test_set, smi: str) -> None:
+    """Wall and device-busy ms of one explained sample (the clean clip,
+    ``explain_phi`` with the pipeline's background), and its peak device
+    memory: one run unprofiled, one under torch.profiler (its busy time
+    against its own wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = zero_mean_unit_var(torch.from_numpy(test_set[0]["audio"]).cuda())
+    _, bg = explainer_inputs(test_set)
+    run = lambda: explain_phi(params, cfg, x, bg, torch.Generator().manual_seed(4))  # noqa: E731
+    with matmul_precision_scope(cfg.model.matmul_precision):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    busy_s = (f"{busy:.1f} ms ({100 * busy / prof_ms:.1f}% of the profiled wall "
+              f"{prof_ms:.1f} ms)" if busy else "not measured")
+    log(f"explainers time {label}: wall {wall_ms:.1f} ms per explained sample, device busy "
+        f"{busy_s}, peak device memory {peak:.2f} GiB ({N_SAMPLES} samples; {smi})")
+
+
+def flash_cost(kind: str, bh: int, n: int, t: int, d: int, dtype, full: bool):
+    """(operations, bytes) of one launch of the flash forward ("fwd"), dq
+    ("dq") or dk/dv ("dkv"): q, k, v, o, g, dq, dk, dv in the inputs' dtype,
+    lse, dd, the full bias and d(bias) float32, each read or written once;
+    the scores counted once per residual row (as ``flash_costs``)."""
+    e = 2.0 if dtype == BF16 else 4.0
+    tt = 4.0 * bh * t * t if full else 0.0
+    if kind == "fwd":
+        return 4.0 * bh * t * t * d, e * 4 * bh * t * d + 4.0 * bh * t + tt
+    if kind == "dq":
+        return (4.0 * n * t * t * d + 2.0 * bh * t * t * d,
+                e * (2 * n * t * d + 4 * bh * t * d) + 4.0 * (n * t + bh * t) + tt
+                + (4.0 * n * t * t if full else 0.0))
+    return (6.0 * n * t * t * d + 2.0 * bh * t * t * d,
+            e * (3 * n * t * d + 3 * bh * t * d) + 4.0 * (n * t + bh * t) + tt)
+
+
+def kernel_bound(fl: float, nb: float, dtype):
+    return bound_bf16(fl, nb) if dtype == BF16 else bound_3xtf32(fl, nb)
+
+
+def explainer_shapes_k1(gen, base: Wav2Vec2Config, dtype) -> None:
+    """K1 at DeepSHAP's dual batch (2 x 149 cotangent rows) against its plain
+    version at each eligible layer, then timed beside its bound and cuDNN's
+    dgrad (per dual backward: one launch per layer)."""
+    rows = 2 * base.frames_for_samples(N_SAMPLES)
+    name = k1_name(dtype)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    for k, s, ci, co, ti, to in k1_main_shapes(base, rows):
+        ybar, w = (x.to(dtype) for x in k1_inputs(gen, rows, k, ci, co, to))
+        got = k1.conv1d_dgrad(ybar, w, s, ti)
+        compare_bf16(f"{name} B={rows} (DeepSHAP's dual batch) K={k} s={s} C={ci}x{co} "
+                     f"T_out={to}", got, k1.conv1d_dgrad_plain(ybar, w, s, ti), 5e-4, 1e-4,
+                     "K1's tolerance: 3xTF32 products summed in float32, another order")
+        del got
+        x_nct = torch.empty((rows, ci, ti), device="cuda", dtype=dtype)
+        y_nct = ybar.transpose(1, 2).contiguous()
+        w_oik = w.permute(2, 1, 0).contiguous()
+        iters = 3 if to > 1000 else 10
+        vals = dict(
+            ms=time_ms(lambda: k1.conv1d_dgrad(ybar, w, s, ti), iters),
+            plain_ms=time_ms(lambda: k1.conv1d_dgrad_plain(ybar, w, s, ti), iters),
+            library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
+                y_nct, x_nct, w_oik, None, [s], [0], [1], False, [0], 1,
+                [True, False, False]), iters))
+        fl, nb = k1_cost(rows, k, s, ci, co, ti, to)
+        vals.update(flops=fl, bytes=nb / 2 if dtype == BF16 else nb)
+        for key, val in vals.items():
+            tot[key] += val
+        del ybar, w, x_nct, y_nct, w_oik
+    b_ms, b_by = kernel_bound(tot["flops"], tot["bytes"], dtype)
+    log(f"timing explainers {name} B={rows} per dual backward: ms={tot['ms']:.4f} "
+        f"plain_ms={tot['plain_ms']:.4f} library_ms(cuDNN dgrad)={tot['library_ms']:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+
+
+def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype) -> None:
+    """K3 and K4 (the conformer: K3b and K4f, with a rel-pos-like bias) at
+    DeepSHAP's residual batch of 2 with 149 cotangent rows per residual row,
+    against their plain versions and timed beside their bound and SDPA's
+    backward on the same inputs."""
+    full = isinstance(mc, Wav2Vec2ConformerConfig)
+    rows = mc.frames_for_samples(N_SAMPLES)
+    h, d, t = mc.num_attention_heads, mc.head_dim, rows
+    q, k, v, _, g = (None if x is None else x.to(dtype)
+                     for x in flash_inputs(gen, 2, h, t, d, rows, False))
+    bias = rel_pos_bias(gen, q, False) if full else None
+    bh, n = q.shape[0], g.shape[0]
+    o, lse = fa.flash_fwd_plain(q, k, v, bias, h)
+    dq_name, dkv_name = bwd_kernel_names(full, dtype)
+    label = f"BH={bh} (residual batch 2) N={n} T={t}"
+    why = "float32 backward sums over 149 keys, another summation order"
+    dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, h)
+    dq_p, dd_p, dbias_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
+    compare_bf16(f"{dq_name} dq {label}", dq, dq_p, 5e-5, 5e-4, why)
+    compare_bf16(f"{dq_name} dd {label}", dd, dd_p, 5e-5, 5e-4, why)
+    if full:
+        compare(f"{dq_name} dbias {label}", dbias, dbias_p, 5e-5, 5e-4, why)
+    del dq, dd, dbias, dq_p, dbias_p
+    dk, dv = fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h)
+    dk_p, dv_p = fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)
+    compare_bf16(f"{dkv_name} dk {label}", dk, dk_p, 5e-5, 5e-4, why)
+    compare_bf16(f"{dkv_name} dv {label}", dv, dv_p, 5e-5, 5e-4, why)
+    del dk, dv, dk_p, dv_p
+    q4, k4, v4 = (x.reshape(2, h, t, d) for x in (q, k, v))
+    qe, ke, ve = (x.expand(rows, 2, h, t, d).reshape(rows * 2, h, t, d).contiguous()
+                  .requires_grad_() for x in (q4, k4, v4))
+    inputs, mask = (qe, ke, ve), None
+    if full:
+        mask = (bias.reshape(2, h, t, t).expand(rows, 2, h, t, t).reshape(rows * 2, h, t, t)
+                .to(dtype).contiguous().requires_grad_())
+        inputs += (mask,)
+    oe = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=mask)
+    g4 = g.reshape(rows * 2, h, t, d)
+    lib = time_ms(lambda: torch.autograd.grad(oe, inputs, g4, retain_graph=True), 5)
+    del oe, qe, ke, ve, mask, inputs
+    for name, kind, fn, pfn in (
+        (dq_name, "dq", lambda: fa.flash_dq(q, k, v, o, lse, g, bias, h),
+         lambda: fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)),
+        (dkv_name, "dkv", lambda: fa.flash_dkv(q, k, v, lse, g, dd_p, bias, h),
+         lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)),
+    ):
+        ms, pms = time_ms(fn, 5), time_ms(pfn, 5)
+        b_ms, b_by = kernel_bound(*flash_cost(kind, bh, n, t, d, dtype, full), dtype)
+        log(f"timing explainers {name} {label}: ms={ms:.4f} plain_ms={pms:.4f} "
+            f"library_ms(SDPA backward, same inputs)={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    del q, k, v, g, bias, o, lse, dd_p
+
+
+def explainer_shapes_forward(gen, mc: Wav2Vec2Config, clips, dtype) -> None:
+    """K2 (the conformer: K2f, with a rel-pos-like bias) at the perturbation
+    explainers' and faithfulness's batches of whole clips, against its plain
+    version at both block heights, and timed beside its bound and SDPA's
+    forward (K2's time is device time under torch.profiler, per launch)."""
+    full = isinstance(mc, Wav2Vec2ConformerConfig)
+    h, d, t = mc.num_attention_heads, mc.head_dim, mc.frames_for_samples(N_SAMPLES)
+    name = ("flash_fwd_bias" if full else "flash_fwd") + ("_bf16" if dtype == BF16 else "")
+    kname = "flash_fwd_bf16_kernel" if dtype == BF16 else "flash_fwd_kernel"
+    for b in clips:
+        q, k, v, _, _ = (None if x is None else x.to(dtype)
+                         for x in flash_inputs(gen, b, h, t, d, 1, False))
+        bias = rel_pos_bias(gen, q, False) if full else None
+        want = fa.flash_fwd_plain(q, k, v, bias, h)
+        label = f"BH={b * h} ({b} clips) T={t}"
+        fa._check(q, k, v, bias, h)
+        for rows in fa.FWD_ROWS:
+            got = fa._fwd_launch(q, k, v, bias, h, rows)
+            for part, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
+                compare_bf16(f"{name} {part} {label} rows/block={rows}", x, y, 2e-5, 2e-4,
+                             "float32 softmax over 149 keys, another summation order")
+        q4, k4, v4 = (x.reshape(b, h, t, d) for x in (q, k, v))
+        mask = None if bias is None else bias.reshape(b, h, t, t).to(dtype)
+        ms = time_ms(lambda: fa.flash_fwd(q, k, v, bias, h), 50)
+        pms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, bias, h), 20)
+        lms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 50)
+        dms = device_ms(lambda: fa.flash_fwd(q, k, v, bias, h), kname)
+        sdpa_dms = device_ms_per_call(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
+        b_ms, b_by = kernel_bound(*flash_cost("fwd", b * h, b * h, t, d, dtype, full), dtype)
+        log(f"timing explainers {name} {label} rows/block={fa.fwd_block_rows(q)}: ms={ms:.4f} "
+            f"device_ms={dms:.5f} plain_ms={pms:.4f} library_ms(SDPA forward)={lms:.4f} "
+            f"library_device_ms={sdpa_dms:.5f} bound_ms={b_ms:.5f} ({b_by}); device time "
+            f"K2/SDPA {dms / sdpa_dms:.3f}")
+        del q, k, v, bias, want, q4, k4, v4, mask
+
+
+def phase_explainer_shapes(base: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig) -> None:
+    """Every kernel at the shapes the explainers give it, in float32 and in
+    bf16: K1 at 2 x 149 rows; K3/K4 and K3b/K4f at a residual batch of 2;
+    K2 at 16 and 21 clips (BH = 192, 252), K2f at 16 clips (BH = 256)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for dtype in (torch.float32, BF16):
+        explainer_shapes_k1(gen, base, dtype)
+        explainer_shapes_backward(gen, base, dtype)
+        explainer_shapes_backward(gen, conformer, dtype)
+        explainer_shapes_forward(gen, base, (CLIP_BATCH, 21), dtype)
+        explainer_shapes_forward(gen, conformer, (CLIP_BATCH,), dtype)
+
+
+def method_pipeline(label: str, cfg: PipelineConfig, params, test_set) -> dict:
+    """``phase_pipeline`` for the deep, kernel or lime method, with the exact
+    launch counts of ``expected_launches_method`` and no other kernel."""
+    path = path_kernels(cfg.model)
+    expect = path if cfg.explainer.method == "deep" else path[1:2]
+    launches = phase_pipeline(label, cfg, params, test_set, expect)
+    want = expected_launches_method(cfg, len(test_set))
+    got = {name: n for name, n in launches.items() if n}
+    check(got == want, f"{label}: launches {got}, {want} expected")
+    log(f"{label}: launch counts exact {json.dumps(want)}")
+    return launches
+
+
+def phase_cli_explainers(archive: str, data_dir: str) -> None:
+    """run-shap --method deep, kernel and lime, then faithfulness over each
+    store, on the trained conformer archive switched to the kernels (3 heads
+    of 32), on the card and on the CPU: phi within 2e-3 of max|phi|, and the
+    faithfulness command on the card and on the CPU over the card's store
+    gives the same records. On the card each command launches the path's
+    kernels the code says, and no other."""
+    cfg = load_config(archive)
+    common = ["--params", archive, "--arch", "w2v2-conformer"]
+    n_args = dict(zip(EXPLAINER_CLI_ARGS[::2], EXPLAINER_CLI_ARGS[1::2]))
+    for method in METHODS:
+        stores = {}
+        for device in ("cuda", "cpu"):
+            d = stores[device] = f"{data_dir}/cli_{method}_{device}"
+            (run,), launches, wall = run_cli(
+                f"explainers {method} {device}",
+                ["run-shap", *common, "--device", device, "--data-dir", d, "--method", method,
+                 *EXPLAINER_CLI_ARGS])
+            log(f"cli explainers {method} {device}: {wall / run['computed']:.3f} s per sample")
+            if device == "cuda":
+                ec = ExplainerConfig(method=method, output_chunk=128,  # run-shap's default
+                                     num_background=int(n_args["--num-background"]),
+                                     nsamples=int(n_args["--nsamples"]),
+                                     lime_num_samples=int(n_args["--nsamples"]))
+                want = expected_launches_method(PipelineConfig(model=cfg, explainer=ec),
+                                                run["computed"])
+                check(launches == want, f"cli explainers {method}: run-shap launched "
+                      f"{launches}, {want} expected")
+        store = AttributionStore(stores["cuda"])
+        for key in store.keys():
+            got = torch.from_numpy(store.load(key)["shap_values"])
+            want_phi = torch.from_numpy(AttributionStore(stores["cpu"]).load(key)["shap_values"])
+            compare(f"cli explainers {method} phi {key.index} {key.type}, card vs CPU", got,
+                    want_phi, 2e-3 * float(want_phi.abs().max()), 0.0,
+                    "2e-3 of max|phi|: float32, another summation order on each device")
+        records = {}
+        for device in ("cuda", "cpu"):
+            records[device], launches, _ = run_cli(
+                f"explainers faithfulness {method} {device}",
+                ["faithfulness", *common, "--device", device, "--data-dir", stores["cuda"]])
+            if device == "cuda":
+                fwd = path_kernels(cfg)[1]
+                check(launches == {fwd: cfg.num_hidden_layers * (len(records["cuda"]) - 1)},
+                      f"cli explainers faithfulness {method}: launched {launches}")
+        check(records["cuda"] == records["cpu"],
+              f"cli explainers faithfulness {method}: card and CPU records differ")
+        log(f"faithfulness {method} (conformer archive, card = CPU): "
+            f"{json.dumps(records['cuda'][-1])}")
+
+
+def phase_explainers(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig,
+                     explainer: ExplainerConfig, test_set, data_dir: str, smi: str) -> None:
+    """DeepSHAP, KernelSHAP and LIME: the kernels at the explainers' shapes;
+    each method through run_shap_pipeline at full width with exact launch
+    counts, in float32 (DeepSHAP also on the conformer) and in bf16, each
+    gated against plain PyTorch on the card; their times; and the command
+    line (run-shap --method, faithfulness) on the card and the CPU."""
+    phase_explainer_shapes(model, conformer)
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    model16 = dataclasses.replace(model, dtype="bfloat16", matmul_precision="default")
+    for method in METHODS:
+        ec = method_config(explainer, method)
+        cfg = PipelineConfig(model=model, explainer=ec, seed=SEED,
+                             data_dir=f"{data_dir}/explain_{method}")
+        method_pipeline(f"pipeline {method} base", cfg, params, test_set)
+        if method == "deep":
+            deep_gate("base", cfg, params, test_set)
+        else:
+            perturbation_gate("base", method, cfg, params, test_set)
+        time_method(f"{method} base float32", cfg, params, test_set, smi)
+        cfg16 = PipelineConfig(model=model16, explainer=ec, seed=SEED,
+                               data_dir=f"{data_dir}/explain_{method}_bf16")
+        method_pipeline(f"pipeline {method} bf16", cfg16, params, test_set)
+        bf16_method_rule(f"phi bf16 {method}", method, cfg16, params, test_set)
+        time_method(f"{method} base bf16", cfg16, cast_params_for_compute(params, "bfloat16"),
+                    test_set, smi)
+    del params
+    cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
+    cfg = PipelineConfig(model=conformer, explainer=method_config(explainer, "deep"),
+                         seed=SEED, data_dir=f"{data_dir}/explain_deep_conformer")
+    method_pipeline("pipeline deep conformer", cfg, cparams, test_set)
+    deep_gate("conformer", cfg, cparams, test_set)
+    time_method("deep conformer float32", cfg, cparams, test_set, smi)
+    del cparams
+    phase_cli_explainers(archive_with_kernels(CONFORMER_ARCHIVE,
+                                              f"{data_dir}/conformer_explainers.npz"),
+                         data_dir)
+
+
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
     adds fields to a kernel's entry."""
@@ -2062,6 +2567,7 @@ def main() -> int:
             conformer16, explainer, test_set, data_dir, c32_per_draw, c32_cli_records)
         errs.update(c_errs)
         extra.update(c_extra)
+        phase_explainers(model, conformer, explainer, test_set, data_dir, smi)
         for name, fields in build_fields.items():
             extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)

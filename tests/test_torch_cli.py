@@ -102,7 +102,7 @@ def test_cli_commands_match_reference_cli(tmp_path, capsys, tiny_config):
     (["run-shap", "--device", "cpu", "--hf", "facebook/wav2vec2-base-960h"],
      NotImplementedError),
     (["run-shap", "--device", "cpu", "--mesh"], NotImplementedError),
-    (["run-shap", "--device", "cpu", "--method", "deep"], NotImplementedError),
+    (["faithfulness", "--device", "cpu", "--plot", "f.png"], NotImplementedError),
     (["sweep", "--device", "cpu", "--plot", "scatter.png"], NotImplementedError),
     (["sweep", "--device", "cpu", "--arch", "w2v2-conformer", "--params",
       "artifacts/params_synthetic_study.npz"], ValueError),
