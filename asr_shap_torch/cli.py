@@ -7,6 +7,8 @@
                  statistics
   faithfulness : deletion/insertion faithfulness curves over the store
   metric       : single-sample eta_raw from stored npy files
+  visualize    : interactive per-character attribution viewer
+  compare      : LIME-vs-SHAP comparison on one clip (4-panel figure + wavs)
   transcribe   : greedy CTC transcription of wav/npy clips
   bench        : explainer runtime-vs-length sweep
 
@@ -14,7 +16,9 @@ The flags, defaults and printed JSON lines are the reference package's
 (``python -m asr_shap``), plus ``--device {cuda,cpu}``: every command runs
 on the GPU unless asked for the CPU, and raises where there is no GPU.
 Options the port does not have yet raise ``NotImplementedError`` before any
-work, naming the ``ROADMAP.md`` item that ports them.
+work, naming the ``ROADMAP.md`` item that ports them. A command asked to
+draw (``--plot``, ``compare --out-dir``, ``visualize``) raises before any
+work where matplotlib does not import. ``sweep --plot`` defaults to none.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import argparse
 import contextlib
 import json
 import logging
+import sys
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +69,16 @@ def _check_model_args(args):
         raise NotImplementedError(
             "--hf is not ported (ROADMAP.md queue 1, 'After these': the "
             "state-dict converters of models/convert_hf.py)")
+
+
+def _check_arch(args, cfg):
+    """The forward follows the model config: an --arch that disagrees with
+    it (an archive's embedded config) raises ValueError."""
+    from asr_shap_torch.core.config import Wav2Vec2ConformerConfig
+
+    if (args.arch == "w2v2-conformer") != isinstance(cfg, Wav2Vec2ConformerConfig):
+        raise ValueError(f"--arch {args.arch} disagrees with the archive's "
+                         f"{type(cfg).__name__}")
 
 
 def _preset_config(args):
@@ -171,19 +186,17 @@ def cmd_run_shap(args):
 
 
 def cmd_sweep(args):
-    from asr_shap_torch.core.config import MetricConfig, Wav2Vec2ConformerConfig
+    from asr_shap_torch.core.config import MetricConfig
     from asr_shap_torch.core.store import AttributionStore
     from asr_shap_torch.pipeline.sweep import eta_wer_sweep, sweep_summary
 
     _check_model_args(args)
     if args.plot:
-        raise NotImplementedError(
-            f"--plot {args.plot}: the scatter plot is not ported (ROADMAP.md queue "
-            "1, 'After these': viz/*); pass --plot ''")
+        from asr_shap_torch.viz.static import require_matplotlib
+
+        require_matplotlib(f"--plot {args.plot}", "drop --plot")
     params, cfg = _load_model(args)
-    if (args.arch == "w2v2-conformer") != isinstance(cfg, Wav2Vec2ConformerConfig):
-        raise ValueError(f"--arch {args.arch} disagrees with the archive's "
-                         f"{type(cfg).__name__}")
+    _check_arch(args, cfg)
     store = AttributionStore(args.data_dir)
     mcfg = MetricConfig(segment_ms=args.segment_ms, percentile=args.percentile,
                         itm_variant=args.itm)
@@ -195,6 +208,11 @@ def cmd_sweep(args):
     # the headline r leaves out the snr=inf rows, whose eta_raw is 1 by construction
     print(json.dumps({"pearson_r": summary["pearson_r_noisy"],
                       "n": len(records), **summary}))
+    if args.plot:
+        from asr_shap_torch.viz.static import plot_eta_wer_scatter
+
+        plot_eta_wer_scatter(records, out_path=args.plot)
+        print(f"wrote {args.plot}")
 
 
 def cmd_faithfulness(args):
@@ -209,9 +227,9 @@ def cmd_faithfulness(args):
 
     _check_model_args(args)
     if args.plot:
-        raise NotImplementedError(
-            f"--plot {args.plot}: the curves figure is not ported (ROADMAP.md queue 1, "
-            "'After these': viz/*)")
+        from asr_shap_torch.viz.static import require_matplotlib
+
+        require_matplotlib(f"--plot {args.plot}", "drop --plot")
     params, cfg = _load_model(args)
     store = AttributionStore(args.data_dir)
     transcribe = make_transcribe_fn(params, cfg)
@@ -240,6 +258,11 @@ def cmd_faithfulness(args):
         print(json.dumps(summary))
         if out_fh:
             out_fh.write(json.dumps(summary) + "\n")
+    if args.plot:
+        from asr_shap_torch.viz.static import plot_faithfulness_curves
+
+        plot_faithfulness_curves({args.data_dir: records}, out_path=args.plot)
+        print(f"wrote {args.plot}")
 
 
 def cmd_metric(args):
@@ -303,14 +326,66 @@ def cmd_transcribe(args):
         }))
 
 
+def cmd_visualize(args):
+    import numpy as np
+
+    from asr_shap_torch.core.store import AttributionStore
+    from asr_shap_torch.viz.interactive import AttributionViewer, load_attribution_view
+    from asr_shap_torch.viz.static import require_matplotlib
+
+    _check_model_args(args)
+    require_matplotlib("visualize", "the viewer is a figure; run it where matplotlib imports")
+    params, cfg = _load_model(args)
+    store = AttributionStore(args.data_dir)
+    keys = store.keys()
+    if not keys:
+        sys.exit(f"no samples found in {args.data_dir}")
+    data = store.load(keys[args.sample])
+    view = load_attribution_view(params, cfg, np.asarray(data["audio"]),
+                                 np.asarray(data["shap_values"]))
+    viewer = AttributionViewer(view)
+    if args.save:
+        viewer.savefig(args.save)
+        print(f"wrote {args.save}")
+    else:
+        viewer.show()
+
+
+def cmd_compare(args):
+    import numpy as np
+
+    from asr_shap_torch.core.config import ExplainerConfig
+    from asr_shap_torch.core.prng import generator
+    from asr_shap_torch.pipeline.compare import comparison_record, lime_shap_comparison
+    from asr_shap_torch.viz.static import require_matplotlib
+
+    _check_model_args(args)
+    if args.out_dir:
+        require_matplotlib(f"--out-dir {args.out_dir}", "pass --out-dir '' for the record alone")
+    params, cfg = _load_model(args)
+    _check_arch(args, cfg)
+    if args.audio:
+        audio = np.load(args.audio)
+    else:
+        from asr_shap_torch.pipeline.testset import synthetic_speech
+
+        audio = synthetic_speech(generator(args.seed), int(round(args.clip_seconds * 16_000)))
+    ecfg = ExplainerConfig(
+        nsamples=args.nsamples,
+        lime_num_samples=args.lime_samples,
+        lime_num_segments=args.lime_segments,
+        lime_keep_prob=args.lime_keep_prob,
+        lime_ridge_alpha=args.ridge_alpha,
+    )
+    result = lime_shap_comparison(params, cfg, ecfg, audio, seed=args.seed,
+                                  clip_seconds=args.clip_seconds, out_dir=args.out_dir)
+    print(comparison_record(result))
+
+
 def cmd_bench(args):
     from asr_shap_torch.core.config import Wav2Vec2Config
     from asr_shap_torch.pipeline.benchmarks import run_length_sweep
 
-    if args.plot:
-        raise NotImplementedError(
-            f"--plot {args.plot}: the runtime plot is not ported (ROADMAP.md queue 1, "
-            "'After these': viz/*)")
     numerics = dict(dtype=args.dtype, matmul_precision=args.precision,
                     attention_impl=args.attn)
     if args.tiny:
@@ -323,7 +398,8 @@ def cmd_bench(args):
     else:
         model_config = Wav2Vec2Config(**numerics)
     run_length_sweep(lengths=tuple(args.lengths), nsamples=args.nsamples,
-                     model_config=model_config, json_path=args.json, device=args.device)
+                     model_config=model_config, plot_path=args.plot, json_path=args.json,
+                     device=args.device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -377,7 +453,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=8,
                    help="samples per batched decode + eta_raw (length buckets)")
     p.add_argument("--plot", type=str, default="",
-                   help="scatter plot path (not ported; default none)")
+                   help="scatter plot path (default none: the reference's default "
+                        "wer_vs_eta_raw_plot.png needs matplotlib)")
     p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("faithfulness",
@@ -395,7 +472,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", type=str, default=None,
                    help="also write the records and the summary as JSONL here")
     p.add_argument("--plot", type=str, default=None,
-                   help="curves figure path (not ported)")
+                   help="write the mean WER-vs-fraction curves figure here")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_faithfulness)
 
@@ -408,6 +485,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--itm", choices=["strict", "half"], default="half")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_metric)
+
+    p = sub.add_parser("visualize", help="interactive attribution viewer")
+    _add_model_args(p)
+    p.add_argument("--data-dir", default="data")
+    p.add_argument("--sample", type=int, default=0)
+    p.add_argument("--save", type=str, default=None,
+                   help="render headless to this png instead of showing")
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("compare", help="LIME-vs-SHAP comparison on one clip")
+    _add_model_args(p)
+    p.add_argument("--audio", type=str, default=None,
+                   help=".npy waveform; default a seeded synthetic clip")
+    p.add_argument("--clip-seconds", type=float, default=2.0)
+    p.add_argument("--nsamples", type=int, default=200,
+                   help="SHAP expected-gradients draws")
+    p.add_argument("--lime-samples", type=int, default=500, help="LIME perturbations")
+    p.add_argument("--lime-segments", type=int, default=64)
+    p.add_argument("--lime-keep-prob", type=float, default=0.5)
+    p.add_argument("--ridge-alpha", type=float, default=1.0)
+    p.add_argument("--out-dir", type=str, default="artifacts",
+                   help="figure, wavs and stats JSON here ('' = none)")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_compare)
 
     p = sub.add_parser("transcribe", help="greedy CTC transcription of wav/npy clips")
     _add_model_args(p)
@@ -422,7 +523,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=[2500, 5000, 10000, 20000, 40000, 80000])
     p.add_argument("--nsamples", type=int, default=16)
     p.add_argument("--tiny", action="store_true")
-    p.add_argument("--plot", type=str, default=None, help="runtime plot path (not ported)")
+    p.add_argument("--plot", type=str, default=None, help="runtime plot path")
     p.add_argument("--json", type=str, default=None)
     # the reference's throughput numerics by default; --dtype float32
     # --precision highest for the parity path's timing

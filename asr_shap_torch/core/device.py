@@ -35,6 +35,14 @@ PRECISION_SWITCHES: Dict[str, Tuple[bool, bool, bool]] = {
 }
 
 
+def params_device(params) -> torch.device:
+    """The device of a params tree (its first leaf's): where the entry points
+    that take params run, with no fallback."""
+    while isinstance(params, (dict, list, tuple)):
+        params = next(iter(params.values())) if isinstance(params, dict) else params[0]
+    return params.device
+
+
 def check_matmul_precision(precision: str) -> None:
     """``matmul_precision`` "highest" or "default"; anything else raises."""
     if precision not in PRECISION_SWITCHES:

@@ -29,7 +29,7 @@ import torch
 
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
 from asr_shap_torch.core.config import WAV2VEC2_VOCAB
-from asr_shap_torch.core.device import matmul_precision_scope
+from asr_shap_torch.core.device import matmul_precision_scope, params_device
 from asr_shap_torch.metrics.wer import batch_wer
 from asr_shap_torch.models.heads import model_logits_fn
 from asr_shap_torch.models.wav2vec2 import cast_params_for_compute
@@ -137,12 +137,6 @@ def faithfulness_curve(transcribe_fn: Callable[[np.ndarray], List[str]], audio: 
             "auc_topk": auc_topk, "auc_random": auc_random, "auc_gap": float(gap)}
 
 
-def _device_of(params) -> torch.device:
-    while isinstance(params, (dict, list, tuple)):
-        params = next(iter(params.values())) if isinstance(params, dict) else params[0]
-    return params.device
-
-
 def make_transcribe_fn(params, model_cfg, logits_fn=None,
                        vocab: Sequence[str] = WAV2VEC2_VOCAB
                        ) -> Callable[[np.ndarray], List[str]]:
@@ -151,7 +145,7 @@ def make_transcribe_fn(params, model_cfg, logits_fn=None,
     precision scope. ``logits_fn`` defaults to the config's family. A bf16
     config's params are cast once, here."""
     logits_fn = logits_fn or model_logits_fn(model_cfg)
-    device = _device_of(params)
+    device = params_device(params)
     params = cast_params_for_compute(params, model_cfg.dtype)
 
     def transcribe(batch: np.ndarray) -> List[str]:

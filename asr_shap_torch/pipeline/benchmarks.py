@@ -12,7 +12,7 @@ reference, deliberate:
 * the guard catches only ``torch.cuda.OutOfMemoryError``: any other
   exception (a kernel that fails to build or launch) propagates, where the
   reference turns every exception into a ``"failed: ..."`` row;
-* ``plot_path`` raises (the plot is not ported);
+* with ``plot_path`` and no matplotlib, raises before any work;
 * ``compile_s`` is the first call's wall, which loads (and at first use
   builds) the kernels; the port has no compile step beside that.
 """
@@ -33,6 +33,7 @@ from asr_shap_torch.explain.baselines import zeros_noise_background
 from asr_shap_torch.explain.expected_gradients import expected_phi
 from asr_shap_torch.models.heads import make_explained_fn
 from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params
+from asr_shap_torch.viz.static import pyplot, require_matplotlib
 
 DEFAULT_LENGTHS = (2500, 5000, 10000, 20000, 40000, 80000)  # runtime_analysis.py:111
 
@@ -52,7 +53,7 @@ def run_length_sweep(
     background comes from stream 1, the first call's draws from stream 2
     and the timed calls' from streams 3-5 (``core.prng``)."""
     if plot_path:
-        raise NotImplementedError(f"plot_path {plot_path!r}: the runtime plot is not ported")
+        require_matplotlib(f"plot_path {plot_path!r} (--plot)", "drop the plot")
     device = resolve_device(device)
     cfg = model_config or Wav2Vec2Config(dtype="bfloat16", matmul_precision="default")
     if params is None:
@@ -104,6 +105,8 @@ def run_length_sweep(
                 break
 
     _print_table(results)
+    if plot_path:
+        _plot(results, plot_path)
     if json_path:
         with open(json_path, "w") as fh:
             json.dump(results, fh, indent=2)
@@ -119,3 +122,16 @@ def _print_table(results: List[dict]) -> None:
             continue
         print(f"{r['length']:>8} {r['t_frames']:>7} {r['nsamples']:>6} "
               f"{r['wall_s']:>9.3f} {r['compile_s']:>11.1f} {r['passes_per_s']:>10.1f}")
+
+
+def _plot(results: List[dict], path: str) -> None:
+    plt = pyplot()
+    ok = [r for r in results if r["status"] == "ok"]
+    fig, ax = plt.subplots(figsize=(8, 5))
+    ax.plot([r["length"] for r in ok], [r["wall_s"] for r in ok], "o-")
+    ax.set_xlabel("input length [samples]")
+    ax.set_ylabel("wall-clock per explanation [s]")
+    ax.set_title("expected-gradients runtime vs input length")
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)

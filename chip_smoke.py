@@ -13,7 +13,8 @@ with dtype="bfloat16", matmul_precision="default": the bf16 kernels of
 K1-K4) and the bf16 conformer (the conformer with the same numerics: the
 bf16 K1, K2f, K3b and K4f); then the base path (and, for DeepSHAP, the
 conformer) again through the other explainers, DeepSHAP, KernelSHAP and
-LIME. Phases, each reported on its own lines:
+LIME, and last the compare and visualize commands. Phases, each reported
+on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once; log
@@ -96,7 +97,7 @@ LIME. Phases, each reported on its own lines:
    float32 conformer's; and ``run-shap`` then ``sweep`` on the trained
    conformer archive switched to bf16 ("cli conformer bf16" lines). Its
    JSON entries are K2f-bf16, K3b-bf16 and K4f-bf16;
-9. the explainers, last: every kernel at the shapes DeepSHAP, KernelSHAP,
+9. the explainers: every kernel at the shapes DeepSHAP, KernelSHAP,
    LIME and faithfulness give it, in float32 and bf16, against its plain
    version at its tolerance and timed beside its bound and a library call
    (K1 at DeepSHAP's dual batch of 2 x 149 rows; K3/K4 and K3b/K4f at a
@@ -111,7 +112,24 @@ LIME. Phases, each reported on its own lines:
    memory per explained sample ("explainers time" lines); and run-shap
    --method deep, kernel and lime, then faithfulness over each store, on
    the trained conformer archive on the card and on the CPU (phi within
-   2e-3 of max|phi|, equal faithfulness records).
+   2e-3 of max|phi|, equal faithfulness records);
+10. the compare and visualize commands, last: every kernel at the shapes
+   ``compare`` gives it on a 32,000-sample clip (T_out = 99), in float32
+   and bf16, against its plain version and timed ("timing compare" lines:
+   K1 at 99 rows, K3/K4 at N = 1,188, K2 at 1 and 16 clips, K2f/K3b/K4f at
+   the conformer archive's 3 heads of 32); lime_shap_comparison at full
+   width through the kernels against plain PyTorch with 4 explicit draws
+   and 64 explicit LIME masks (phi and LIME within 2e-3 of max|.|, r's
+   within 1e-3, exact launch counts); ``compare`` at its defaults (200
+   draws, 500 perturbations) on the base archive in float32 and bf16, with
+   exact launch counts, walls, peak memory and 4 profiled draws ("compare
+   time", "compare profile" lines); its two wavs from the card's phi
+   against the CPU's; ``compare --arch w2v2-conformer`` on the trained
+   conformer archive on the card and the CPU; ``visualize``'s view of the
+   study store on the card and the CPU; the mel front end and Griffin-Lim
+   on the card and the CPU; and each drawing command (``--plot``,
+   ``compare --out-dir``, ``visualize``) refusing before any work where
+   matplotlib does not import, or writing its figure where it does.
 
 Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
 two bf16 forward and the four bf16 backward kernels also with their
@@ -141,6 +159,8 @@ import torch
 import torch.nn.functional as F
 
 from asr_shap_torch import cli
+from asr_shap_torch.audio.invert import mel_to_audio
+from asr_shap_torch.audio.mel import log_mel_spectrogram
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
 from asr_shap_torch.core.config import (
     ExplainerConfig,
@@ -151,13 +171,15 @@ from asr_shap_torch.core.config import (
 )
 from asr_shap_torch.core.device import highest_precision, matmul_precision_scope
 from asr_shap_torch.core.params_io import load_config, load_params, save_params
+from asr_shap_torch.core.prng import generator
 from asr_shap_torch.core.store import AttributionStore, key_for
+from asr_shap_torch.explain.baselines import zeros_noise_background
 from asr_shap_torch.explain.deepshap import (
     deep_shap_values,
     w2v2_conformer_dual_fn,
     wav2vec2_dual_fn,
 )
-from asr_shap_torch.explain.expected_gradients import expected_phi, sample_draws
+from asr_shap_torch.explain.expected_gradients import expected_phi, num_draws, sample_draws
 from asr_shap_torch.explain.kernel_shap import kernel_shap_attributions, sample_coalitions
 from asr_shap_torch.explain.lime import lime_attributions, lime_masks
 from asr_shap_torch.kernels import LAUNCHES, build_all, reset_launches
@@ -170,7 +192,12 @@ from asr_shap_torch.models.heads import make_batched_fn, make_explained_fn, mode
 from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
 from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params
 from asr_shap_torch.ops.attention import rel_shift
+from asr_shap_torch.pipeline import compare as compare_mod
+from asr_shap_torch.pipeline.compare import amplified_pair
 from asr_shap_torch.pipeline.run_shap import explain_phi, run_shap_pipeline
+from asr_shap_torch.pipeline.testset import synthetic_speech
+from asr_shap_torch.viz.interactive import load_attribution_view
+from asr_shap_torch.viz.wav_io import read_wav, write_wav
 
 N_SAMPLES = 48_000
 NSAMPLES = 4
@@ -306,21 +333,26 @@ def device_ms(fn, kernel: str, iters: int = 50, tries: int = 3) -> float:
     raise CheckFailed(f"profiler saw under half the launches of {kernel} in {tries} tries")
 
 
-def device_ms_per_call(fn, iters: int = 50) -> float:
+def device_ms_per_call(fn, iters: int = 50, tries: int = 3) -> float:
     """Device time per call of ``fn`` (all its kernels), from torch.profiler
-    over ``iters`` calls after a warm-up."""
+    over ``iters`` calls after a warm-up; profiled again when the profiler
+    recorded no device time (it may drop its window's device records, as
+    ``device_ms`` notes)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(total > 0, "the profiler recorded no device time")
-    return total / iters / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / iters / 1e3
+        log("profiler recorded no device time; profiling again")
+    raise CheckFailed(f"the profiler recorded no device time in {tries} tries")
 
 
 def compare_bf16(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -350,10 +382,10 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
 
 # ---------------------------------------------------------------- shapes
 
-def k1_main_shapes(cfg: Wav2Vec2Config, rows: int):
+def k1_main_shapes(cfg: Wav2Vec2Config, rows: int, n_samples: int = N_SAMPLES):
     """(K, s, C_in, C_out, T_in, T_out) of each eligible feature-encoder
-    layer at N_SAMPLES, for ``rows`` cotangent rows."""
-    out, t = [], N_SAMPLES
+    layer at ``n_samples``, for ``rows`` cotangent rows."""
+    out, t = [], n_samples
     c_in = 1
     for c, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
         t_out = (t - k) // s + 1
@@ -2265,17 +2297,20 @@ def kernel_bound(fl: float, nb: float, dtype):
     return bound_bf16(fl, nb) if dtype == BF16 else bound_3xtf32(fl, nb)
 
 
-def explainer_shapes_k1(gen, base: Wav2Vec2Config, dtype) -> None:
-    """K1 at DeepSHAP's dual batch (2 x 149 cotangent rows) against its plain
-    version at each eligible layer, then timed beside its bound and cuDNN's
-    dgrad (per dual backward: one launch per layer)."""
-    rows = 2 * base.frames_for_samples(N_SAMPLES)
+def explainer_shapes_k1(gen, base: Wav2Vec2Config, dtype, n_samples: int = N_SAMPLES,
+                        batch: int = 2, what: str = "DeepSHAP's dual batch",
+                        tag: str = "explainers") -> None:
+    """K1 at ``batch`` x T_out cotangent rows of ``n_samples``-sample clips
+    (DeepSHAP's dual batch: 2 x 149) against its plain version at each
+    eligible layer, then timed beside its bound and cuDNN's dgrad (per
+    backward: one launch per layer)."""
+    rows = batch * base.frames_for_samples(n_samples)
     name = k1_name(dtype)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
-    for k, s, ci, co, ti, to in k1_main_shapes(base, rows):
+    for k, s, ci, co, ti, to in k1_main_shapes(base, rows, n_samples):
         ybar, w = (x.to(dtype) for x in k1_inputs(gen, rows, k, ci, co, to))
         got = k1.conv1d_dgrad(ybar, w, s, ti)
-        compare_bf16(f"{name} B={rows} (DeepSHAP's dual batch) K={k} s={s} C={ci}x{co} "
+        compare_bf16(f"{name} B={rows} ({what}) K={k} s={s} C={ci}x{co} "
                      f"T_out={to}", got, k1.conv1d_dgrad_plain(ybar, w, s, ti), 5e-4, 1e-4,
                      "K1's tolerance: 3xTF32 products summed in float32, another order")
         del got
@@ -2295,27 +2330,29 @@ def explainer_shapes_k1(gen, base: Wav2Vec2Config, dtype) -> None:
             tot[key] += val
         del ybar, w, x_nct, y_nct, w_oik
     b_ms, b_by = kernel_bound(tot["flops"], tot["bytes"], dtype)
-    log(f"timing explainers {name} B={rows} per dual backward: ms={tot['ms']:.4f} "
+    log(f"timing {tag} {name} B={rows} per backward: ms={tot['ms']:.4f} "
         f"plain_ms={tot['plain_ms']:.4f} library_ms(cuDNN dgrad)={tot['library_ms']:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
 
 
-def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype) -> None:
-    """K3 and K4 (the conformer: K3b and K4f, with a rel-pos-like bias) at
-    DeepSHAP's residual batch of 2 with 149 cotangent rows per residual row,
-    against their plain versions and timed beside their bound and SDPA's
-    backward on the same inputs."""
+def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype, n_samples: int = N_SAMPLES,
+                              batch: int = 2, tag: str = "explainers") -> None:
+    """K3 and K4 (the conformer: K3b and K4f, with a rel-pos-like bias) at a
+    residual batch of ``batch`` clips of ``n_samples`` with T_out cotangent
+    rows per residual row (DeepSHAP's: 2 clips, 149 rows), against their
+    plain versions and timed beside their bound and SDPA's backward on the
+    same inputs."""
     full = isinstance(mc, Wav2Vec2ConformerConfig)
-    rows = mc.frames_for_samples(N_SAMPLES)
+    rows = mc.frames_for_samples(n_samples)
     h, d, t = mc.num_attention_heads, mc.head_dim, rows
     q, k, v, _, g = (None if x is None else x.to(dtype)
-                     for x in flash_inputs(gen, 2, h, t, d, rows, False))
+                     for x in flash_inputs(gen, batch, h, t, d, rows, False))
     bias = rel_pos_bias(gen, q, False) if full else None
     bh, n = q.shape[0], g.shape[0]
     o, lse = fa.flash_fwd_plain(q, k, v, bias, h)
     dq_name, dkv_name = bwd_kernel_names(full, dtype)
-    label = f"BH={bh} (residual batch 2) N={n} T={t}"
-    why = "float32 backward sums over 149 keys, another summation order"
+    label = f"BH={bh} (residual batch {batch}) N={n} T={t}"
+    why = f"float32 backward sums over {t} keys, another summation order"
     dq, dd, dbias = fa.flash_dq(q, k, v, o, lse, g, bias, h)
     dq_p, dd_p, dbias_p = fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)
     compare_bf16(f"{dq_name} dq {label}", dq, dq_p, 5e-5, 5e-4, why)
@@ -2328,16 +2365,16 @@ def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype) -> None:
     compare_bf16(f"{dkv_name} dk {label}", dk, dk_p, 5e-5, 5e-4, why)
     compare_bf16(f"{dkv_name} dv {label}", dv, dv_p, 5e-5, 5e-4, why)
     del dk, dv, dk_p, dv_p
-    q4, k4, v4 = (x.reshape(2, h, t, d) for x in (q, k, v))
-    qe, ke, ve = (x.expand(rows, 2, h, t, d).reshape(rows * 2, h, t, d).contiguous()
+    q4, k4, v4 = (x.reshape(batch, h, t, d) for x in (q, k, v))
+    qe, ke, ve = (x.expand(rows, batch, h, t, d).reshape(rows * batch, h, t, d).contiguous()
                   .requires_grad_() for x in (q4, k4, v4))
     inputs, mask = (qe, ke, ve), None
     if full:
-        mask = (bias.reshape(2, h, t, t).expand(rows, 2, h, t, t).reshape(rows * 2, h, t, t)
-                .to(dtype).contiguous().requires_grad_())
+        mask = (bias.reshape(batch, h, t, t).expand(rows, batch, h, t, t)
+                .reshape(rows * batch, h, t, t).to(dtype).contiguous().requires_grad_())
         inputs += (mask,)
     oe = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=mask)
-    g4 = g.reshape(rows * 2, h, t, d)
+    g4 = g.reshape(rows * batch, h, t, d)
     lib = time_ms(lambda: torch.autograd.grad(oe, inputs, g4, retain_graph=True), 5)
     del oe, qe, ke, ve, mask, inputs
     for name, kind, fn, pfn in (
@@ -2348,18 +2385,20 @@ def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype) -> None:
     ):
         ms, pms = time_ms(fn, 5), time_ms(pfn, 5)
         b_ms, b_by = kernel_bound(*flash_cost(kind, bh, n, t, d, dtype, full), dtype)
-        log(f"timing explainers {name} {label}: ms={ms:.4f} plain_ms={pms:.4f} "
+        log(f"timing {tag} {name} {label}: ms={ms:.4f} plain_ms={pms:.4f} "
             f"library_ms(SDPA backward, same inputs)={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
     del q, k, v, g, bias, o, lse, dd_p
 
 
-def explainer_shapes_forward(gen, mc: Wav2Vec2Config, clips, dtype) -> None:
-    """K2 (the conformer: K2f, with a rel-pos-like bias) at the perturbation
-    explainers' and faithfulness's batches of whole clips, against its plain
-    version at both block heights, and timed beside its bound and SDPA's
-    forward (K2's time is device time under torch.profiler, per launch)."""
+def explainer_shapes_forward(gen, mc: Wav2Vec2Config, clips, dtype,
+                             n_samples: int = N_SAMPLES, tag: str = "explainers") -> None:
+    """K2 (the conformer: K2f, with a rel-pos-like bias) at batches of
+    ``clips`` whole clips of ``n_samples`` (the perturbation explainers' and
+    faithfulness's), against its plain version at both block heights, and
+    timed beside its bound and SDPA's forward (K2's time is device time
+    under torch.profiler, per launch)."""
     full = isinstance(mc, Wav2Vec2ConformerConfig)
-    h, d, t = mc.num_attention_heads, mc.head_dim, mc.frames_for_samples(N_SAMPLES)
+    h, d, t = mc.num_attention_heads, mc.head_dim, mc.frames_for_samples(n_samples)
     name = ("flash_fwd_bias" if full else "flash_fwd") + ("_bf16" if dtype == BF16 else "")
     kname = "flash_fwd_bf16_kernel" if dtype == BF16 else "flash_fwd_kernel"
     for b in clips:
@@ -2373,7 +2412,7 @@ def explainer_shapes_forward(gen, mc: Wav2Vec2Config, clips, dtype) -> None:
             got = fa._fwd_launch(q, k, v, bias, h, rows)
             for part, x, y in (("o", got[0], want[0]), ("lse", got[1], want[1])):
                 compare_bf16(f"{name} {part} {label} rows/block={rows}", x, y, 2e-5, 2e-4,
-                             "float32 softmax over 149 keys, another summation order")
+                             f"float32 softmax over {t} keys, another summation order")
         q4, k4, v4 = (x.reshape(b, h, t, d) for x in (q, k, v))
         mask = None if bias is None else bias.reshape(b, h, t, t).to(dtype)
         ms = time_ms(lambda: fa.flash_fwd(q, k, v, bias, h), 50)
@@ -2383,7 +2422,7 @@ def explainer_shapes_forward(gen, mc: Wav2Vec2Config, clips, dtype) -> None:
         sdpa_dms = device_ms_per_call(
             lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
         b_ms, b_by = kernel_bound(*flash_cost("fwd", b * h, b * h, t, d, dtype, full), dtype)
-        log(f"timing explainers {name} {label} rows/block={fa.fwd_block_rows(q)}: ms={ms:.4f} "
+        log(f"timing {tag} {name} {label} rows/block={fa.fwd_block_rows(q)}: ms={ms:.4f} "
             f"device_ms={dms:.5f} plain_ms={pms:.4f} library_ms(SDPA forward)={lms:.4f} "
             f"library_device_ms={sdpa_dms:.5f} bound_ms={b_ms:.5f} ({b_by}); device time "
             f"K2/SDPA {dms / sdpa_dms:.3f}")
@@ -2504,6 +2543,332 @@ def phase_explainers(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig,
                                               f"{data_dir}/conformer_explainers.npz"),
                          data_dir)
 
+# ---------------------------------------------------------------- compare and visualize
+
+# compare's default window (2 s at 16 kHz: T_out = 99 on the full conv
+# stack), and the gate's explicit expected-gradients draws and LIME masks
+COMPARE_SAMPLES = 32_000
+GATE_DRAWS, GATE_MASKS = 4, 64
+# compare's defaults (asr_shap/cli.py: --nsamples 200, --lime-samples 500),
+# and the conformer archive's run on the card and the CPU
+DEFAULT_DRAWS, DEFAULT_MASKS = 200, 500
+CONFORMER_DRAWS, CONFORMER_MASKS = 8, 64
+
+
+def has_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def compare_launches(mc: Wav2Vec2Config, draws: int, masks: int) -> dict:
+    """Launches of each kernel in one lime_shap_comparison of a
+    COMPARE_SAMPLES clip, counted from the code: per expected-gradients draw
+    one forward and one backward of all T_out cotangent rows (output_chunk
+    0); LIME ceil(masks / 16) forwards of 16 clips. K1 once per eligible
+    conv layer and backward, the flash kernels once per encoder layer and
+    pass."""
+    layers = mc.num_hidden_layers
+    convs = len(k1_main_shapes(mc, 1, COMPARE_SAMPLES))
+    k1_, f, dq, dkv = path_kernels(mc)
+    want = {f: (draws + -(-masks // CLIP_BATCH)) * layers, k1_: draws * convs,
+            dq: draws * layers, dkv: draws * layers}
+    return {name: n for name, n in want.items() if n}
+
+
+@contextlib.contextmanager
+def captured_comparisons():
+    """The results of each lime_shap_comparison the compare command makes
+    inside the block (the command prints only their scalar record)."""
+    inner, results = compare_mod.lime_shap_comparison, []
+
+    def capture(*args, **kw):
+        results.append(inner(*args, **kw))
+        return results[-1]
+
+    compare_mod.lime_shap_comparison = capture
+    try:
+        yield results
+    finally:
+        compare_mod.lime_shap_comparison = inner
+
+
+def compare_shapes(base: Wav2Vec2Config, archive: Wav2Vec2ConformerConfig) -> None:
+    """Every kernel at the shapes compare gives it, in float32 and bf16,
+    against its plain version and timed ("timing compare" lines): K1 at the
+    EG backward's 99 cotangent rows; K3/K4 at one residual clip with 99 rows;
+    K2 at one clip (the EG forward, BH = 12) and at LIME's 16 (BH = 192); and
+    K3b/K4f, K2f at the trained conformer archive's 3 heads of 32, the same
+    batches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for dtype in (torch.float32, BF16):
+        explainer_shapes_k1(gen, base, dtype, COMPARE_SAMPLES, 1, "compare's EG backward",
+                            "compare")
+        for mc in (base, archive):
+            explainer_shapes_backward(gen, mc, dtype, COMPARE_SAMPLES, 1, "compare")
+            explainer_shapes_forward(gen, mc, (1, CLIP_BATCH), dtype, COMPARE_SAMPLES,
+                                     "compare")
+
+
+def compare_gate(model: Wav2Vec2Config, params, clip: np.ndarray) -> None:
+    """lime_shap_comparison at full width through the kernels and through
+    plain PyTorch on the card, with GATE_DRAWS explicit draws, GATE_MASKS
+    explicit LIME masks and one background: shap_matrix and lime_per_sample
+    within 2e-3 of max|.|, both r's within 1e-3, and the kernels' exact
+    launch counts (none on the plain run)."""
+    ec = ExplainerConfig(nsamples=GATE_DRAWS, draw_chunk=1, lime_num_samples=GATE_MASKS)
+    draws = sample_draws(torch.Generator().manual_seed(5), GATE_DRAWS, ec.num_background)
+    masks = lime_masks(torch.Generator().manual_seed(6), ec.lime_num_segments, GATE_MASKS)
+    bg = zeros_noise_background(torch.Generator().manual_seed(7), COMPARE_SAMPLES,
+                                ec.num_background, ec.background_sigma, device="cuda")
+    plain = dataclasses.replace(model, attention_impl="xla", conv_impl="lax")
+    out, launches = {}, {}
+    for label, mc in (("kernels", model), ("plain", plain)):
+        reset_launches()
+        out[label] = compare_mod.lime_shap_comparison(
+            params, mc, ec, clip, seed=SEED, clip_seconds=COMPARE_SAMPLES / 16_000,
+            background=bg, draws=draws, masks=masks)
+        launches[label] = {name: c for name, c in LAUNCHES.items() if c}
+    want = compare_launches(model, GATE_DRAWS, GATE_MASKS)
+    check(launches["kernels"] == want,
+          f"compare gate: launches {launches['kernels']}, {want} expected")
+    check(not launches["plain"], f"compare gate: the plain run launched {launches['plain']}")
+    log(f"compare gate: launch counts exact {json.dumps(want)}")
+    got, ref = out["kernels"], out["plain"]
+    check(got["shap_matrix"].shape == (COMPARE_SAMPLES, model.frames_for_samples(
+        COMPARE_SAMPLES)), f"compare gate: phi {got['shap_matrix'].shape}")
+    for field in ("shap_matrix", "lime_per_sample"):
+        a, b = torch.from_numpy(got[field]), torch.from_numpy(ref[field])
+        scale = float(b.abs().max())
+        err = compare(f"compare gate {field} {tuple(b.shape)}, kernels vs plain PyTorch", a, b,
+                      2e-3 * scale, 0.0, f"2e-3 of max|.|: float32 through "
+                      f"{model.num_hidden_layers} layers, another summation order")
+        log(f"compare gate {field}: max_abs_err / max|.| = {err / scale:.3e}")
+    for field in ("pearson_r", "pearson_r_segments"):
+        check(abs(got[field] - ref[field]) <= 1e-3,
+              f"compare gate {field}: {got[field]} vs plain {ref[field]} (limit 1e-3)")
+        log(f"compare gate {field}: kernels {got[field]:.6f}, plain {ref[field]:.6f}")
+
+
+def compare_defaults(base_archive: str, data_dir: str, clip: np.ndarray, mpl: bool,
+                     smi: str) -> dict:
+    """The compare command at the reference's defaults (200 draws, 500 LIME
+    perturbations, 2 s) on the base archive, float32 "highest" and bf16
+    "default": phi finite [32000, 99], the exact launch counts of the
+    archive's kernels and no other (in bf16 only bf16 kernels), the walls
+    and peak memory; then 4 more of its draws under torch.profiler (device
+    busy share, time by kernel group). With matplotlib it writes its
+    artifacts, else ``--out-dir ''``. Returns the float32 run's result."""
+    archives = {"float32": base_archive,
+                "bf16": archive_with_kernels(base_archive, f"{data_dir}/base_bf16.npz",
+                                             dtype="bfloat16", matmul_precision="default")}
+    results = {}
+    for label, archive in archives.items():
+        out_dir = f"{data_dir}/compare_{label}" if mpl else ""
+        torch.cuda.reset_peak_memory_stats()
+        with captured_comparisons() as runs:
+            (rec,), launches, wall = run_cli(f"compare {label}", [
+                "compare", "--params", archive, "--out-dir", out_dir])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        (res,) = runs
+        cfg = load_config(archive)
+        phi = res["shap_matrix"]
+        check(phi.shape == (COMPARE_SAMPLES, cfg.frames_for_samples(COMPARE_SAMPLES))
+              and bool(np.isfinite(phi).all()) and bool(np.isfinite(res["lime_per_sample"]).all()),
+              f"compare {label}: phi {phi.shape} not finite [32000, 99]")
+        want = compare_launches(cfg, num_draws(ExplainerConfig(nsamples=DEFAULT_DRAWS)),
+                                DEFAULT_MASKS)
+        check(launches == want, f"compare {label}: launched {launches}, {want} expected")
+        if mpl:
+            check(all(Path(rec[k]).exists() for k in ("figure", "shap_wav", "lime_wav", "stats")),
+                  f"compare {label}: artifacts missing")
+        log(f"compare time {label}: shap_wall_s={rec['shap_wall_s']} ({DEFAULT_DRAWS} draws, "
+            f"{rec['shap_wall_s'] / DEFAULT_DRAWS * 1e3:.1f} ms per draw), lime_wall_s="
+            f"{rec['lime_wall_s']} ({DEFAULT_MASKS} perturbations), command {wall:.2f} s, peak "
+            f"device memory {peak:.2f} GiB, pearson_r={rec['pearson_r']}, pearson_r_segments="
+            f"{rec['pearson_r_segments']}; launch counts exact; {smi}")
+        results[label] = res
+        params = cast_params_for_compute(load_params(archive, device="cuda"), cfg.dtype)
+        ec = ExplainerConfig(aggregation="mean", draw_chunk=1)
+        x = zero_mean_unit_var(torch.from_numpy(clip).cuda())
+        bg = zeros_noise_background(generator(SEED, 0), COMPARE_SAMPLES, ec.num_background,
+                                    ec.background_sigma, device="cuda")
+        log(f"compare profile {label}: EG draws of the compare command's explained function")
+        with matmul_precision_scope(cfg.matmul_precision):
+            profile_draws(make_explained_fn(params, cfg, ec), x, bg, ec, n=4)
+        del params
+    return results["float32"]
+
+
+def compare_artifacts(res: dict, clip: np.ndarray, data_dir: str) -> None:
+    """The two wavs of compare's artifact path from the card's phi and LIME
+    values (amplified_pair, write_wav), against the CPU's amplification of
+    the same arrays within 1e-6 (float32 means over 99 frames in another
+    order), and read back within one 16-bit step."""
+    c, phi = torch.from_numpy(clip), torch.from_numpy(res["shap_matrix"])
+    lime = torch.from_numpy(res["lime_per_sample"][:, None])
+    card = amplified_pair(c.cuda(), phi.cuda(), lime.cuda())
+    cpu = amplified_pair(c, phi, lime)
+    for name, a, b in zip(("shap", "lime"), card, cpu):
+        compare(f"compare artifacts {name} amplified, card vs CPU", torch.from_numpy(a),
+                torch.from_numpy(b), 1e-6, 0.0, "float32 mean over the frames, another order")
+        path = f"{data_dir}/compare_{name}_amplified.wav"
+        write_wav(path, a)
+        back, sr = read_wav(path)
+        check(sr == 16_000 and back.shape == a.shape
+              and float(np.abs(back - np.clip(a, -1, 1)).max()) <= 1 / 32767,
+              f"compare artifacts {name}: the wav read back differs")
+    log("compare artifacts: both wavs from the card's phi equal the CPU's, read back")
+
+
+def compare_conformer(data_dir: str) -> None:
+    """compare --arch w2v2-conformer on the trained conformer archive
+    switched to the kernels, on the card and the CPU: phi and LIME within
+    2e-3 of max|.|, the same record keys, and on the card the exact launch
+    counts of its kernels (K2f, K3b, K4f; its 48 conv channels take no K1)."""
+    archive = archive_with_kernels(CONFORMER_ARCHIVE, f"{data_dir}/conformer_compare.npz")
+    res, recs, launches = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        with captured_comparisons() as runs:
+            (recs[device],), launches[device], wall = run_cli(f"compare conformer {device}", [
+                "compare", "--params", archive, "--arch", "w2v2-conformer", "--device", device,
+                "--nsamples", str(CONFORMER_DRAWS), "--lime-samples", str(CONFORMER_MASKS),
+                "--out-dir", ""])
+        (res[device],) = runs
+    want = compare_launches(load_config(archive), CONFORMER_DRAWS, CONFORMER_MASKS)
+    check(launches["cuda"] == want,
+          f"compare conformer: launched {launches['cuda']}, {want} expected")
+    check(set(recs["cuda"]) == set(recs["cpu"]), "compare conformer: record keys differ")
+    for field in ("shap_matrix", "lime_per_sample"):
+        a, b = (torch.from_numpy(res[d][field]) for d in ("cuda", "cpu"))
+        compare(f"compare conformer {field} {tuple(b.shape)}, card vs CPU", a, b,
+                2e-3 * float(b.abs().max()), 0.0,
+                "2e-3 of max|.|: float32, another summation order on each device")
+    log(f"compare conformer (card = CPU): launch counts exact {json.dumps(want)}; card "
+        f"{json.dumps(recs['cuda'])}")
+
+
+def visualize_on_card(data_dir: str) -> None:
+    """visualize's view (load_attribution_view) of the first sample of the
+    trained study archive's store (phase 5's) on the card and on the CPU:
+    the same transcription, display tokens and character frames, masks and
+    masked audios within 1e-4 (the same percentile rule on float32 block
+    means summed in another order), and one flash_fwd launch per encoder
+    layer, no other."""
+    archive = f"{data_dir}/study_pallas.npz"
+    store = AttributionStore(f"{data_dir}/cli_study")
+    data = store.load(store.keys()[0])
+    cfg = load_config(archive)
+    views = {}
+    for device in ("cuda", "cpu"):
+        params = load_params(archive, device=device)
+        reset_launches()
+        views[device] = load_attribution_view(params, cfg, np.asarray(data["audio"]),
+                                              np.asarray(data["shap_values"]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = {name: c for name, c in LAUNCHES.items() if c}
+    check(launches == {"flash_fwd": cfg.num_hidden_layers},
+          f"visualize: launched {launches}, {cfg.num_hidden_layers} flash_fwd expected")
+    card, cpu = views["cuda"], views["cpu"]
+    for field in ("transcription", "display_tokens", "char_frames"):
+        check(getattr(card, field) == getattr(cpu, field), f"visualize: {field} differs")
+    for field in ("masks", "masked_audios"):
+        compare(f"visualize {field} {getattr(cpu, field).shape}, card vs CPU",
+                torch.from_numpy(getattr(card, field)), torch.from_numpy(getattr(cpu, field)),
+                1e-4, 0.0, "the same percentile rule on float32 block means in another order")
+    log(f"visualize (card = CPU): {len(card.char_frames)} characters of "
+        f"{card.transcription!r}; {cfg.num_hidden_layers} flash_fwd launches")
+
+
+def mel_on_card(clip: np.ndarray) -> None:
+    """log_mel_spectrogram ("db", "natural", "none") and mel_to_audio (32
+    Griffin-Lim iterations) of the 32,000-sample clip on the card against
+    the CPU, each timed with CUDA events."""
+    x = torch.from_numpy(clip)
+    xc = x.cuda()
+    for log_kind, atol, why in (("db", 1e-2, "1e-2 dB absolute (0.23% of the power)"),
+                                ("natural", 2.3e-3, "2.3e-3 absolute on ln (0.23%)"),
+                                ("none", None, "1e-5 of max|mel|")):
+        want = log_mel_spectrogram(x, log=log_kind)
+        got = log_mel_spectrogram(xc, log=log_kind)
+        compare(f"mel {log_kind} {tuple(want.shape)}, card vs CPU", got.cpu(), want,
+                atol if atol is not None else 1e-5 * float(want.abs().max()), 0.0,
+                f"{why}: float32 rFFTs and mel products in another order")
+        ms = time_ms(lambda: log_mel_spectrogram(xc, log=log_kind), 20)
+        log(f"timing mel {log_kind}: {ms:.4f} ms per {COMPARE_SAMPLES}-sample clip")
+    power = log_mel_spectrogram(x, log="none")
+    want = mel_to_audio(power, length=COMPARE_SAMPLES)
+    pc = power.cuda()
+    got = mel_to_audio(pc, length=COMPARE_SAMPLES).cpu()
+    rel = float((got - want).norm() / want.norm())
+    log(f"check griffin-lim (mel_to_audio, 32 iterations) card vs CPU: relative L2 {rel:.3e} "
+        "(limit 1e-3: float32 FFTs in another order, through 32 phase normalisations)")
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-3, "griffin-lim: card differs from CPU")
+    ms = time_ms(lambda: mel_to_audio(pc, length=COMPARE_SAMPLES), 3)
+    log(f"timing griffin-lim: {ms:.3f} ms per {COMPARE_SAMPLES}-sample clip (32 iterations)")
+
+
+def drawing_commands(base_archive: str, data_dir: str, mpl: bool) -> None:
+    """Each command asked to draw. Without matplotlib: it raises ImportError
+    before any work, with no launch and no file made. With it: its figure is
+    written."""
+    study, store = f"{data_dir}/study_pallas.npz", f"{data_dir}/cli_study"
+    fig = f"{data_dir}/figures"
+    commands = {
+        "sweep --plot": ["sweep", "--params", study, "--data-dir", store,
+                         "--plot", f"{fig}/scatter.png"],
+        "faithfulness --plot": ["faithfulness", "--params", study, "--data-dir", store,
+                                "--limit", "1", "--plot", f"{fig}/curves.png"],
+        "bench --plot": ["bench", "--attn", "pallas", "--lengths", "16000", "--nsamples", "2",
+                         "--plot", f"{fig}/runtime.png"],
+        "compare --out-dir": ["compare", "--params", base_archive, "--nsamples", "8",
+                              "--lime-samples", "16", "--out-dir", f"{fig}/compare"],
+        "visualize --save": ["visualize", "--params", study, "--data-dir", store,
+                             "--save", f"{fig}/view.png"],
+    }
+    for label, argv in commands.items():
+        target = Path(argv[-1])
+        if mpl:
+            run_cli(f"drawing {label}", argv)
+            check(target.exists(), f"drawing {label}: {target} not written")
+            continue
+        reset_launches()
+        try:
+            cli.main(argv)
+        except ImportError as e:
+            msg = str(e)
+        else:
+            raise CheckFailed(f"drawing {label}: ran without matplotlib")
+        check(not any(LAUNCHES.values()), f"drawing {label}: launched {dict(LAUNCHES)}")
+        check(not target.exists() and not Path(fig).exists(), f"drawing {label}: wrote a file")
+        log(f"drawing {label}: refused before any work (no launch, no file): {msg}")
+
+
+def phase_compare(model: Wav2Vec2Config, base_archive: str, data_dir: str, smi: str) -> None:
+    """The compare and visualize commands: the kernels at compare's shapes;
+    the comparison gated against plain PyTorch; compare at its defaults in
+    float32 and bf16; its wavs; the conformer archive on the card and the
+    CPU; visualize's view on the card and the CPU; the mel front end and
+    Griffin-Lim; the drawing commands."""
+    t0 = time.perf_counter()
+    clip = synthetic_speech(generator(SEED), COMPARE_SAMPLES)  # compare's own clip
+    compare_shapes(model, load_config(CONFORMER_ARCHIVE))
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    compare_gate(model, params, clip)
+    del params
+    mpl = has_matplotlib()
+    log(f"compare: matplotlib {'imports' if mpl else 'does not import'} here")
+    f32 = compare_defaults(base_archive, data_dir, clip, mpl, smi)
+    compare_artifacts(f32, clip, data_dir)
+    compare_conformer(data_dir)
+    visualize_on_card(data_dir)
+    mel_on_card(clip)
+    drawing_commands(base_archive, data_dir, mpl)
+    log(f"compare phase: {time.perf_counter() - t0:.1f} s")
+
 
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
@@ -2568,6 +2933,7 @@ def main() -> int:
         errs.update(c_errs)
         extra.update(c_extra)
         phase_explainers(model, conformer, explainer, test_set, data_dir, smi)
+        phase_compare(model, base_archive, data_dir, smi)
         for name, fields in build_fields.items():
             extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)

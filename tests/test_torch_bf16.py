@@ -8,6 +8,7 @@ each reference program is jitted once."""
 
 import dataclasses
 import json
+import sys
 
 import numpy as np
 import jax
@@ -224,5 +225,8 @@ def test_bench_propagates_what_is_not_an_oom(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         benchmarks.run_length_sweep(lengths=(1600,), nsamples=1, model_config=cfg,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="plot"):
+    # --plot draws where matplotlib imports, and refuses before any work
+    # where it does not
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="plot"):
         cli.main(["bench", "--device", "cpu", "--tiny", "--plot", "runtime.png"])

@@ -6,6 +6,7 @@ against the reference's pipeline step."""
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import jax
@@ -102,16 +103,18 @@ def test_cli_commands_match_reference_cli(tmp_path, capsys, tiny_config):
     (["run-shap", "--device", "cpu", "--hf", "facebook/wav2vec2-base-960h"],
      NotImplementedError),
     (["run-shap", "--device", "cpu", "--mesh"], NotImplementedError),
-    (["faithfulness", "--device", "cpu", "--plot", "f.png"], NotImplementedError),
-    (["sweep", "--device", "cpu", "--plot", "scatter.png"], NotImplementedError),
+    (["faithfulness", "--device", "cpu", "--plot", "f.png"], ImportError),
+    (["sweep", "--device", "cpu", "--plot", "scatter.png"], ImportError),
     (["sweep", "--device", "cpu", "--arch", "w2v2-conformer", "--params",
       "artifacts/params_synthetic_study.npz"], ValueError),
     (["transcribe", "--tiny", "--random-init", "clip.npy"], RuntimeError),
 ])
 def test_cli_refuses_before_any_work(tmp_path, monkeypatch, argv, error):
-    """Unported options raise before any work; without --device the CLI asks
-    for CUDA and raises where there is none, never falling back."""
+    """Unported options raise before any work, and so does --plot where
+    matplotlib does not import; without --device the CLI asks for CUDA and
+    raises where there is none, never falling back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     with pytest.raises(error):
         cli(argv + ["--data-dir", str(tmp_path / "data")] if argv[0] != "transcribe"
             else argv)

@@ -26,14 +26,7 @@ from asr_shap_torch.explain.kernel_shap import kernel_shap_attributions, sample_
 from asr_shap_torch.explain.lime import lime_attributions
 from asr_shap_torch.models.heads import make_batched_fn
 from asr_shap_torch.pipeline.run_shap import explain_phi
-from torch_port_configs import narrow_config, port_cfg, shared_params
-
-
-def _lime_masks(key, num_samples, num_segments, keep_prob=0.5):
-    """The reference LIME's coalitions under ``key`` (asr_shap/explain/lime.py)."""
-    (k_mask,) = jax.random.split(key, 1)
-    masks = jax.random.bernoulli(k_mask, keep_prob, (num_samples, num_segments))
-    return np.asarray(masks.astype(jnp.float32).at[0].set(1.0))
+from torch_port_configs import jax_lime_masks, narrow_config, port_cfg, shared_params
 
 
 def _close(got, want, what):
@@ -87,7 +80,7 @@ def test_lime_matches_reference(narrow_model):
                                          baseline=bb))(jnp.asarray(x), jnp.asarray(b))
     got = lime_attributions(f_batch, torch.from_numpy(x), num_segments=8, num_samples=20,
                             baseline=torch.from_numpy(b),
-                            masks=torch.from_numpy(_lime_masks(key, 20, 8)))
+                            masks=jax_lime_masks(key, 20, 8))
     _close(got.segment_values, ref.segment_values, "segment values")
     _close(got.intercept, ref.intercept, "intercept")
     _close(got.model_output, ref.model_output, "model output")
@@ -144,7 +137,7 @@ def test_pipeline_step_matches_reference(rng, tiny_config, method):
     if method == "kernel":
         masks = torch.from_numpy(np.asarray(_sample_coalitions(fold(key, 1), 5, 10)))
     elif method == "lime":
-        masks = torch.from_numpy(_lime_masks(fold(key, 1), 10, 5))
+        masks = jax_lime_masks(fold(key, 1), 10, 5)
     pcfg = pc.PipelineConfig(model=port_cfg(tiny_config),
                              explainer=pc.ExplainerConfig(**dataclasses.asdict(ec)))
     got = explain_phi(params, pcfg, torch.from_numpy(x), bg, masks=masks)

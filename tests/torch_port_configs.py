@@ -67,6 +67,14 @@ def jax_draws(key, total, num_background):
             torch.from_numpy(np.array(ts, np.float32)))
 
 
+def jax_lime_masks(key, num_samples, num_segments, keep_prob=0.5):
+    """The reference LIME's coalitions under ``key`` (asr_shap/explain/lime.py),
+    as a tensor the port's LIME takes."""
+    (k_mask,) = jax.random.split(key, 1)
+    masks = jax.random.bernoulli(k_mask, keep_prob, (num_samples, num_segments))
+    return torch.from_numpy(np.asarray(masks.astype(jnp.float32).at[0].set(1.0)))
+
+
 def shared_params(cfg, seed=0):
     """Wav2Vec2 params drawn by numpy through the port's init: (port params
     on the CPU, the same values as the reference's tree of jnp arrays,
