@@ -18,7 +18,8 @@ on the GPU unless asked for the CPU, and raises where there is no GPU.
 Options the port does not have yet raise ``NotImplementedError`` before any
 work, naming the ``ROADMAP.md`` item that ports them. A command asked to
 draw (``--plot``, ``compare --out-dir``, ``visualize``) raises before any
-work where matplotlib does not import. ``sweep --plot`` defaults to none.
+work where matplotlib does not import, and ``--hf`` where transformers does
+not. ``sweep --plot`` defaults to none.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ def _add_model_args(ap):
                     help=".npz params archive (core/params_io.py); its embedded "
                          "config beats the preset flags")
     ap.add_argument("--hf", type=str, default=None,
-                    help="HF checkpoint name/path (not ported)")
+                    help="HF Wav2Vec2ForCTC (--arch w2v2-conformer: "
+                         "Wav2Vec2ConformerForCTC) checkpoint name/path; needs "
+                         "transformers")
     ap.add_argument("--random-init", action="store_true",
                     help="random weights from seed 0 (smoke runs)")
     ap.add_argument("--tiny", action="store_true",
@@ -62,13 +65,6 @@ def _add_model_args(ap):
     ap.add_argument("--conv-channels", type=int, default=0,
                     help="override conv feature-encoder channels of --tiny/--small")
     _add_device_arg(ap)
-
-
-def _check_model_args(args):
-    if args.hf:
-        raise NotImplementedError(
-            "--hf is not ported (ROADMAP.md queue 1, 'After these': the "
-            "state-dict converters of models/convert_hf.py)")
 
 
 def _check_arch(args, cfg):
@@ -115,20 +111,28 @@ def _preset_config(args):
 
 
 def _load_model(args):
-    """(params on the device, model config). An archive's embedded config
-    beats the preset flags: the weights know what they are."""
+    """(params on the device, model config). A --hf checkpoint's config, or
+    an archive's embedded one, beats the preset flags: the weights know what
+    they are. --hf loads through ``models/convert_hf.py``, which imports
+    transformers: without it this raises ImportError before any work."""
     from asr_shap_torch.core.config import Wav2Vec2ConformerConfig
     from asr_shap_torch.core.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = _preset_config(args)
+    if args.hf:
+        from asr_shap_torch.models import convert_hf
+
+        load = (convert_hf.load_pretrained_conformer if args.arch == "w2v2-conformer"
+                else convert_hf.load_pretrained)
+        return load(args.hf, device=device)
     if args.params:
         from asr_shap_torch.core.params_io import load_config, load_params
 
         embedded = load_config(args.params)
         return load_params(args.params, device=device), embedded or cfg
     if not args.random_init:
-        logger.warning("no --params given; falling back to random init "
+        logger.warning("no --params/--hf given; falling back to random init "
                        "(transcripts will be garbage; fine for runtime testing)")
     if isinstance(cfg, Wav2Vec2ConformerConfig):
         from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
@@ -145,10 +149,9 @@ def cmd_run_shap(args):
     from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
     from asr_shap_torch.pipeline.testset import create_test_set
 
-    _check_model_args(args)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh is not ported (ROADMAP.md queue 1, 'After these': scale-out)")
+            "--mesh is not ported (ROADMAP.md queue 1, item 8: scale-out)")
     if args.sample_batch or args.async_writes:
         logger.info("--sample-batch %d / --async-writes %s: accepted, results are the "
                     "same; the port explains one sample at a time and writes "
@@ -190,7 +193,6 @@ def cmd_sweep(args):
     from asr_shap_torch.core.store import AttributionStore
     from asr_shap_torch.pipeline.sweep import eta_wer_sweep, sweep_summary
 
-    _check_model_args(args)
     if args.plot:
         from asr_shap_torch.viz.static import require_matplotlib
 
@@ -225,7 +227,6 @@ def cmd_faithfulness(args):
         make_transcribe_fn,
     )
 
-    _check_model_args(args)
     if args.plot:
         from asr_shap_torch.viz.static import require_matplotlib
 
@@ -298,7 +299,6 @@ def cmd_transcribe(args):
     from asr_shap_torch.ops.ctc import ctc_greedy_decode, ctc_ids_to_text
     from asr_shap_torch.viz.wav_io import read_wav
 
-    _check_model_args(args)
     params, cfg = _load_model(args)
     device = resolve_device(args.device)
     logits_fn = model_logits_fn(cfg)
@@ -333,7 +333,6 @@ def cmd_visualize(args):
     from asr_shap_torch.viz.interactive import AttributionViewer, load_attribution_view
     from asr_shap_torch.viz.static import require_matplotlib
 
-    _check_model_args(args)
     require_matplotlib("visualize", "the viewer is a figure; run it where matplotlib imports")
     params, cfg = _load_model(args)
     store = AttributionStore(args.data_dir)
@@ -359,7 +358,6 @@ def cmd_compare(args):
     from asr_shap_torch.pipeline.compare import comparison_record, lime_shap_comparison
     from asr_shap_torch.viz.static import require_matplotlib
 
-    _check_model_args(args)
     if args.out_dir:
         require_matplotlib(f"--out-dir {args.out_dir}", "pass --out-dir '' for the record alone")
     params, cfg = _load_model(args)

@@ -2,9 +2,8 @@
 
 A copy of the configs the ported slices need from ``asr_shap.core.config``,
 with the same field names and defaults, so an archive's embedded config and
-a test's config mean the same thing in both packages. The mesh and the mel
-conformer configs are not ported yet; ``PipelineConfig`` therefore has no
-``mesh`` field.
+a test's config mean the same thing in both packages. The mesh config is
+not ported yet; ``PipelineConfig`` therefore has no ``mesh`` field.
 """
 
 from __future__ import annotations
@@ -91,6 +90,58 @@ class Wav2Vec2ConformerConfig(Wav2Vec2Config):
     rotary_embedding_base: int = 10_000
     conv_depthwise_kernel_size: int = 31
     hidden_act: str = "swish"  # FFN activation; "swish"/"silu", else GELU
+
+
+@dataclasses.dataclass(frozen=True)
+class ConformerConfig:
+    """Conformer CTC encoder on log-mel features (``models/conformer.py``):
+    the torchaudio-style Conformer of the mel SHAP study at its defaults, and
+    the NeMo BPE-CTC Conformer through ``models/nemo_ctc.py``'s preset. It
+    has no ``matmul_precision``: the forward takes "highest" for float32 and
+    "default" for bf16."""
+
+    vocab_size: int = 32
+    input_dim: int = 80  # mel bins
+    hidden_size: int = 256
+    num_layers: int = 4
+    num_attention_heads: int = 4
+    ffn_expansion: int = 4
+    conv_kernel_size: int = 31
+    conv_norm: str = "batch"  # "batch" | "group"
+    num_conv_groups: int = 1
+    dropout: float = 0.0
+    layer_norm_eps: float = 1e-5
+    dtype: str = "float32"
+    attention_impl: str = "xla"
+    # "none" (torchaudio style) or "relative" (NeMo-style Transformer-XL
+    # rel-pos attention with per-layer u/v biases)
+    pos_encoding: str = "none"
+    # "striding": stacked 2-D convs, stride 2 each, then a linear onto
+    # hidden_size (NeMo); "none" feeds the mel frames directly
+    subsampling: str = "none"
+    subsampling_factor: int = 4
+    subsampling_conv_channels: int = 0  # 0 = hidden_size
+    # multiply the encoder input by sqrt(hidden_size) (NeMo's xscale)
+    input_scale: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def subsampling_layers(self) -> int:
+        n, f = 0, 1
+        while f < self.subsampling_factor:
+            f *= 2
+            n += 1
+        return n
+
+    def subsampled_length(self, t: int) -> int:
+        """Output frame count of the striding subsampler for t input frames
+        (kernel 3, stride 2, pad 1 per stage)."""
+        for _ in range(self.subsampling_layers):
+            t = (t + 2 - 3) // 2 + 1
+        return t
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,11 +4,14 @@ The archive format is the reference package's: leaves keyed by their tree
 path joined with ``::`` (list items as ``#i``), plus an optional
 ``__asr_shap_config__`` entry holding the architecture config as JSON. The
 reference stacks the encoder layers along a leading axis; the port keeps
-one dict per layer in ``params["encoder"]["layers"]``, whatever the layer
-holds (Wav2Vec2's attention/ffn/norms, or the conformer's attn, conv, ffn1,
-ffn2 and final_norm). All other leaves keep the reference layouts: conv
-kernels ``[K, C_in, C_out]`` (the conformer's depthwise kernel
-``[K, 1, D]``), linears ``[in, out]``.
+one dict per layer in ``params["encoder"]["layers"]`` (the Wav2Vec2
+families: Wav2Vec2's attention/ffn/norms, or the conformer's attn, conv,
+ffn1, ffn2 and final_norm) and in the top-level ``params["layers"]`` (the
+mel Conformer's). All other leaves keep the reference layouts: conv
+kernels ``[K, C_in, C_out]`` (the conformers' depthwise kernel
+``[K, 1, D]``, the mel subsampler's 2-D kernels ``[3, 3, C_in, C_out]``),
+linears ``[in, out]``. ``StateDictReader`` reads a torch ``state_dict``
+into those layouts for the checkpoint converters.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -69,12 +72,13 @@ def _unstack_layers(stacked: Any) -> list:
 
 
 def params_from_jax(tree: Any, device: str | torch.device = "cuda") -> Dict[str, Any]:
-    """Reference-package params (a tree of numpy arrays, encoder layers
-    stacked) -> port params (float32 tensors on ``device``, one dict per
-    encoder layer)."""
+    """Reference-package params (a tree of numpy arrays, layers stacked) ->
+    port params (float32 tensors on ``device``, one dict per layer)."""
     device = resolve_device(device)
     tree = _map_leaves(tree, np.asarray)
     out = dict(tree)
+    if "layers" in tree:
+        out["layers"] = _unstack_layers(tree["layers"])
     if "encoder" in tree and "layers" in tree["encoder"]:
         out["encoder"] = dict(tree["encoder"])
         out["encoder"]["layers"] = _unstack_layers(tree["encoder"]["layers"])
@@ -101,9 +105,11 @@ def _stack_layers(layers: list) -> Dict[str, Any]:
 
 def params_to_jax(params: Any) -> Dict[str, Any]:
     """Port params -> the reference package's tree: numpy leaves on the
-    host, encoder layers stacked (the inverse of ``params_from_jax``)."""
+    host, layers stacked (the inverse of ``params_from_jax``)."""
     tree = _map_leaves(params, lambda t: t.detach().cpu().numpy()
                        if isinstance(t, torch.Tensor) else np.asarray(t))
+    if "layers" in tree:
+        tree["layers"] = _stack_layers(tree["layers"])
     if "encoder" in tree and "layers" in tree["encoder"]:
         tree["encoder"] = dict(tree["encoder"])
         tree["encoder"]["layers"] = _stack_layers(tree["encoder"]["layers"])
@@ -135,7 +141,7 @@ def load_config(path: str) -> Optional[Any]:
     if cls is None:
         raise ValueError(
             f"{path}: config class {payload['class']!r} is not ported yet "
-            "(the port has Wav2Vec2Config and Wav2Vec2ConformerConfig)"
+            "(the port has Wav2Vec2Config, Wav2Vec2ConformerConfig and ConformerConfig)"
         )
     known = {f.name for f in dataclasses.fields(cls)}
     fields, dropped = {}, []
@@ -171,3 +177,45 @@ def load_params(path: str, device: str | torch.device = "cuda") -> Dict[str, Any
         return node
 
     return params_from_jax(listify(tree), device)
+
+
+class StateDictReader:
+    """Leaves of one torch ``state_dict`` as float32 tensors on ``device``,
+    in the port's layouts. A linear or conv whose bias is missing gets none,
+    or zeros with ``zero_bias``."""
+
+    def __init__(self, sd: Mapping[str, Any], device: torch.device, zero_bias: bool = False):
+        self.sd, self.device, self.zero_bias = sd, device, zero_bias
+
+    def array(self, key: str) -> np.ndarray:
+        t = self.sd[key]
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+    def tensor(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
+
+    def get(self, key: str) -> torch.Tensor:
+        return self.tensor(self.array(key))
+
+    def _with_bias(self, kernel: np.ndarray, prefix: str) -> Dict[str, Any]:
+        p = {"kernel": self.tensor(kernel)}
+        if f"{prefix}.bias" in self.sd:
+            p["bias"] = self.get(f"{prefix}.bias")
+        elif self.zero_bias:
+            p["bias"] = self.tensor(np.zeros(kernel.shape[-1]))
+        return p
+
+    def linear(self, prefix: str) -> Dict[str, Any]:
+        """Linear [out, in] -> kernel [in, out]."""
+        return self._with_bias(self.array(f"{prefix}.weight").T, prefix)
+
+    def pointwise(self, prefix: str) -> Dict[str, Any]:
+        """Conv1d of kernel 1 [out, in, 1] -> a linear kernel [in, out]."""
+        return self._with_bias(self.array(f"{prefix}.weight")[:, :, 0].T, prefix)
+
+    def conv1d(self, prefix: str) -> Dict[str, Any]:
+        """Conv1d [out, in/groups, K] -> kernel [K, in/groups, out]."""
+        return self._with_bias(self.array(f"{prefix}.weight").transpose(2, 1, 0), prefix)
+
+    def norm(self, prefix: str) -> Dict[str, Any]:
+        return {"scale": self.get(f"{prefix}.weight"), "bias": self.get(f"{prefix}.bias")}

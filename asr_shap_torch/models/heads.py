@@ -1,4 +1,13 @@
-"""Aggregation heads: what gets explained, as functions of the logits."""
+"""Aggregation heads: what gets explained, as functions of the logits, and
+the dispatch from a Wav2Vec2-family config to its forward.
+
+The dispatch covers the two Wav2Vec2 families, as the reference's does. The
+mel Conformer and the NeMo BPE-CTC Conformer (``models/conformer.py``,
+``models/nemo_ctc.py``) take features, not waveforms, and are explained as
+the reference explains them: a caller's own f over the flattened features,
+through ``explain.expected_gradients.expected_gradients`` or
+``explain.deepshap.deep_shap_values``, with ``aggregation_head`` on the
+logits."""
 
 from __future__ import annotations
 
@@ -36,7 +45,9 @@ def model_logits_fn(model_cfg: Wav2Vec2Config):
 
         return w2v2_conformer_logits
     if type(model_cfg) is not Wav2Vec2Config:
-        raise NotImplementedError(f"{type(model_cfg).__name__} is not ported")
+        raise NotImplementedError(
+            f"{type(model_cfg).__name__}: the pipeline takes the Wav2Vec2 families; "
+            "explain a mel model through its own f (see the module docstring)")
     from asr_shap_torch.models.wav2vec2 import wav2vec2_logits
 
     return wav2vec2_logits

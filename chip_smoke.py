@@ -13,8 +13,10 @@ with dtype="bfloat16", matmul_precision="default": the bf16 kernels of
 K1-K4) and the bf16 conformer (the conformer with the same numerics: the
 bf16 K1, K2f, K3b and K4f); then the base path (and, for DeepSHAP, the
 conformer) again through the other explainers, DeepSHAP, KernelSHAP and
-LIME, and last the compare and visualize commands. Phases, each reported
-on its own lines:
+LIME, the compare and visualize commands, and last the mel Conformer
+family (the NeMo BPE-CTC Conformer and the torchaudio-style Conformer, on
+log-mel features, through the library calls a user makes). Phases, each
+reported on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once; log
@@ -129,7 +131,24 @@ on its own lines:
    study store on the card and the CPU; the mel front end and Griffin-Lim
    on the card and the CPU; and each drawing command (``--plot``,
    ``compare --out-dir``, ``visualize``) refusing before any work where
-   matplotlib does not import, or writing its figure where it does.
+   matplotlib does not import, or writing its figure where it does;
+11. the mel Conformer family, last, on the log-mel features of the two
+   clips ([301, 80], N = 24,080; the background is the features of 5
+   seeded white-noise clips): the NeMo BPE-CTC Conformer at
+   stt_en_conformer_ctc_large's widths (17 layers, d 512, 8 heads of 64,
+   x4 striding subsampler: T_out = 76, seeded u/v, norms and BatchNorm
+   statistics) in float32 (logits and BPE transcripts of both clips
+   against the plain twin; expected_gradients with the exact launches of
+   K2f/K3b/K4f and phi within 2e-3 of max|phi| of the plain twin; wall per
+   draw, profile, peak; the .nemo converter on a NeMo-keyed state_dict of
+   the same params, logits bit-equal) and in bf16 under "default" (the
+   bf16 counters' exact launches, the bf16 rule on one draw three ways);
+   ``ConformerConfig()`` (no positions, T_out = 301) through K2/K3/K4 (EG
+   against the plain twin, a masked 2-clip batch, DeepSHAP on its
+   group-norm variant, each within 2e-3); subsampler conv2's dgrad in bf16
+   both ways; and the flash kernels at these shapes, float32 and bf16
+   ("mel" and "timing mel conformer" lines). Its launches are the JSON
+   line's ``launches_mel``.
 
 Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
 two bf16 forward and the four bf16 backward kernels also with their
@@ -163,6 +182,7 @@ from asr_shap_torch.audio.invert import mel_to_audio
 from asr_shap_torch.audio.mel import log_mel_spectrogram
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
 from asr_shap_torch.core.config import (
+    ConformerConfig,
     ExplainerConfig,
     MetricConfig,
     PipelineConfig,
@@ -179,7 +199,12 @@ from asr_shap_torch.explain.deepshap import (
     w2v2_conformer_dual_fn,
     wav2vec2_dual_fn,
 )
-from asr_shap_torch.explain.expected_gradients import expected_phi, num_draws, sample_draws
+from asr_shap_torch.explain.expected_gradients import (
+    expected_gradients,
+    expected_phi,
+    num_draws,
+    sample_draws,
+)
 from asr_shap_torch.explain.kernel_shap import kernel_shap_attributions, sample_coalitions
 from asr_shap_torch.explain.lime import lime_attributions, lime_masks
 from asr_shap_torch.kernels import LAUNCHES, build_all, reset_launches
@@ -188,7 +213,24 @@ from asr_shap_torch.kernels import conv_dgrad as k1
 from asr_shap_torch.kernels import flash_attention as fa
 from asr_shap_torch.metrics.eta_raw import eta_raw
 from asr_shap_torch.metrics.wer import wer
-from asr_shap_torch.models.heads import make_batched_fn, make_explained_fn, model_logits_fn
+from asr_shap_torch.models.conformer import (
+    conformer_logits,
+    deepshap_rules,
+    init_conformer_params,
+)
+from asr_shap_torch.models.heads import (
+    aggregation_head,
+    make_batched_fn,
+    make_explained_fn,
+    model_logits_fn,
+)
+from asr_shap_torch.models.nemo_ctc import (
+    convert_nemo_state_dict,
+    init_nemo_ctc_params,
+    nemo_conformer_config,
+    nemo_ctc_decode,
+    nemo_ctc_logits,
+)
 from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
 from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params
 from asr_shap_torch.ops.attention import rel_shift
@@ -2342,9 +2384,19 @@ def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype, n_samples: int = N
     rows per residual row (DeepSHAP's: 2 clips, 149 rows), against their
     plain versions and timed beside their bound and SDPA's backward on the
     same inputs."""
-    full = isinstance(mc, Wav2Vec2ConformerConfig)
-    rows = mc.frames_for_samples(n_samples)
-    h, d, t = mc.num_attention_heads, mc.head_dim, rows
+    shapes_backward(gen, mc.num_attention_heads, mc.head_dim, mc.frames_for_samples(n_samples),
+                    isinstance(mc, Wav2Vec2ConformerConfig), dtype, batch, tag)
+
+
+def shapes_backward(gen, h: int, d: int, t: int, full: bool, dtype, batch: int, tag: str,
+                    with_device_ms: bool = False) -> None:
+    """K3 and K4 (``full``: K3b and K4f, with a rel-pos-like bias) at ``h``
+    heads of ``d``, ``t`` keys and a residual batch of ``batch`` clips with
+    ``t`` cotangent rows per residual row, as ``explainer_shapes_backward``;
+    ``with_device_ms`` adds each kernel's device time per launch and SDPA's
+    backward's per call (torch.profiler, over windows of 100 and 50 calls:
+    a window of a millisecond or two can lose its first device records)."""
+    rows = t
     q, k, v, _, g = (None if x is None else x.to(dtype)
                      for x in flash_inputs(gen, batch, h, t, d, rows, False))
     bias = rel_pos_bias(gen, q, False) if full else None
@@ -2375,8 +2427,11 @@ def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype, n_samples: int = N
         inputs += (mask,)
     oe = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=mask)
     g4 = g.reshape(rows * batch, h, t, d)
-    lib = time_ms(lambda: torch.autograd.grad(oe, inputs, g4, retain_graph=True), 5)
-    del oe, qe, ke, ve, mask, inputs
+    sdpa_bwd = lambda: torch.autograd.grad(oe, inputs, g4, retain_graph=True)
+    lib = time_ms(sdpa_bwd, 5)
+    lib_dev = f" library_device_ms={device_ms_per_call(sdpa_bwd, 50):.4f}" if with_device_ms else ""
+    del oe, qe, ke, ve, mask, inputs, sdpa_bwd
+    kernel = "bf16" if dtype == BF16 else "mma"
     for name, kind, fn, pfn in (
         (dq_name, "dq", lambda: fa.flash_dq(q, k, v, o, lse, g, bias, h),
          lambda: fa.flash_dq_plain(q, k, v, o, lse, g, bias, h)),
@@ -2384,9 +2439,12 @@ def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype, n_samples: int = N
          lambda: fa.flash_dkv_plain(q, k, v, lse, g, dd_p, bias, h)),
     ):
         ms, pms = time_ms(fn, 5), time_ms(pfn, 5)
+        dev = (f" device_ms={device_ms(fn, f'flash_{kind}_{kernel}_kernel', 100):.4f}"
+               if with_device_ms else "")
         b_ms, b_by = kernel_bound(*flash_cost(kind, bh, n, t, d, dtype, full), dtype)
-        log(f"timing {tag} {name} {label}: ms={ms:.4f} plain_ms={pms:.4f} "
-            f"library_ms(SDPA backward, same inputs)={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        log(f"timing {tag} {name} {label}: ms={ms:.4f}{dev} plain_ms={pms:.4f} "
+            f"library_ms(SDPA backward, same inputs)={lib:.4f}{lib_dev} bound_ms={b_ms:.4f} "
+            f"({b_by})")
     del q, k, v, g, bias, o, lse, dd_p
 
 
@@ -2397,8 +2455,15 @@ def explainer_shapes_forward(gen, mc: Wav2Vec2Config, clips, dtype,
     faithfulness's), against its plain version at both block heights, and
     timed beside its bound and SDPA's forward (K2's time is device time
     under torch.profiler, per launch)."""
-    full = isinstance(mc, Wav2Vec2ConformerConfig)
-    h, d, t = mc.num_attention_heads, mc.head_dim, mc.frames_for_samples(n_samples)
+    shapes_forward(gen, mc.num_attention_heads, mc.head_dim, mc.frames_for_samples(n_samples),
+                   isinstance(mc, Wav2Vec2ConformerConfig), clips, dtype, tag)
+
+
+def shapes_forward(gen, h: int, d: int, t: int, full: bool, clips, dtype, tag: str,
+                   device_iters: int = 50) -> None:
+    """K2 (``full``: K2f, with a rel-pos-like bias) at ``h`` heads of ``d``,
+    ``t`` keys and batches of ``clips``, as ``explainer_shapes_forward``;
+    the device times over windows of ``device_iters`` calls."""
     name = ("flash_fwd_bias" if full else "flash_fwd") + ("_bf16" if dtype == BF16 else "")
     kname = "flash_fwd_bf16_kernel" if dtype == BF16 else "flash_fwd_kernel"
     for b in clips:
@@ -2418,9 +2483,9 @@ def explainer_shapes_forward(gen, mc: Wav2Vec2Config, clips, dtype,
         ms = time_ms(lambda: fa.flash_fwd(q, k, v, bias, h), 50)
         pms = time_ms(lambda: fa.flash_fwd_plain(q, k, v, bias, h), 20)
         lms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 50)
-        dms = device_ms(lambda: fa.flash_fwd(q, k, v, bias, h), kname)
+        dms = device_ms(lambda: fa.flash_fwd(q, k, v, bias, h), kname, device_iters)
         sdpa_dms = device_ms_per_call(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), device_iters)
         b_ms, b_by = kernel_bound(*flash_cost("fwd", b * h, b * h, t, d, dtype, full), dtype)
         log(f"timing {tag} {name} {label} rows/block={fa.fwd_block_rows(q)}: ms={ms:.4f} "
             f"device_ms={dms:.5f} plain_ms={pms:.4f} library_ms(SDPA forward)={lms:.4f} "
@@ -2870,6 +2935,379 @@ def phase_compare(model: Wav2Vec2Config, base_archive: str, data_dir: str, smi: 
     log(f"compare phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ mel conformer
+
+# a synthetic 128-piece BPE vocab (the blank is index 128, after it)
+NEMO_VOCAB = tuple(("▁" if i % 3 == 0 else "") + f"p{i}" for i in range(128))
+NEMO_KERNELS = ("flash_fwd_bias", "flash_dq_dbias", "flash_dkv_bias")
+MEL_CONFORMER_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def mel_features(audio: torch.Tensor) -> torch.Tensor:
+    """[..., N] samples -> [..., T, 80] log-mel features (32 ms window, 10 ms
+    hop, natural log) with the per-feature normalisation over time of
+    scripts/pin_checkpoints.py (population std)."""
+    mel = log_mel_spectrogram(audio, n_fft=512, hop_length=160, n_mels=80, log="natural")
+    mean = mel.mean(dim=-2, keepdim=True)
+    return (mel - mean) / (mel.std(dim=-2, keepdim=True, correction=0) + 1e-5)
+
+
+def mel_inputs(test_set, num_background: int):
+    """(features of both clips [2, 301, 80], the explained clip's flattened
+    [24,080] (the 5 dB mix), background [num_background, 24,080]: the
+    features of seeded white-noise clips)."""
+    audio = torch.from_numpy(np.stack([s["audio"] for s in test_set])).cuda()
+    feats = mel_features(audio)
+    noise = 0.01 * torch.randn((num_background, N_SAMPLES),
+                               generator=torch.Generator().manual_seed(SEED + 21)).cuda()
+    return feats, feats[1].reshape(-1), mel_features(noise).reshape(num_background, -1)
+
+
+def randomize_affines(params, seed: int) -> None:
+    """Seeded values in place of the init's zero u/v biases, identity
+    BatchNorm statistics and unit norms, so that the bias path and every
+    converted key carry information: each norm's scale in [0.5, 1.5], every
+    bias in [-0.1, 0.1], BatchNorm mean in [-0.2, 0.2] and var in [0.5,
+    1.5], u and v in [-0.5, 0.5]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(t, lo, hi):
+        t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=gen, device="cuda"))
+
+    def walk(node):
+        if isinstance(node, list):
+            for x in node:
+                walk(x)
+            return
+        for key, val in node.items():
+            if isinstance(val, (dict, list)):
+                walk(val)
+            elif key == "scale" or key == "var":
+                fill(val, 0.5, 1.5)
+            elif key == "bias":
+                fill(val, -0.1, 0.1)
+            elif key == "mean":
+                fill(val, -0.2, 0.2)
+            elif key in ("bias_u", "bias_v"):
+                fill(val, -0.5, 0.5)
+
+    walk(params)
+
+
+def nemo_state_dict(params) -> dict:
+    """The port's NeMo params keyed as NeMo's EncDecCTCModelBPE state_dict
+    (ConformerEncoder, ConvASRDecoder): the inverse of
+    ``models/nemo_ctc.py::convert_nemo_state_dict``, on the host."""
+    sd = {}
+
+    def put(key, t):
+        sd[key] = t.detach().cpu().contiguous()
+
+    def lin(prefix, p):
+        put(f"{prefix}.weight", p["kernel"].T)
+        put(f"{prefix}.bias", p["bias"])
+
+    def pointwise(prefix, p):
+        put(f"{prefix}.weight", p["kernel"].T[:, :, None])
+        put(f"{prefix}.bias", p["bias"])
+
+    def norm(prefix, p):
+        put(f"{prefix}.weight", p["scale"])
+        put(f"{prefix}.bias", p["bias"])
+
+    for i, conv in enumerate(params["subsampling"]["convs"]):
+        put(f"encoder.pre_encode.conv.{2 * i}.weight", conv["kernel"].permute(3, 2, 0, 1))
+        put(f"encoder.pre_encode.conv.{2 * i}.bias", conv["bias"])
+    lin("encoder.pre_encode.out", params["subsampling"]["out"])
+    for li, layer in enumerate(params["layers"]):
+        pre = f"encoder.layers.{li}"
+        for nemo, ours in (("norm_feed_forward1", layer["ffn1"]["norm"]),
+                           ("norm_self_att", layer["attn"]["norm"]),
+                           ("norm_conv", layer["conv"]["norm"]),
+                           ("norm_feed_forward2", layer["ffn2"]["norm"]),
+                           ("norm_out", layer["final_norm"])):
+            norm(f"{pre}.{nemo}", ours)
+        for ff in ("1", "2"):
+            lin(f"{pre}.feed_forward{ff}.linear1", layer[f"ffn{ff}"]["in"])
+            lin(f"{pre}.feed_forward{ff}.linear2", layer[f"ffn{ff}"]["out"])
+        a = layer["attn"]
+        for name in ("q", "k", "v", "out"):
+            lin(f"{pre}.self_attn.linear_{name}", a[name])
+        put(f"{pre}.self_attn.linear_pos.weight", a["pos"]["kernel"].T)
+        put(f"{pre}.self_attn.pos_bias_u", a["bias_u"])
+        put(f"{pre}.self_attn.pos_bias_v", a["bias_v"])
+        c = layer["conv"]
+        pointwise(f"{pre}.conv.pointwise_conv1", c["pointwise1"])
+        pointwise(f"{pre}.conv.pointwise_conv2", c["pointwise2"])
+        put(f"{pre}.conv.depthwise_conv.weight", c["depthwise"]["kernel"].permute(2, 1, 0))
+        put(f"{pre}.conv.depthwise_conv.bias", c["depthwise"]["bias"])
+        for nemo, ours in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                           ("running_var", "var")):
+            put(f"{pre}.conv.batch_norm.{nemo}", c["bn"][ours])
+        sd[f"{pre}.conv.batch_norm.num_batches_tracked"] = torch.tensor(0)
+    pointwise("decoder.decoder_layers.0", params["head"])
+    return sd
+
+
+def mel_explained_fn(logits_fn, params, cfg, ec: ExplainerConfig, frames: int):
+    """f: flattened features [frames * input_dim] -> the explained outputs of
+    each output frame (the max head over the vocab)."""
+    return lambda a: aggregation_head(logits_fn(params, cfg, a.reshape(frames, cfg.input_dim)),
+                                      ec.aggregation)
+
+
+def mel_eg(label: str, f, x, bg, ec: ExplainerConfig, draws, expect: dict):
+    """expected_gradients (the user's call) at x with explicit draws, the
+    launch counts set to 0 just before and read just after: they must be
+    ``expect`` exactly. Logs the run's wall and peak device memory; returns
+    (phi [N, T_out], the counts)."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = expected_gradients(f, x, bg, config=ec, draws=draws)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c for k, c in LAUNCHES.items() if c}
+    log(f"mel {label}: expected_gradients, {draws[0].numel()} draws and {bg.shape[0] + 1} "
+        f"forwards for the base values, wall {wall:.3f} s; launches {json.dumps(got)}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(got == expect, f"mel {label}: launches {got}, expected {expect}")
+    phi = res.values
+    check(bool(torch.isfinite(phi).all()), f"mel {label}: phi not finite")
+    return phi, got
+
+
+def mel_draw_wall(label: str, f, x, bg, ec: ExplainerConfig, n: int = 2) -> dict:
+    """Wall per draw of ``n`` more draws (expected_phi, unprofiled), then
+    ``profile_draws``: device busy per draw and time by kernel group."""
+    ec = dataclasses.replace(ec, nsamples=n)
+    draws = sample_draws(torch.Generator().manual_seed(SEED + 22), n, ec.num_background)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    expected_phi(f, x, bg, config=ec, draws=draws)
+    torch.cuda.synchronize()
+    log(f"mel {label}: wall per draw {(time.perf_counter() - t0) * 1e3 / n:.1f} ms ({n} draws)")
+    return profile_draws(f, x, bg, ec, n)
+
+
+def gate_phi(label: str, got, want, what: str) -> None:
+    scale = float(want.abs().max())
+    err = compare(f"mel {label}: {what}, kernels vs the plain twin", got, want, 2e-3 * scale,
+                  0.0, "2e-3 of max|phi|: float32 through every layer, another summation "
+                  "order in every product")
+    log(f"mel {label}: max_abs_err / max|phi| = {err / scale:.3e} (max|phi| {scale:.4e})")
+
+
+def nemo_float32(cfg, params, feats, x, bg, ec, draws) -> dict:
+    """NeMo large in float32: logits and transcripts of both clips against
+    the plain twin, EG through K2f/K3b/K4f with exact launches against the
+    plain twin, wall, profile; the converter at full width."""
+    label = "nemo float32"
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    t_out = cfg.subsampled_length(feats.shape[1])
+    with torch.no_grad():
+        reset_launches()
+        lk = nemo_ctc_logits(params, cfg, feats)
+        check(LAUNCHES["flash_fwd_bias"] == cfg.num_layers, f"{label}: forward launches")
+        lp = nemo_ctc_logits(params, plain, feats)
+    check(tuple(lk.shape) == (2, t_out, 129), f"{label}: logits {tuple(lk.shape)}")
+    scale = float(lp.abs().max())
+    compare(f"mel {label}: logits of both clips [2, {t_out}, 129]", lk, lp, 2e-3 * scale, 0.0,
+            "2e-3 of max|logits|, float32 through 17 layers")
+    tk, tp = nemo_ctc_decode(lk, NEMO_VOCAB), nemo_ctc_decode(lp, NEMO_VOCAB)
+    log(f"mel {label}: transcripts {[s[:60] for s in tk]} (of {[len(s) for s in tk]} characters)")
+    check(tk == tp, f"{label}: transcripts differ from the plain twin's")
+
+    f = mel_explained_fn(nemo_ctc_logits, params, cfg, ec, feats.shape[1])
+    n = num_draws(ec)
+    expect = {"flash_fwd_bias": (n + 1 + ec.num_background) * cfg.num_layers,
+              "flash_dq_dbias": n * cfg.num_layers, "flash_dkv_bias": n * cfg.num_layers}
+    phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
+    check(tuple(phi.shape) == (x.numel(), t_out), f"{label}: phi {tuple(phi.shape)}")
+    reset_launches()
+    phi_p = expected_phi(mel_explained_fn(nemo_ctc_logits, params, plain, ec, feats.shape[1]),
+                         x, bg, config=ec, draws=draws)
+    check(not any(LAUNCHES.values()), f"{label}: the plain twin launched a kernel")
+    gate_phi(label, phi, phi_p, f"phi [{x.numel()}, {t_out}]")
+    del phi_p
+    mel_draw_wall(label, f, x, bg, ec)
+
+    sd = nemo_state_dict(params)
+    conv = convert_nemo_state_dict(sd, cfg, device="cuda")
+    with torch.no_grad():
+        lc = nemo_ctc_logits(conv, cfg, feats)
+    log(f"mel nemo converter: {len(sd)} NeMo keys -> params; max|logits - original| = "
+        f"{float((lc - lk).abs().max()):.3e}")
+    check(torch.equal(lc, lk), "nemo converter: logits differ from the original params'")
+    return launches
+
+
+def nemo_bf16(cfg, params, feats, x, bg, ec, draws) -> dict:
+    """NeMo large in bf16 under "default": EG through the bf16 K2f/K3b/K4f
+    with exact launches, wall, profile; one draw three ways for the bf16
+    rule (``phi_rule``)."""
+    label = "nemo bf16"
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    params16 = cast_params_for_compute(params, "bfloat16")
+    frames = feats.shape[1]
+    n = num_draws(ec)
+    expect = {"flash_fwd_bias_bf16": (n + 1 + ec.num_background) * cfg.num_layers,
+              "flash_dq_dbias_bf16": n * cfg.num_layers,
+              "flash_dkv_bias_bf16": n * cfg.num_layers}
+    with matmul_precision_scope("default"):
+        with torch.no_grad():
+            lk = nemo_ctc_logits(params16, cfg16, feats)
+        log(f"mel {label}: transcripts {[s[:60] for s in nemo_ctc_decode(lk, NEMO_VOCAB)]}")
+        f16 = mel_explained_fn(nemo_ctc_logits, params16, cfg16, ec, frames)
+        _, launches = mel_eg(label, f16, x, bg, ec, draws, expect)
+        mel_draw_wall(label, f16, x, bg, ec)
+    one = dataclasses.replace(ec, nsamples=1)
+    draw = (torch.tensor([2]), torch.tensor([0.37]))
+    x_t = bg[2] + 0.37 * (x - bg[2])
+    paths = {"k16": (cfg16, params16, "default"),
+             "p16": (dataclasses.replace(cfg16, attention_impl="xla"), params16, "default"),
+             "32": (cfg, params, "highest")}
+    phi, logits = {}, {}
+    for key, (c, p, precision) in paths.items():
+        with matmul_precision_scope(precision):
+            phi[key] = expected_phi(mel_explained_fn(nemo_ctc_logits, p, c, one, frames), x, bg,
+                                    config=one, draws=draw)
+            with torch.no_grad():
+                logits[key] = nemo_ctc_logits(p, c, x_t.reshape(frames, -1))
+        check(bool(torch.isfinite(phi[key]).all()), f"{label} {key}: phi not finite")
+    defined = defined_frames(f"phi {label}", logits)
+    phi_rule(f"phi {label}", phi, (("all frames", slice(None)), ("defined frames", defined)))
+    return launches
+
+
+def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
+    """``ConformerConfig()`` (no positions, T_out = 301) through K2/K3/K4:
+    EG with exact launches against the plain twin, a 2-clip batch with
+    lengths (301, 201) through the mask variant, and DeepSHAP on the
+    group-norm study variant; each against its plain twin."""
+    label = "conformer"
+    cfg = ConformerConfig(attention_impl="pallas")
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    params = init_conformer_params(SEED, cfg, device="cuda")
+    randomize_affines(params, SEED + 23)
+    frames, layers = test_feats.shape[1], cfg.num_layers
+    f = mel_explained_fn(conformer_logits, params, cfg, ec, frames)
+    n = num_draws(ec)
+    expect = {"flash_fwd": (n + 1 + ec.num_background) * layers, "flash_dq": n * layers,
+              "flash_dkv": n * layers}
+    phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
+    check(tuple(phi.shape) == (x.numel(), frames), f"{label}: phi {tuple(phi.shape)}")
+    phi_p = expected_phi(mel_explained_fn(conformer_logits, params, plain, ec, frames), x, bg,
+                         config=ec, draws=draws)
+    gate_phi(label, phi, phi_p, f"phi [{x.numel()}, {frames}]")
+    del phi, phi_p
+    mel_draw_wall(label, f, x, bg, ec)
+
+    lengths = torch.tensor([frames, 201], device="cuda")
+    with torch.no_grad():
+        reset_launches()
+        lk = conformer_logits(params, cfg, test_feats, lengths=lengths)
+        check(dict((k, c) for k, c in LAUNCHES.items() if c) == {"flash_fwd": layers},
+              f"{label}: masked forward launches")
+        lp = conformer_logits(params, plain, test_feats, lengths=lengths)
+    compare(f"mel {label}: masked 2-clip logits, lengths (301, 201)", lk, lp,
+            2e-3 * float(lp.abs().max()), 0.0, "2e-3 of max|logits|")
+
+    gcfg = dataclasses.replace(cfg, conv_norm="group")
+    rules = deepshap_rules()
+
+    def dual_fn(c):
+        return lambda d: aggregation_head(
+            conformer_logits(params, c, d.reshape(2, frames, c.input_dim), rules=rules),
+            ec.aggregation)[0]
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deep = deep_shap_values(dual_fn(gcfg), x, bg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c for k, c in LAUNCHES.items() if c}
+    nb = bg.shape[0]
+    want = {"flash_fwd": (2 * nb + 1) * layers, "flash_dq": nb * layers,
+            "flash_dkv": nb * layers}
+    log(f"mel {label} deep (group norm): {nb} background rows, wall {wall:.3f} s "
+        f"({wall / nb * 1e3:.1f} ms per row); launches {json.dumps(got)}")
+    check(got == want, f"{label} deep: launches {got}, expected {want}")
+    deep_p = deep_shap_values(dual_fn(dataclasses.replace(gcfg, attention_impl="xla")), x, bg)
+    gate_phi(f"{label} deep", deep.values, deep_p.values, f"DeepSHAP phi [{x.numel()}, {frames}]")
+    return launches
+
+
+def time_subsampler_dgrad() -> None:
+    """conv2 of the NeMo subsampler (512 -> 512, 3x3, stride 2) at the EG
+    backward's 76 cotangent rows: its input gradient [76, 512, 151, 40] in
+    cuDNN's bf16 (the route ``conformer.conv_subsampling`` takes in bf16),
+    timed beside the alternative on float32 copies of the bf16 operands
+    and beside the float32 dgrad under "highest"."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    rows, c, t_in, f_in, t_out, f_out = 76, 512, 151, 40, 76, 20
+    w = torch.randn((c, c, 3, 3), generator=gen, device="cuda") * (2.0 / (9 * c)) ** 0.5
+    gy = torch.randn((rows, c, t_out, f_out), generator=gen, device="cuda")
+    x = torch.empty((rows, c, t_in, f_in), device="cuda")
+
+    def dgrad(g, xx, ww):
+        return torch.ops.aten.convolution_backward(g, xx, ww, None, [2, 2], [1, 1], [1, 1],
+                                                   False, [0, 0], 1, [True, False, False])[0]
+
+    fl = 2.0 * rows * t_out * f_out * c * c * 9
+    with matmul_precision_scope("default"):
+        bf = time_ms(lambda: dgrad(gy.to(BF16), x.to(BF16), w.to(BF16)), 5)
+        f32c = time_ms(lambda: dgrad(gy.to(BF16).float(), x, w.to(BF16).float()).to(BF16), 5)
+    f32 = time_ms(lambda: dgrad(gy, x, w), 5)
+    log(f"timing mel subsampler conv2 dgrad [76, 512, 151, 40] (7.2 GFLOP per row): cuDNN bf16 "
+        f"{bf:.3f} ms, float32 copies under \"default\" {f32c:.3f} ms, float32 under "
+        f"\"highest\" {f32:.3f} ms; bound bf16 {bound_bf16(fl, 0)[0]:.3f} ms, float32 "
+        f"{bound(fl, 0)[0]:.3f} ms")
+
+
+def time_mel_kernels() -> None:
+    """The flash kernels at the mel paths' shapes, float32 and bf16 ("timing
+    mel conformer" lines): K2f at BH 8, T 76 (NeMo's forward) and K3b/K4f
+    at N 608 (its EG backward, 76 rows x 8 heads); K2 at BH 4, T 301 and
+    K3/K4 at N 1,204 (``ConformerConfig()``'s), each against its plain
+    version, with device time, bound, plain time and SDPA's. The forwards'
+    device times are over windows of 400 calls: a window of 50 calls of a
+    5-12 us kernel lasts about a millisecond, and the profiler lost most of
+    such a window's device records late in a full run."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    for dtype in (torch.float32, BF16):
+        for h, t, full in ((8, 76, True), (4, 301, False)):
+            shapes_forward(gen, h, 64, t, full, (1,), dtype, "mel conformer", 400)
+            shapes_backward(gen, h, 64, t, full, dtype, 1, "mel conformer", with_device_ms=True)
+
+
+def phase_mel_conformer(test_set, smi: str) -> dict:
+    """The mel Conformer family at full width (NeMo stt_en_conformer_ctc_large
+    widths in float32 and bf16, the converter, ``ConformerConfig()``), then
+    the kernels at its shapes. Returns {kernel: launches on these paths}."""
+    t0 = time.perf_counter()
+    log(smi)
+    ec = ExplainerConfig(method="grad", aggregation="max", nsamples=NSAMPLES, num_background=5,
+                         draw_chunk=1, output_chunk=0)
+    feats, x, bg = mel_inputs(test_set, ec.num_background)
+    check(tuple(feats.shape) == (2, 301, 80), f"mel features {tuple(feats.shape)}")
+    draws = sample_draws(torch.Generator().manual_seed(SEED + 20), num_draws(ec),
+                         ec.num_background)
+    cfg = dataclasses.replace(nemo_conformer_config(), attention_impl="pallas")
+    params = init_nemo_ctc_params(SEED, cfg, device="cuda")
+    randomize_affines(params, SEED + 19)
+    launches = nemo_float32(cfg, params, feats, x, bg, ec, draws)
+    launches.update(nemo_bf16(cfg, params, feats, x, bg, ec, draws))
+    del params
+    launches.update(mel_conformer_float32(feats, x, bg, ec, draws))
+    time_subsampler_dgrad()
+    time_mel_kernels()
+    log(f"mel conformer phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
     adds fields to a kernel's entry."""
@@ -2934,6 +3372,8 @@ def main() -> int:
         extra.update(c_extra)
         phase_explainers(model, conformer, explainer, test_set, data_dir, smi)
         phase_compare(model, base_archive, data_dir, smi)
+        for name, count in phase_mel_conformer(test_set, smi).items():
+            extra[name] = {**extra.get(name, {}), "launches_mel": count}
         for name, fields in build_fields.items():
             extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)

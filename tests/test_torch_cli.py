@@ -100,8 +100,7 @@ def test_cli_commands_match_reference_cli(tmp_path, capsys, tiny_config):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["run-shap", "--device", "cpu", "--hf", "facebook/wav2vec2-base-960h"],
-     NotImplementedError),
+    (["run-shap", "--device", "cpu", "--hf", "facebook/wav2vec2-base-960h"], ImportError),
     (["run-shap", "--device", "cpu", "--mesh"], NotImplementedError),
     (["faithfulness", "--device", "cpu", "--plot", "f.png"], ImportError),
     (["sweep", "--device", "cpu", "--plot", "scatter.png"], ImportError),
@@ -110,11 +109,13 @@ def test_cli_commands_match_reference_cli(tmp_path, capsys, tiny_config):
     (["transcribe", "--tiny", "--random-init", "clip.npy"], RuntimeError),
 ])
 def test_cli_refuses_before_any_work(tmp_path, monkeypatch, argv, error):
-    """Unported options raise before any work, and so does --plot where
-    matplotlib does not import; without --device the CLI asks for CUDA and
+    """Unported options raise before any work, and so do --plot where
+    matplotlib does not import and --hf where transformers does not (the
+    GPU machine has neither); without --device the CLI asks for CUDA and
     raises where there is none, never falling back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setitem(sys.modules, "transformers", None)
     with pytest.raises(error):
         cli(argv + ["--data-dir", str(tmp_path / "data")] if argv[0] != "transcribe"
             else argv)

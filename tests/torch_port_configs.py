@@ -94,12 +94,35 @@ def conformer_params(cfg, seed):
     from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
 
     params = init_w2v2_conformer_params(seed, port_cfg(cfg), device="cpu")
-    rng = np.random.default_rng(seed + 1)
+    randomize_layers(params["encoder"]["layers"], np.random.default_rng(seed + 1))
+    tree = jax.tree.map(lambda t: t.numpy(), params)
+    tree["encoder"]["layers"] = jax.tree.map(lambda *xs: np.stack(xs),
+                                             *tree["encoder"]["layers"])
+    return params, tree
+
+
+def mel_conformer_params(cfg, seed):
+    """Mel Conformer params drawn by numpy through the port's init, with
+    non-trivial u/v biases (rel-pos configs) and BatchNorm statistics and
+    affines: (port params on the CPU, the same values as the reference's
+    tree of numpy arrays, layers stacked)."""
+    from asr_shap_torch.core.params_io import params_to_jax
+    from asr_shap_torch.models.conformer import init_conformer_params
+
+    params = init_conformer_params(seed, port_cfg(cfg), device="cpu")
+    randomize_layers(params["layers"], np.random.default_rng(seed + 1))
+    return params, params_to_jax(params)
+
+
+def randomize_layers(layers, rng):
+    """In place: each conformer layer's u/v biases (rel-pos layers) and
+    BatchNorm statistics and affine drawn from ``rng``, where the port's
+    init leaves zeros and identities."""
 
     def fill(t, lo, hi):
         t.copy_(torch.from_numpy(rng.uniform(lo, hi, tuple(t.shape)).astype(np.float32)))
 
-    for layer in params["encoder"]["layers"]:
+    for layer in layers:
         for name in ("bias_u", "bias_v"):
             if name in layer["attn"]:
                 fill(layer["attn"][name], -0.5, 0.5)
@@ -107,7 +130,3 @@ def conformer_params(cfg, seed):
         for name, lo, hi in (("mean", -0.2, 0.2), ("var", 0.5, 1.5), ("scale", 0.5, 1.5),
                              ("bias", -0.2, 0.2)):
             fill(bn[name], lo, hi)
-    tree = jax.tree.map(lambda t: t.numpy(), params)
-    tree["encoder"]["layers"] = jax.tree.map(lambda *xs: np.stack(xs),
-                                             *tree["encoder"]["layers"])
-    return params, tree
