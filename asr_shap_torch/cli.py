@@ -11,6 +11,7 @@
   compare      : LIME-vs-SHAP comparison on one clip (4-panel figure + wavs)
   transcribe   : greedy CTC transcription of wav/npy clips
   bench        : explainer runtime-vs-length sweep
+  train        : CTC training on the text-conditional synthetic corpus
 
 The flags, defaults and printed JSON lines are the reference package's
 (``python -m asr_shap``), plus ``--device {cuda,cpu}``: every command runs
@@ -380,6 +381,28 @@ def cmd_compare(args):
     print(comparison_record(result))
 
 
+def cmd_train(args):
+    from asr_shap_torch.core.config import TrainConfig
+    from asr_shap_torch.core.params_io import save_params
+    from asr_shap_torch.pipeline.train_synthetic import train_synthetic
+
+    params, cfg = _load_model(args)
+    tcfg = TrainConfig(
+        learning_rate=args.lr, num_epochs=args.epochs, batch_size=args.batch_size,
+        snrs_db=tuple(args.train_snrs), early_stopping_patience=args.patience,
+        freeze_feature_encoder=False, seed=args.seed,
+    )
+    # random init from --seed unless weights were given, as the reference
+    params, summary = train_synthetic(
+        cfg, tcfg, params=None if args.random_init or not (args.params or args.hf) else params,
+        clip_seconds=args.clip_seconds, batches_per_epoch=args.batches_per_epoch,
+        target_wer=args.target_wer, seed=args.seed, device=args.device,
+    )
+    save_params(args.out, params, config=cfg)
+    summary["params_path"] = args.out
+    print(json.dumps(summary))
+
+
 def cmd_bench(args):
     from asr_shap_torch.core.config import Wav2Vec2Config
     from asr_shap_torch.pipeline.benchmarks import run_length_sweep
@@ -515,6 +538,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sample rate of .npy inputs (resampled to 16 kHz when "
                         "different; .wav files carry their own rate)")
     p.set_defaults(fn=cmd_transcribe)
+
+    p = sub.add_parser("train", help="CTC training on the text-conditional synthetic "
+                                     "corpus until greedy decode works")
+    _add_model_args(p)
+    p.add_argument("--out", type=str, default="params_synthetic.npz",
+                   help="output .npz params path (with the embedded config)")
+    p.add_argument("--epochs", type=int, default=40)
+    p.add_argument("--batches-per-epoch", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--clip-seconds", type=float, default=2.0)
+    p.add_argument("--patience", type=int, default=5)
+    p.add_argument("--train-snrs", type=float, nargs="*", default=[],
+                   help="optional noise-augmentation SNRs (empty = clean)")
+    p.add_argument("--target-wer", type=float, default=0.1)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("bench", help="runtime-vs-length sweep")
     p.add_argument("--lengths", type=int, nargs="+",

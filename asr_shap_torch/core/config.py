@@ -3,7 +3,8 @@
 A copy of the configs the ported slices need from ``asr_shap.core.config``,
 with the same field names and defaults, so an archive's embedded config and
 a test's config mean the same thing in both packages. The mesh config is
-not ported yet; ``PipelineConfig`` therefore has no ``mesh`` field.
+not ported yet (``ROADMAP.md`` queue 1, item 8); ``PipelineConfig``
+therefore has no ``mesh`` field.
 """
 
 from __future__ import annotations
@@ -193,6 +194,26 @@ class MetricConfig:
     percentile: float = 99.0
     itm_variant: str = "strict"
     sample_rate: int = 16_000
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Noise-robust CTC fine-tuning (``pipeline/train.py``)."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    num_epochs: int = 10
+    batch_size: int = 8
+    max_audio_len: int = 160_000
+    max_label_len: int = 256
+    snrs_db: Tuple[float, ...] = (-5.0, 0.0, 5.0, 10.0, 15.0)
+    early_stopping_patience: int = 3
+    early_stopping_min_delta: float = 0.0
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
+    grad_clip_norm: float = 1.0
+    seed: int = 0
+    freeze_feature_encoder: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -46,11 +46,11 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _map_leaves(tree: Any, fn) -> Any:
+def map_leaves(tree: Any, fn) -> Any:
     if isinstance(tree, dict):
-        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+        return {k: map_leaves(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map_leaves(v, fn) for v in tree]
+        return [map_leaves(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -75,7 +75,7 @@ def params_from_jax(tree: Any, device: str | torch.device = "cuda") -> Dict[str,
     """Reference-package params (a tree of numpy arrays, layers stacked) ->
     port params (float32 tensors on ``device``, one dict per layer)."""
     device = resolve_device(device)
-    tree = _map_leaves(tree, np.asarray)
+    tree = map_leaves(tree, np.asarray)
     out = dict(tree)
     if "layers" in tree:
         out["layers"] = _unstack_layers(tree["layers"])
@@ -86,7 +86,7 @@ def params_from_jax(tree: Any, device: str | torch.device = "cuda") -> Dict[str,
     def to_tensor(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
-    return _map_leaves(out, to_tensor)
+    return map_leaves(out, to_tensor)
 
 
 def _stack_layers(layers: list) -> Dict[str, Any]:
@@ -106,7 +106,7 @@ def _stack_layers(layers: list) -> Dict[str, Any]:
 def params_to_jax(params: Any) -> Dict[str, Any]:
     """Port params -> the reference package's tree: numpy leaves on the
     host, layers stacked (the inverse of ``params_from_jax``)."""
-    tree = _map_leaves(params, lambda t: t.detach().cpu().numpy()
+    tree = map_leaves(params, lambda t: t.detach().cpu().numpy()
                        if isinstance(t, torch.Tensor) else np.asarray(t))
     if "layers" in tree:
         tree["layers"] = _stack_layers(tree["layers"])

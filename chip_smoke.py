@@ -13,10 +13,11 @@ with dtype="bfloat16", matmul_precision="default": the bf16 kernels of
 K1-K4) and the bf16 conformer (the conformer with the same numerics: the
 bf16 K1, K2f, K3b and K4f); then the base path (and, for DeepSHAP, the
 conformer) again through the other explainers, DeepSHAP, KernelSHAP and
-LIME, the compare and visualize commands, and last the mel Conformer
-family (the NeMo BPE-CTC Conformer and the torchaudio-style Conformer, on
-log-mel features, through the library calls a user makes). Phases, each
-reported on its own lines:
+LIME, the compare and visualize commands, the mel Conformer family (the
+NeMo BPE-CTC Conformer and the torchaudio-style Conformer, on log-mel
+features, through the library calls a user makes), and last CTC training
+of both Wav2Vec2 families (``train_synthetic`` and ``python -m
+asr_shap_torch train``). Phases, each reported on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once; log
@@ -148,7 +149,26 @@ reported on its own lines:
    group-norm variant, each within 2e-3); subsampler conv2's dgrad in bf16
    both ways; and the flash kernels at these shapes, float32 and bf16
    ("mel" and "timing mel conformer" lines). Its launches are the JSON
-   line's ``launches_mel``.
+   line's ``launches_mel``;
+12. training, last, on batches of 8 synthetic-corpus clips of 32,000
+   samples (T = 99): ``train_synthetic`` on Wav2Vec2-base in float32 (one
+   epoch of 4 batches, one validation batch, the feature encoder trained:
+   the exact launches of K1-K4 and no other kernel, finite losses); one
+   step's loss and gradients through the kernels against plain PyTorch
+   (each leaf within 1e-3 of its max|g|, floored at 1e-4 of the model's);
+   the same with a frozen feature encoder (no K1 launch, the encoder
+   bit-equal after a step); two bf16 steps (exact bf16 launches, float32
+   masters and state) and a bf16 step's gradients no further from
+   float32's than plain bf16's; two rel-pos conformer steps (exact K1,
+   K2f, K3b, K4f) and its gradients against plain PyTorch, the position
+   leaves that K3b's d(bias) feeds on lines of their own; ``ctc_loss``
+   against F.ctc_loss on the card; ``train --params`` on the base archive
+   (exact launches, the archive equal to what train_synthetic returned);
+   the wall per step of each path (median of 5 after 2 warm-ups),
+   utterances and audio seconds per second, peak memory, two profiled
+   steps, the CTC loss and AdamW alone; every kernel at the step's shapes
+   beside its bound, plain version and library call ("train", "timing
+   train" lines). Its launches are the JSON line's ``launches_train``.
 
 Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
 two bf16 forward and the four bf16 backward kernels also with their
@@ -186,6 +206,7 @@ from asr_shap_torch.core.config import (
     ExplainerConfig,
     MetricConfig,
     PipelineConfig,
+    TrainConfig,
     Wav2Vec2Config,
     Wav2Vec2ConformerConfig,
 )
@@ -232,12 +253,20 @@ from asr_shap_torch.models.nemo_ctc import (
     nemo_ctc_logits,
 )
 from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
-from asr_shap_torch.models.wav2vec2 import cast_params_for_compute, init_wav2vec2_params
+from asr_shap_torch.models.wav2vec2 import (
+    cast_params_for_compute,
+    feature_lengths,
+    init_wav2vec2_params,
+)
 from asr_shap_torch.ops.attention import rel_shift
+from asr_shap_torch.ops.ctc import ctc_loss
 from asr_shap_torch.pipeline import compare as compare_mod
+from asr_shap_torch.pipeline import train as train_mod
+from asr_shap_torch.pipeline import train_synthetic as train_syn_mod
 from asr_shap_torch.pipeline.compare import amplified_pair
 from asr_shap_torch.pipeline.run_shap import explain_phi, run_shap_pipeline
-from asr_shap_torch.pipeline.testset import synthetic_speech
+from asr_shap_torch.pipeline.testset import CHAR_DURATION, synthetic_speech
+from asr_shap_torch.pipeline.train_synthetic import synthetic_batches, train_synthetic
 from asr_shap_torch.viz.interactive import load_attribution_view
 from asr_shap_torch.viz.wav_io import read_wav, write_wav
 
@@ -375,17 +404,19 @@ def device_ms(fn, kernel: str, iters: int = 50, tries: int = 3) -> float:
     raise CheckFailed(f"profiler saw under half the launches of {kernel} in {tries} tries")
 
 
-def device_ms_per_call(fn, iters: int = 50, tries: int = 3) -> float:
+def device_ms_per_call(fn, iters: int = 50, tries: int = 3, host_ops: bool = True) -> float:
     """Device time per call of ``fn`` (all its kernels), from torch.profiler
     over ``iters`` calls after a warm-up; profiled again when the profiler
     recorded no device time (it may drop its window's device records, as
-    ``device_ms`` notes)."""
+    ``device_ms`` notes). ``host_ops=False`` records the device alone (a
+    call of thousands of small ops profiles in a fraction of the time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -1306,13 +1337,24 @@ def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> dict:
     """Device time of ``n`` more draws by kernel group under torch.profiler
     (kept apart from the wall per draw above, which runs unprofiled).
     Returns {kernel name: device ms per draw}, empty if not measured."""
-    from torch.profiler import ProfilerActivity, profile
-
     draws = sample_draws(torch.Generator().manual_seed(6), n, ec.num_background)
     ec = dataclasses.replace(ec, nsamples=n)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    return profile_calls(lambda: expected_phi(f, x, bg, config=ec, draws=draws), n)
+
+
+def profile_calls(fn, n: int, unit: str = "draw", tag: str = "profile",
+                  host_ops: bool = True) -> dict:
+    """Device time of one call of ``fn`` (``n`` units of work: draws,
+    steps) by kernel group under torch.profiler: the wall with the
+    profiler on, the device-busy share, the groups and the longest
+    kernels, as "``tag``" lines (``host_ops``: as ``device_ms_per_call``).
+    Returns {kernel name: device ms per unit}, empty if not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        expected_phi(f, x, bg, config=ec, draws=draws)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     # device kernels only: a CPU op's entry repeats its kernels' time
@@ -1321,20 +1363,20 @@ def profile_draws(f, x, bg, ec: ExplainerConfig, n: int = 2) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
-        log("profile: the profiler recorded no device time; breakdown not measured")
+        log(f"{tag}: the profiler recorded no device time; breakdown not measured")
         return {}
     busy = sum(r[0] for r in rows)
-    log(f"profile: {n} draws, wall {wall_ms:.1f} ms per draw with the profiler on; "
-        f"device busy {busy:.1f} ms per draw ({100 * busy / wall_ms:.1f}% of wall)")
+    log(f"{tag}: {n} {unit}s, wall {wall_ms:.1f} ms per {unit} with the profiler on; "
+        f"device busy {busy:.1f} ms per {unit} ({100 * busy / wall_ms:.1f}% of wall)")
     groups: dict = {}
     for ms, _, key in rows:
         groups[_profile_group(key)] = groups.get(_profile_group(key), 0.0) + ms
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"profile group {g}: {ms:.2f} ms per draw ({100 * ms / busy:.1f}% of busy)")
+        log(f"{tag} group {g}: {ms:.2f} ms per {unit} ({100 * ms / busy:.1f}% of busy)")
     # the 12 longest, and every port kernel
     for i, (ms, count, key) in enumerate(rows):
         if i < 12 or _profile_group(key) == "port kernels":
-            log(f"profile kernel {ms:9.3f} ms/draw {count:6.1f} calls/draw  {key[:100]}")
+            log(f"{tag} kernel {ms:9.3f} ms/{unit} {count:6.1f} calls/{unit}  {key[:100]}")
     return {key: ms for ms, _, key in rows}
 
 
@@ -2341,12 +2383,13 @@ def kernel_bound(fl: float, nb: float, dtype):
 
 def explainer_shapes_k1(gen, base: Wav2Vec2Config, dtype, n_samples: int = N_SAMPLES,
                         batch: int = 2, what: str = "DeepSHAP's dual batch",
-                        tag: str = "explainers") -> None:
+                        tag: str = "explainers", rows: int = 0) -> None:
     """K1 at ``batch`` x T_out cotangent rows of ``n_samples``-sample clips
-    (DeepSHAP's dual batch: 2 x 149) against its plain version at each
+    (DeepSHAP's dual batch: 2 x 149; ``rows`` > 0: that many rows, as a
+    training batch's one per clip) against its plain version at each
     eligible layer, then timed beside its bound and cuDNN's dgrad (per
     backward: one launch per layer)."""
-    rows = batch * base.frames_for_samples(n_samples)
+    rows = rows or batch * base.frames_for_samples(n_samples)
     name = k1_name(dtype)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
     for k, s, ci, co, ti, to in k1_main_shapes(base, rows, n_samples):
@@ -2389,14 +2432,15 @@ def explainer_shapes_backward(gen, mc: Wav2Vec2Config, dtype, n_samples: int = N
 
 
 def shapes_backward(gen, h: int, d: int, t: int, full: bool, dtype, batch: int, tag: str,
-                    with_device_ms: bool = False) -> None:
+                    with_device_ms: bool = False, rows: int = 0) -> None:
     """K3 and K4 (``full``: K3b and K4f, with a rel-pos-like bias) at ``h``
     heads of ``d``, ``t`` keys and a residual batch of ``batch`` clips with
-    ``t`` cotangent rows per residual row, as ``explainer_shapes_backward``;
+    ``t`` cotangent rows per residual row (``rows`` > 0: that many; a
+    training step has one), as ``explainer_shapes_backward``;
     ``with_device_ms`` adds each kernel's device time per launch and SDPA's
     backward's per call (torch.profiler, over windows of 100 and 50 calls:
     a window of a millisecond or two can lose its first device records)."""
-    rows = t
+    rows = rows or t
     q, k, v, _, g = (None if x is None else x.to(dtype)
                      for x in flash_inputs(gen, batch, h, t, d, rows, False))
     bias = rel_pos_bias(gen, q, False) if full else None
@@ -3308,6 +3352,408 @@ def phase_mel_conformer(test_set, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_SAMPLES = 32_000   # 2 s clips: T = 99 frames
+TRAIN_BATCH = 8
+TRAIN_CFG = TrainConfig(learning_rate=3e-4, num_epochs=1, batch_size=TRAIN_BATCH,
+                        early_stopping_patience=5, freeze_feature_encoder=False, seed=SEED,
+                        snrs_db=())
+TRAIN_STEPS = 5          # timed steps per path, after 2 warm-ups
+# One step's gradients through the float32 kernels against plain PyTorch:
+# each leaf's max|dg| within GRAD_TOL of max(its own max|g|, GRAD_FLOOR x
+# the model's largest |g|). The floor is for the leaves whose gradient is
+# zero by construction and holds rounding alone: the attention's key bias
+# (softmax ignores a shift of a query's scores).
+GRAD_TOL = 1e-3
+GRAD_FLOOR = 1e-4
+# bf16: the kernels' gradients no further from float32's than plain bf16
+# PyTorch's, by this factor (over the whole model, as a norm), and the loss
+# within BF16_LOSS_RTOL of plain bf16's
+BF16_GRAD_RATIO = 1.5
+BF16_LOSS_RTOL = 1e-2
+# the rel-pos conformer's position leaves: K3b's d(bias) feeds them
+POS_LEAVES = ("/attn/pos/kernel", "/attn/bias_u", "/attn/bias_v")
+
+
+def train_batch(seed: int = SEED) -> dict:
+    """The first batch of the synthetic corpus at the training shape (8 clips
+    of 2 s), on the card."""
+    clip = TRAIN_SAMPLES
+    b = next(synthetic_batches(seed, 1, TRAIN_BATCH, clip, max(8, clip // CHAR_DURATION + 2)))
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items() if not k.startswith("_")}
+
+
+def train_launches(mc: Wav2Vec2Config, steps: int, forwards: int = 0, k1_on: bool = True):
+    """The launches ``steps`` train steps and ``forwards`` forwards of 8 clips
+    of 2 s make on a model's path: K1 once per eligible conv layer per step
+    (none with a frozen feature encoder), the flash forward once per layer
+    per step and per forward, dq and dk/dv once per layer per step."""
+    k1_, f, dq, dkv = path_kernels(mc)
+    layers = mc.num_hidden_layers
+    convs = len(k1_main_shapes(mc, 1, TRAIN_SAMPLES)) if k1_on else 0
+    want = {k1_: steps * convs, f: (steps + forwards) * layers, dq: steps * layers,
+            dkv: steps * layers}
+    return {name: n for name, n in want.items() if n}
+
+
+def check_launches(label: str, want: dict) -> dict:
+    got = {name: c for name, c in LAUNCHES.items() if c}
+    log(f"train {label}: launches {json.dumps(got)}")
+    check(got == want, f"train {label}: launches {got}, expected exactly {want}")
+    return got
+
+
+def loss_and_grads(mc: Wav2Vec2Config, tcfg: TrainConfig, params, batch):
+    with matmul_precision_scope(mc.matmul_precision):
+        loss, grads = train_mod.make_loss_and_grads(mc, tcfg)(params, batch)
+        return float(loss), grads
+
+
+def plain(mc: Wav2Vec2Config) -> Wav2Vec2Config:
+    return dataclasses.replace(mc, attention_impl="xla", conv_impl="lax")
+
+
+def grad_gate(label: str, got: dict, want: dict, highlight=()) -> None:
+    """Each leaf's gradient through the kernels against plain PyTorch's
+    (``GRAD_TOL``, ``GRAD_FLOOR``); logs the worst leaves, and the leaves
+    whose path ends in one of ``highlight`` on lines of their own."""
+    check(got.keys() == want.keys(), f"train {label}: gradient leaves differ")
+    top = max(float(g.abs().max()) for g in want.values())
+    rows = []
+    for name, w in want.items():
+        g = got[name]
+        check(bool(torch.isfinite(g).all()), f"train {label}: {name} gradient not finite")
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        rows.append((err / max(scale, GRAD_FLOOR * top), err, scale, name))
+    rows.sort(reverse=True)
+    log(f"check train {label} gradients: {len(rows)} leaves, worst max|dg|/max(max|g|, "
+        f"{GRAD_FLOOR:g} x {top:.3e}) = {rows[0][0]:.3e} at {rows[0][3]} (tolerance "
+        f"{GRAD_TOL:g}: the float32 kernels are 3xTF32, float32 sums in another order)")
+    for r in rows[:3]:
+        log(f"check train {label} gradient {r[3]}: rel={r[0]:.3e} max|dg|={r[1]:.3e} "
+            f"max|g|={r[2]:.3e}")
+    for suffix in highlight:
+        picked = [r for r in rows if r[3].endswith(suffix)]
+        if picked:
+            r = picked[0]
+            log(f"check train {label} rel-pos gradients *{suffix} ({len(picked)} leaves, the "
+                f"worst): rel={r[0]:.3e} max|dg|={r[1]:.3e} max|g|={r[2]:.3e} at {r[3]}")
+    check(rows[0][0] <= GRAD_TOL, f"train {label}: gradient {rows[0][3]} exceeds tolerance")
+
+
+def global_rel_err(got: dict, want: dict) -> float:
+    num = sum(float((got[k].float() - w).square().sum()) for k, w in want.items())
+    return (num / sum(float(w.square().sum()) for w in want.values())) ** 0.5
+
+
+def train_base(mc: Wav2Vec2Config, params, batch) -> tuple:
+    """train_synthetic at full width (one epoch of 4 batches, one validation
+    batch), the exact launches of K1-K4 and nothing else; one step's loss
+    and gradients against plain PyTorch; the same with a frozen feature
+    encoder (no K1, the encoder bit-equal after a step). Returns (launches,
+    the float32 gradients at the initial params)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    _, summary = train_synthetic(mc, TRAIN_CFG, params=params, clip_seconds=2.0,
+                                 batches_per_epoch=4, val_batches_count=1, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"train base train_synthetic: {time.perf_counter() - t0:.2f} s; summary "
+        f"{json.dumps({k: v for k, v in summary.items() if k != 'example_pairs'})}")
+    # a mean over the epoch's steps is finite only if each step's loss is
+    for key in ("final_train_loss", "final_val_loss"):
+        check(np.isfinite(summary[key]), f"train base: {key} {summary[key]} not finite")
+    launches = check_launches("base train_synthetic", train_launches(mc, 4, forwards=2))
+
+    loss, grads = loss_and_grads(mc, TRAIN_CFG, params, batch)
+    loss_p, grads_p = loss_and_grads(plain(mc), TRAIN_CFG, params, batch)
+    log(f"check train base loss: kernels {loss:.6f} plain {loss_p:.6f} "
+        f"(rtol 1e-5: float32 CTC over the same logits' error)")
+    check(abs(loss - loss_p) <= 1e-5 * abs(loss_p), "train base: loss exceeds tolerance")
+    grad_gate("base", grads, grads_p)
+
+    frozen = dataclasses.replace(TRAIN_CFG, freeze_feature_encoder=True)
+    loss_f, grads_f = loss_and_grads(mc, frozen, params, batch)
+    _, grads_fp = loss_and_grads(plain(mc), frozen, params, batch)
+    check(not any(k.startswith("feature_encoder/") for k in grads_f),
+          "train frozen: the feature encoder has gradients")
+    check(abs(loss_f - loss) <= 1e-6 * abs(loss), "train frozen: loss differs from unfrozen")
+    grad_gate("frozen", grads_f, grads_fp)
+    p = train_mod.clone_params(params)
+    opt = train_mod.make_optimizer(frozen)
+    state = opt.init(train_mod.trainable_leaves(p, frozen))
+    reset_launches()
+    with matmul_precision_scope(mc.matmul_precision):
+        train_mod.make_train_step(mc, frozen, opt)(p, state, batch)
+    torch.cuda.synchronize()
+    got = check_launches("frozen step", train_launches(mc, 1, k1_on=False))
+    before, after = dict(train_mod.named_leaves(params)), dict(train_mod.named_leaves(p))
+    fe = [k for k in before if k.startswith("feature_encoder/")]
+    check(all(torch.equal(before[k], after[k]) for k in fe),
+          "train frozen: the feature encoder moved")
+    check(not torch.equal(before["lm_head/kernel"], after["lm_head/kernel"]),
+          "train frozen: the head did not move")
+    log(f"check train frozen: {len(fe)} feature-encoder leaves bit-equal after the step")
+    for name, c in got.items():
+        launches[name] = launches.get(name, 0) + c
+    return launches, grads
+
+
+def train_bf16(mc16: Wav2Vec2Config, params, batch, grads32: dict) -> dict:
+    """Two bf16 steps with the exact launches of the bf16 kernels and no
+    float32 kernel, float32 masters after them; one step's loss and
+    gradients through the kernels and plain bf16 PyTorch, each against the
+    float32 kernels' gradients at the same params."""
+    p = train_mod.clone_params(params)
+    opt = train_mod.make_optimizer(TRAIN_CFG)
+    state = opt.init(train_mod.trainable_leaves(p, TRAIN_CFG))
+    step = train_mod.make_train_step(mc16, TRAIN_CFG, opt)
+    reset_launches()
+    losses = []
+    with matmul_precision_scope(mc16.matmul_precision):
+        for _ in range(2):
+            _, _, loss = step(p, state, batch)
+            losses.append(float(loss))
+    launches = check_launches("bf16 steps", train_launches(mc16, 2))
+    check(all(np.isfinite(losses)), f"train bf16: losses {losses}")
+    leaves = dict(train_mod.named_leaves(p))
+    check(all(t.dtype == torch.float32 for t in leaves.values())
+          and all(t.dtype == torch.float32 for t in state["mu"].values()),
+          "train bf16: the master params or the optimizer state left float32")
+    log(f"train bf16: losses {losses}; {len(leaves)} master leaves and the AdamW state "
+        f"float32")
+    loss_k, g_k = loss_and_grads(mc16, TRAIN_CFG, params, batch)
+    loss_p, g_p = loss_and_grads(plain(mc16), TRAIN_CFG, params, batch)
+    e_k, e_p = global_rel_err(g_k, grads32), global_rel_err(g_p, grads32)
+    worst = max((float((g_k[k].float() - g_p[k]).abs().max()) / float(g_p[k].abs().max()), k)
+                for k in g_p if float(g_p[k].abs().max()) > 0)
+    log(f"check train bf16: loss kernels {loss_k:.5f} plain bf16 {loss_p:.5f} (rtol "
+        f"{BF16_LOSS_RTOL:g}); gradients vs float32 kernels: |dg|/|g| kernels {e_k:.3e}, "
+        f"plain bf16 {e_p:.3e} (gate: at most {BF16_GRAD_RATIO}x plain's); kernels vs plain "
+        f"bf16, information: worst leaf max|dg|/max|g| {worst[0]:.3e} at {worst[1]}")
+    check(abs(loss_k - loss_p) <= BF16_LOSS_RTOL * abs(loss_p), "train bf16: loss exceeds "
+          "tolerance")
+    check(e_k <= BF16_GRAD_RATIO * e_p, "train bf16: gradients further from float32's "
+          "than plain bf16's")
+    return launches
+
+
+def train_conformer(cmc: Wav2Vec2ConformerConfig, cparams, batch) -> dict:
+    """Two rel-pos conformer steps with the exact launches of K1, K2f, K3b
+    and K4f; one step's gradients against plain PyTorch, the position
+    leaves (fed by K3b's d(bias)) on lines of their own."""
+    p = train_mod.clone_params(cparams)
+    opt = train_mod.make_optimizer(TRAIN_CFG)
+    state = opt.init(train_mod.trainable_leaves(p, TRAIN_CFG))
+    step = train_mod.make_train_step(cmc, TRAIN_CFG, opt)
+    reset_launches()
+    losses = []
+    with matmul_precision_scope(cmc.matmul_precision):
+        for _ in range(2):
+            _, _, loss = step(p, state, batch)
+            losses.append(float(loss))
+    launches = check_launches("conformer steps", train_launches(cmc, 2))
+    check(all(np.isfinite(losses)), f"train conformer: losses {losses}")
+    del p, state
+    loss, grads = loss_and_grads(cmc, TRAIN_CFG, cparams, batch)
+    loss_p, grads_p = loss_and_grads(plain(cmc), TRAIN_CFG, cparams, batch)
+    log(f"check train conformer loss: kernels {loss:.6f} plain {loss_p:.6f} (rtol 1e-5); "
+        f"steps' losses {losses}")
+    check(abs(loss - loss_p) <= 1e-5 * abs(loss_p), "train conformer: loss exceeds tolerance")
+    grad_gate("conformer", grads, grads_p, POS_LEAVES)
+    return launches
+
+
+def ctc_on_card(batch, mc: Wav2Vec2Config) -> None:
+    """ctc_loss at the step's shape [8, 99, 32] against F.ctc_loss(reduction=
+    "none").mean() on the card (a check only: F.ctc_loss is not the port's
+    loss), held to F.ctc_loss on the logits in float64 (its float32 run
+    carries several times ours's error there: logged); both timed, forward
+    and backward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    lengths = feature_lengths(mc, batch["audio_lengths"])
+    t = mc.frames_for_samples(TRAIN_SAMPLES)
+    logits = torch.randn((TRAIN_BATCH, t, mc.vocab_size), device="cuda", generator=gen)
+    labels, label_lengths = batch["labels"], batch["label_lengths"]
+
+    def ours(x=logits):
+        x = x.detach().requires_grad_()
+        loss = ctc_loss(x, lengths, labels, label_lengths)
+        return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+    def library(x=logits):
+        x = x.detach().requires_grad_()
+        lp = F.log_softmax(x, -1).transpose(0, 1)
+        loss = F.ctc_loss(lp, labels.long(), lengths.long(), label_lengths.long(),
+                          reduction="none").mean()
+        return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+    (loss, g), (want, want_g) = ours(), library(logits.double())
+    lib_g = library()[1]
+    log(f"check ctc_loss [8, {t}, {mc.vocab_size}]: ours {float(loss):.6f} F.ctc_loss in "
+        f"float64 {float(want):.6f} (rtol 1e-5); F.ctc_loss in float32's gradient: max|dg| "
+        f"{float((lib_g.double() - want_g).abs().max()):.3e} from float64's (information)")
+    check(abs(float(loss) - float(want)) <= 1e-5 * abs(float(want)), "ctc_loss value")
+    compare("ctc_loss d/dlogits", g.double(), want_g, 1e-4 * float(want_g.abs().max()), 0.0,
+            "float32 recursions over 99 frames against float64")
+    t1 = time.perf_counter()
+    ms, lms = time_ms(ours, 5), time_ms(library, 10)
+    dev = device_ms_per_call(ours, 2, host_ops=False)
+    ldev = device_ms_per_call(library, 10, host_ops=False)
+    log(f"timing train ctc_loss forward+backward [8, {t}, 32]: ms={ms:.3f} device_ms={dev:.3f} "
+        f"library_ms(F.ctc_loss)={lms:.3f} library_device_ms={ldev:.3f} (timed in "
+        f"{time.perf_counter() - t1:.1f} s)")
+
+
+def time_train_path(label: str, mc: Wav2Vec2Config, params, batch, smi: str) -> dict:
+    """Wall per step (median of TRAIN_STEPS after 2 warm-ups, each ending in
+    the loss's read-out and a synchronize), utterances and audio seconds
+    per second, peak device memory, then two profiled steps; the CTC loss
+    (forward and backward) and AdamW alone beside them."""
+    p = train_mod.clone_params(params)
+    opt = train_mod.make_optimizer(TRAIN_CFG)
+    leaves = train_mod.trainable_leaves(p, TRAIN_CFG)
+    state = opt.init(leaves)
+    step = train_mod.make_train_step(mc, TRAIN_CFG, opt)
+    with matmul_precision_scope(mc.matmul_precision):
+        for _ in range(2):
+            float(step(p, state, batch)[2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            float(step(p, state, batch)[2])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wall = float(np.median(walls))
+        audio_s = TRAIN_BATCH * TRAIN_SAMPLES / 16_000
+        log(f"timing train {label}: wall per step {wall * 1e3:.1f} ms (median of "
+            f"{TRAIN_STEPS} after 2 warm-ups; {min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f}); "
+            f"{TRAIN_BATCH / wall:.1f} utterances/s, {audio_s / wall:.1f} audio s/s; peak "
+            f"device memory {peak:.2f} GiB ({smi})")
+        t1 = time.perf_counter()
+        prof = profile_calls(lambda: [float(step(p, state, batch)[2]) for _ in range(2)], 2,
+                             unit="step", tag=f"profile train {label}", host_ops=False)
+        log(f"profile train {label}: profiled in {time.perf_counter() - t1:.1f} s")
+        busy = sum(prof.values())
+        grads = {k: torch.randn_like(t) * 1e-3 for k, t in leaves.items()}
+        adam = lambda: opt.apply(leaves, grads, state)  # noqa: E731
+        a_ms, a_dev = time_ms(adam, 5), device_ms_per_call(adam, 5, host_ops=False)
+    log(f"timing train {label} AdamW (clip + update, {len(leaves)} leaves, "
+        f"{sum(t.numel() for t in leaves.values()) / 1e6:.1f} M params): ms={a_ms:.3f} "
+        f"device_ms={a_dev:.3f} ({100 * a_ms / (wall * 1e3):.1f}% of the step's wall, "
+        f"{100 * a_dev / busy if busy else float('nan'):.1f}% of its device busy)")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, peak_gib=peak)
+
+
+def train_cli(base_archive: str, data_dir: str, mc: Wav2Vec2Config) -> None:
+    """``train --params <the base archive> --epochs 1 --batches-per-epoch 2
+    --clip-seconds 2``: its exact launches (2 steps, 8 validation and 8
+    held-out forwards), the written archive equal to what train_synthetic
+    returned, the summary's keys (the reference's, and params_path)."""
+    out = f"{data_dir}/trained_base.npz"
+    returned = []
+    inner = train_syn_mod.train_synthetic
+
+    def capture(*args, **kw):
+        returned.append(inner(*args, **kw))
+        return returned[-1]
+
+    train_syn_mod.train_synthetic = capture
+    try:
+        (summary,), launches, wall = run_cli("train", [
+            "train", "--params", base_archive, "--epochs", "1", "--batches-per-epoch", "2",
+            "--clip-seconds", "2", "--out", out])
+    finally:
+        train_syn_mod.train_synthetic = inner
+    want = train_launches(mc, 2, forwards=16)
+    check(launches == want, f"cli train: launches {launches}, expected exactly {want}")
+    check(set(summary) == {"epochs_run", "final_train_loss", "final_val_loss",
+                           "heldout_greedy_wer", "target_wer", "reached_target",
+                           "train_wall_s", "n_eval_utterances", "example_pairs", "params_path"},
+          f"cli train: summary keys {sorted(summary)}")
+    check(np.isfinite(summary["final_train_loss"]), "cli train: loss not finite")
+    check(load_config(out) == mc, "cli train: the archive's config is not the base's")
+    loaded = dict(train_mod.named_leaves(load_params(out, device="cuda")))
+    trained = dict(train_mod.named_leaves(returned[0][0]))
+    check(loaded.keys() == trained.keys()
+          and all(torch.equal(loaded[k], trained[k]) for k in trained),
+          "cli train: the archive differs from what train_synthetic returned")
+    log(f"cli train: {wall:.2f} s; the archive's {len(loaded)} leaves equal the trained "
+        f"params")
+
+
+def train_kernel_shapes(base: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig) -> None:
+    """Every kernel of the training paths at the step's shapes, against its
+    plain version and timed beside its bound and a library call ("timing
+    train" lines): K1 at 8 rows (one per clip), K2/K3/K4 at B.H = 96 with
+    one cotangent row per residual row, in float32 and bf16; K2f/K3b/K4f at
+    B.H = 128 in float32."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    t = base.frames_for_samples(TRAIN_SAMPLES)
+    for dtype in (torch.float32, BF16):
+        explainer_shapes_k1(gen, base, dtype, TRAIN_SAMPLES, what="a training batch",
+                            tag="train", rows=TRAIN_BATCH)
+        shapes_forward(gen, base.num_attention_heads, base.head_dim, t, False, (TRAIN_BATCH,),
+                       dtype, "train", device_iters=200)
+        shapes_backward(gen, base.num_attention_heads, base.head_dim, t, False, dtype,
+                        TRAIN_BATCH, "train", with_device_ms=True, rows=1)
+    shapes_forward(gen, conformer.num_attention_heads, conformer.head_dim, t, True,
+                   (TRAIN_BATCH,), torch.float32, "train", device_iters=200)
+    shapes_backward(gen, conformer.num_attention_heads, conformer.head_dim, t, True,
+                    torch.float32, TRAIN_BATCH, "train", with_device_ms=True, rows=1)
+
+
+def phase_train(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig, base_archive: str,
+                data_dir: str, smi: str) -> dict:
+    """CTC training at full width: Wav2Vec2-base in float32 (train_synthetic,
+    gradients against plain PyTorch, frozen feature encoder), in bf16, the
+    rel-pos conformer in float32; ctc_loss against F.ctc_loss; the train
+    command; the per-step timing and the kernels at the step's shapes.
+    Returns {kernel: launches} of the counted runs (the JSON line's
+    ``launches_train``)."""
+    t0 = time.perf_counter()
+    log(smi)
+
+    def part(what: str) -> None:
+        log(f"train phase: {what} done at {time.perf_counter() - t0:.1f} s")
+
+    batch = train_batch()
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    launches, grads32 = train_base(model, params, batch)
+    part("base float32")
+    model16 = dataclasses.replace(model, dtype="bfloat16", matmul_precision="default")
+    for name, c in train_bf16(model16, params, batch, grads32).items():
+        launches[name] = launches.get(name, 0) + c
+    del grads32
+    part("base bf16")
+    ctc_on_card(batch, model)
+    part("ctc_loss")
+    timings = {"base": time_train_path("base float32", model, params, batch, smi),
+               "bf16": time_train_path("base bf16", model16, params, batch, smi)}
+    del params
+    part("base timing")
+    train_cli(base_archive, data_dir, model)
+    part("cli")
+    cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
+    part("conformer init")
+    for name, c in train_conformer(conformer, cparams, batch).items():
+        launches[name] = launches.get(name, 0) + c
+    part("conformer")
+    timings["conformer"] = time_train_path("conformer float32", conformer, cparams, batch, smi)
+    del cparams
+    part("conformer timing")
+    train_kernel_shapes(model, conformer)
+    for label, tm in timings.items():
+        log(f"timing train summary {label}: {tm['wall_ms']:.1f} ms per step, device busy "
+            f"{tm['busy_ms']:.1f} ms per step ({100 * tm['busy_ms'] / tm['wall_ms']:.1f}% of "
+            f"the unprofiled wall), peak {tm['peak_gib']:.2f} GiB ({smi})")
+    log(f"train phase: {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
+    return launches
+
+
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
     adds fields to a kernel's entry."""
@@ -3374,6 +3820,9 @@ def main() -> int:
         phase_compare(model, base_archive, data_dir, smi)
         for name, count in phase_mel_conformer(test_set, smi).items():
             extra[name] = {**extra.get(name, {}), "launches_mel": count}
+        trained = phase_train(model, conformer, base_archive, data_dir, smi)
+        for name in ROUTES:
+            extra[name] = {**extra.get(name, {}), "launches_train": trained.get(name, 0)}
         for name, fields in build_fields.items():
             extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)

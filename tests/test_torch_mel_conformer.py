@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from asr_shap.core.config import ConformerConfig as JaxConformerConfig
+from asr_shap.core.config import TrainConfig as JaxTrainConfig
 from asr_shap.core.params_io import load_config as jax_load_config
 from asr_shap.core.params_io import load_params as jax_load_params
 from asr_shap.core.params_io import save_params as jax_save_params
@@ -63,8 +64,12 @@ def tiny_nemo_config(**kw):
 
 
 def test_config_matches_reference():
-    """Same fields, defaults and derived lengths; the NeMo preset too."""
+    """Same fields, defaults and derived lengths; the NeMo preset and the
+    training config too."""
     assert dataclasses.asdict(pc.ConformerConfig()) == dataclasses.asdict(JaxConformerConfig())
+    assert dataclasses.asdict(pc.TrainConfig()) == dataclasses.asdict(JaxTrainConfig())
+    assert ([f.name for f in dataclasses.fields(pc.TrainConfig)]
+            == [f.name for f in dataclasses.fields(JaxTrainConfig)])
     cfg = nemo_conformer_config()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_nemo_config())
     assert (cfg.head_dim, cfg.subsampling_layers, cfg.subsampled_length(301)) == (64, 2, 76)
