@@ -150,13 +150,7 @@ def cmd_run_shap(args):
     from asr_shap_torch.pipeline.run_shap import run_shap_pipeline
     from asr_shap_torch.pipeline.testset import create_test_set
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported (ROADMAP.md queue 1, item 8: scale-out)")
-    if args.sample_batch or args.async_writes:
-        logger.info("--sample-batch %d / --async-writes %s: accepted, results are the "
-                    "same; the port explains one sample at a time and writes "
-                    "synchronously", args.sample_batch, args.async_writes)
+    mesh = _run_shap_mesh(args)
     params, cfg = _load_model(args)
     tcfg = TestSetConfig(num_samples=args.num_samples, snrs_db=tuple(args.snrs),
                          min_length=args.min_length, max_length=args.max_length,
@@ -179,14 +173,34 @@ def cmd_run_shap(args):
         sample_batch=args.sample_batch,
     )
     test_set = create_test_set(tcfg)
-    store = AttributionStore(args.data_dir)
+    store = AttributionStore(args.data_dir, async_writes=args.async_writes)
     results = run_shap_pipeline(params, pcfg, test_set, store,
-                                resume=not args.no_resume, device=args.device)
-    print(json.dumps({
-        "computed": len(results),
-        "total_wall_s": round(sum(r["wall_s"] for r in results), 2),
-        "data_dir": args.data_dir,
-    }))
+                                resume=not args.no_resume, device=args.device, mesh=mesh)
+    if mesh is None or mesh.is_main:
+        print(json.dumps({
+            "computed": len(results),
+            "total_wall_s": round(sum(r["wall_s"] for r in results), 2),
+            "data_dir": args.data_dir,
+        }))
+
+
+def _run_shap_mesh(args):
+    """run-shap's mesh: from torchrun's environment under ``--mesh`` with a
+    world of more than one process (each rank on ``cuda:LOCAL_RANK``, or the
+    CPU), else None. A world of one runs unsharded, as the reference does on
+    one device."""
+    import os
+
+    if not args.mesh:
+        return None
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        logger.info("--mesh: a world of one process (no torchrun environment with "
+                    "WORLD_SIZE > 1); running unsharded")
+        return None
+    from asr_shap_torch.core.config import MeshConfig
+    from asr_shap_torch.parallel.mesh import init_mesh_from_env
+
+    return init_mesh_from_env(MeshConfig(), device=args.device)
 
 
 def cmd_sweep(args):
@@ -445,11 +459,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split the draws into ceil(nsamples/N) chunks of N draws "
                         "each, phi the mean of the chunk means (0 = one chunk)")
     p.add_argument("--sample-batch", type=int, default=0,
-                   help="accepted for the reference's CLI; the port explains one "
-                        "sample at a time, with the same results")
+                   help="samples per group call (0 = auto: 2 for short clips under "
+                        "small draw budgets, else 1)")
     p.add_argument("--async-writes", action="store_true",
-                   help="accepted for the reference's CLI; the port writes "
-                        "synchronously, with the same results")
+                   help="write the store's float32 arrays on the native writer pool")
     p.add_argument("--method", choices=["grad", "deep", "kernel", "lime"], default="grad",
                    help="grad = expected gradients; deep = DeepSHAP rescale rules; "
                         "kernel = KernelSHAP over waveform segments; lime = LIME "
@@ -461,7 +474,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kmeans", type=int, default=0,
                    help=">0: summarize the background to k centroids before explaining")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--mesh", action="store_true", help="shard draws over devices (not ported)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard over the processes of a torchrun launch (draws for "
+                        "one-sample groups, else samples)")
     p.add_argument("--no-resume", action="store_true")
     p.set_defaults(fn=cmd_run_shap)
 

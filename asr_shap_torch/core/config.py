@@ -1,10 +1,8 @@
 """Typed configuration of the PyTorch port.
 
-A copy of the configs the ported slices need from ``asr_shap.core.config``,
-with the same field names and defaults, so an archive's embedded config and
-a test's config mean the same thing in both packages. The mesh config is
-not ported yet (``ROADMAP.md`` queue 1, item 8); ``PipelineConfig``
-therefore has no ``mesh`` field.
+A copy of the configs of ``asr_shap.core.config``, with the same field
+names and defaults, so an archive's embedded config and a test's config
+mean the same thing in both packages.
 """
 
 from __future__ import annotations
@@ -58,7 +56,9 @@ class Wav2Vec2Config:
     attention_impl: str = "xla"
     remat_policy: str = "full"
     # "lax": F.conv1d everywhere; "pallas": the hand-written dgrad kernel
-    # (kernels/conv_dgrad.py) for eligible feature-encoder layers.
+    # (kernels/conv_dgrad.py) for eligible feature-encoder layers; "gemm":
+    # stride-blocked GEMMs both ways; "hybrid": F.conv1d forward, GEMM
+    # backward (models/wav2vec2.py::_conv1d).
     conv_impl: str = "lax"
 
     @property
@@ -217,13 +217,30 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh for sharded explanation (``parallel/mesh.py``): the
+    expected-gradients draws and the test set's samples shard over the
+    "data" axis; the "model" axis splits the params Megatron-style
+    (``parallel/tp.py``)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = 0   # 0 = world size // model_parallel
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Top-level bundle for end-to-end runs."""
+    """Top-level bundle for end-to-end runs. ``sample_batch`` is the
+    samples explained per group call (0: ``run_shap._auto_group_size``);
+    ``crash_retries`` and ``crash_backoff_s`` govern the recovery from a
+    lost device (``pipeline/run_shap.py``)."""
 
     model: Wav2Vec2Config = Wav2Vec2Config()
     explainer: ExplainerConfig = ExplainerConfig()
     testset: TestSetConfig = TestSetConfig()
     metric: MetricConfig = MetricConfig()
+    mesh: MeshConfig = MeshConfig()
     data_dir: str = "data"
     seed: int = 0
     sample_batch: int = 0

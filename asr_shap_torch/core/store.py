@@ -17,6 +17,8 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from asr_shap_torch import native
+
 KINDS = ("audio", "noise", "shap_values", "text")
 _FNAME_RE = re.compile(
     r"^(audio|noise|shap_values|text)_sample_(\d+)_([a-z]+)_(inf|[-0-9.]+)\.npy$"
@@ -45,11 +47,20 @@ def key_for(index: int, type_: str, snr_db: float) -> SampleKey:
 
 
 class AttributionStore:
-    """Filesystem store for attribution quadruples under ``data_dir``."""
+    """Filesystem store for attribution quadruples under ``data_dir``.
 
-    def __init__(self, data_dir: str = "data"):
+    ``async_writes=True`` queues the float32 arrays on a native writer pool
+    of ``writer_threads`` threads: ``save`` returns after a copy, the disk
+    writes overlap the next sample's device work, and ``flush`` (called by
+    ``write_manifest``) waits for them and raises IOError on a failed one.
+    The library is built at the store's creation, so a store that cannot
+    have it raises before any work."""
+
+    def __init__(self, data_dir: str = "data", async_writes: bool = False,
+                 writer_threads: int = 2):
         self.data_dir = data_dir
         os.makedirs(data_dir, exist_ok=True)
+        self._pool = native.NpyWriterPool(writer_threads) if async_writes else None
 
     def _path(self, key: SampleKey, kind: str) -> str:
         return os.path.join(self.data_dir, key.filename(kind))
@@ -59,13 +70,23 @@ class AttributionStore:
         self._save_array(self._path(key, "audio"), np.asarray(audio))
         self._save_array(self._path(key, "noise"), np.asarray(noise))
         self._save_array(self._path(key, "shap_values"), np.asarray(shap_values))
-        self._save_array(self._path(key, "text"), np.asarray(text))
+        native.save_npy_atomic(self._path(key, "text"), np.asarray(text))
 
-    @staticmethod
-    def _save_array(path: str, arr: np.ndarray) -> None:
-        tmp = path + ".tmp.npy"
-        np.save(tmp, arr)
-        os.replace(tmp, path)
+    def flush(self) -> None:
+        """Wait for the queued writes; raise IOError if any failed."""
+        if self._pool is not None:
+            failed = self._pool.flush()
+            if failed:
+                raise IOError(f"{failed} async npy write(s) failed in {self.data_dir}")
+
+    def _save_array(self, path: str, arr: np.ndarray) -> None:
+        if arr.dtype == np.float32 and arr.ndim in (1, 2):
+            if self._pool is not None:
+                self._pool.submit(path, arr)
+            else:
+                native.write_npy_f32_native(path, arr)
+            return
+        native.save_npy_atomic(path, arr)
 
     def load(self, key: SampleKey) -> Dict[str, object]:
         return {
@@ -110,6 +131,7 @@ class AttributionStore:
                 yield d
 
     def write_manifest(self, extra: Optional[dict] = None) -> None:
+        self.flush()  # the manifest describes files that have landed
         manifest = {"samples": [{"index": k.index, "type": k.type, "snr": k.snr}
                                 for k in self.keys()]}
         if extra:

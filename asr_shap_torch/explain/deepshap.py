@@ -184,21 +184,23 @@ def _dual_fn(logits_fn, params, model_config, explainer_config, remat, **plugs):
 
 
 def wav2vec2_dual_fn(params, model_config, explainer_config,
-                     remat: Optional[bool] = None) -> Callable[[torch.Tensor], torch.Tensor]:
+                     remat: Optional[bool] = None,
+                     tp=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """DeepSHAP dual forward of the Wav2Vec2 CTC model: dual waveform
     [2, N] -> explained outputs [T_out] of the actual half. Its GELUs run
-    the rescale rule; norms and attention keep their plain gradient."""
+    the rescale rule; norms and attention keep their plain gradient. ``tp``:
+    the tensor-parallel mesh of sharded ``params``, or None."""
     return _dual_fn(wav2vec2_logits, params, model_config, explainer_config, remat,
-                    gelu=gelu_rescale)
+                    gelu=gelu_rescale, tp=tp)
 
 
 def w2v2_conformer_dual_fn(params, model_config, explainer_config,
-                           remat: Optional[bool] = None
+                           remat: Optional[bool] = None, tp=None
                            ) -> Callable[[torch.Tensor], torch.Tensor]:
     """DeepSHAP dual forward of the Wav2Vec2-Conformer: GELU rescale in the
     conv feature encoder, SiLU and GLU rescale in the conformer blocks."""
     return _dual_fn(w2v2_conformer_logits, params, model_config, explainer_config, remat,
-                    rules=deepshap_rules(), gelu=gelu_rescale)
+                    rules=deepshap_rules(), gelu=gelu_rescale, tp=tp)
 
 
 def deep_explain_wav2vec2(params, model_config, x: torch.Tensor, background: torch.Tensor,

@@ -11,6 +11,8 @@ backward, and ``torch.func.vmap`` pushes the T_out one-hot cotangent rows
 through it at once (the kernels fold those rows into their batch). Draws
 run one after another and accumulate in float32. The draws come from a
 ``torch.Generator`` or are given explicitly as (background index, t) pairs.
+``expected_phi_sharded`` splits the draws over a mesh's data axis and sums
+the ranks' float32 partial sums with one all_reduce.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asr_shap_torch.core.config import ExplainerConfig
 
@@ -114,6 +117,58 @@ def expected_gradients(f: Callable[[torch.Tensor], torch.Tensor],
     ``draw_chunk``. ``draws`` (background index [n], t [n]) replaces the
     generator, so that a test can feed the reference package's draws."""
     phi = expected_phi(f, x, background, generator, config, draws)
+    with torch.no_grad():
+        fx = f(x)
+        base = torch.stack([f(b) for b in background]).mean(dim=0)
+    return Explanation(values=phi, base_values=base, model_output=fx)
+
+
+def sharded_draws(config: ExplainerConfig, ndev: int) -> Tuple[int, int]:
+    """(draws per rank, total) of the draw-sharded explainer:
+    ceil(nsamples / (draw_chunk * ndev)) chunks per rank, so the total is
+    ``nsamples`` rounded up to a multiple of draw_chunk * ndev."""
+    chunk = max(1, config.draw_chunk)
+    per_rank = -(-config.nsamples // (chunk * ndev)) * chunk
+    return per_rank, per_rank * ndev
+
+
+def expected_phi_sharded(f: Callable, x: torch.Tensor, background: torch.Tensor, mesh,
+                         generator: Optional[torch.Generator] = None,
+                         config: ExplainerConfig = ExplainerConfig(),
+                         draws: Optional[Draws] = None) -> torch.Tensor:
+    """``expected_phi`` with the draws split over ``mesh``'s data axis
+    (``parallel/mesh.py``), the reference's ``expected_gradients_sharded``.
+    Every rank takes the same ``total`` draws (``sharded_draws``) from
+    ``generator``, or ``draws`` given explicitly, and explains the slice
+    [d * per_rank, (d + 1) * per_rank) of its data index d; the float32 sums
+    are all-reduced over the data axis, then divided by ``total``. So phi
+    differs from the unsharded explainer's over the same draws only in the
+    order of the sum. Every rank returns it."""
+    per_rank, total = sharded_draws(config, mesh.data_size)
+    if draws is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        draws = sample_draws(generator, total, background.shape[0])
+    elif draws[0].shape[0] != total:
+        raise ValueError(f"{draws[0].shape[0]} explicit draws given, {total} expected "
+                         f"over {mesh.data_size} data ranks")
+    start = mesh.data_rank * per_rank
+    local = tuple(d[start:start + per_rank] for d in draws)
+    acc = _phi_sum(f, x, background, local, config.output_chunk)
+    if acc.dtype != torch.float32:
+        raise TypeError(f"phi accumulated in {acc.dtype}, float32 expected")
+    dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    return (acc / total).T.contiguous()
+
+
+def expected_gradients_sharded(f: Callable[[torch.Tensor], torch.Tensor],
+                               x: torch.Tensor, background: torch.Tensor, mesh,
+                               generator: Optional[torch.Generator] = None,
+                               config: ExplainerConfig = ExplainerConfig(),
+                               draws: Optional[Draws] = None) -> Explanation:
+    """``expected_gradients`` with the draws sharded over ``mesh``
+    (``expected_phi_sharded``)."""
+    phi = expected_phi_sharded(f, x, background, mesh, generator, config, draws)
     with torch.no_grad():
         fx = f(x)
         base = torch.stack([f(b) for b in background]).mean(dim=0)

@@ -1,10 +1,14 @@
 """Word Error Rate with jiwer semantics: strip, split on whitespace, then the
-word-level Levenshtein distance over the number of reference words. Pure
-Python: the reference's native batch scorer gives the same counts."""
+word-level Levenshtein distance over the number of reference words. The
+counts come from the native host runtime (``asr_shap_torch/native.py``), a
+batch of pairs in one call; ``word_edit_counts`` is the pure-Python DP the
+tests hold it against."""
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
+
+from asr_shap_torch import native
 
 
 def _words(s: str) -> List[str]:
@@ -38,26 +42,39 @@ def word_edit_counts(reference: Sequence[str], hypothesis: Sequence[str]
     return s, d, a, h
 
 
+def _tokenize_pair(ref_w: Sequence[str], hyp_w: Sequence[str]):
+    """The two word lists as ids of one shared vocabulary."""
+    ids: dict = {}
+
+    def enc(ws):
+        return [ids.setdefault(w, len(ids)) for w in ws]
+
+    return enc(ref_w), enc(hyp_w)
+
+
 def wer(reference: str, hypothesis: str) -> float:
     """(S + D + I) / number of reference words."""
     ref_w, hyp_w = _words(reference), _words(hypothesis)
     if not ref_w:
         raise ValueError("reference must contain at least one word")
-    s, d, i, _ = word_edit_counts(ref_w, hyp_w)
+    s, d, i, _ = native.wer_counts_native(*_tokenize_pair(ref_w, hyp_w))
     return (s + d + i) / len(ref_w)
 
 
 def batch_wer(references: Sequence[str], hypotheses: Sequence[str]) -> List[float]:
-    """Per-pair WER; a pair whose reference has no word gives nan (the
-    sweep's mark for a row that cannot be scored)."""
+    """Per-pair WER, the counts of every pair in one native call; a pair
+    whose reference has no word gives nan (the sweep's mark for a row that
+    cannot be scored)."""
     if len(references) != len(hypotheses):
         raise ValueError("references and hypotheses must have equal length")
-    out = []
-    for ref, hyp in zip(references, hypotheses):
-        ref_w = _words(ref)
-        if not ref_w:
-            out.append(float("nan"))
-            continue
-        s, d, i, _ = word_edit_counts(ref_w, _words(hyp))
-        out.append((s + d + i) / len(ref_w))
+    pairs = [(_words(r), _words(h)) for r, h in zip(references, hypotheses)]
+    scoreable = [i for i, (rw, _) in enumerate(pairs) if rw]
+    out = [float("nan")] * len(pairs)
+    if not scoreable:
+        return out
+    toks = [_tokenize_pair(*pairs[i]) for i in scoreable]
+    counts = native.batch_wer_native([t[0] for t in toks], [t[1] for t in toks])
+    for row, i in enumerate(scoreable):
+        s, d, ins, _ = (int(v) for v in counts[row])
+        out[i] = (s + d + ins) / len(pairs[i][0])
     return out

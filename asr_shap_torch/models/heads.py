@@ -55,16 +55,17 @@ def model_logits_fn(model_cfg: Wav2Vec2Config):
 
 def make_batched_fn(params, model_config: Wav2Vec2Config,
                     explainer_config: ExplainerConfig,
-                    remat: bool | None = None
+                    remat: bool | None = None, tp=None
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """f: normalized waveforms [B, N] -> explained outputs [B, T_out], one
-    batched forward (the perturbation explainers' batches)."""
+    batched forward (the perturbation explainers' batches). ``tp``: the
+    tensor-parallel mesh of sharded ``params``, or None."""
     logits_fn = model_logits_fn(model_config)
     use_remat = explainer_config.remat if remat is None else remat
     ec = explainer_config
 
     def f(xs: torch.Tensor) -> torch.Tensor:
-        logits = logits_fn(params, model_config, xs, remat=use_remat)
+        logits = logits_fn(params, model_config, xs, remat=use_remat, tp=tp)
         return aggregation_head(logits, ec.aggregation, ec.token_timestep, ec.token_id)
 
     return f
@@ -72,8 +73,8 @@ def make_batched_fn(params, model_config: Wav2Vec2Config,
 
 def make_explained_fn(params, model_config: Wav2Vec2Config,
                       explainer_config: ExplainerConfig,
-                      remat: bool | None = None
+                      remat: bool | None = None, tp=None
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """f: normalized waveform [N] -> explained outputs [T_out]."""
-    f_batch = make_batched_fn(params, model_config, explainer_config, remat)
+    f_batch = make_batched_fn(params, model_config, explainer_config, remat, tp)
     return lambda x: f_batch(x[None, :])[0]

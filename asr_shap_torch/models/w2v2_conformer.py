@@ -51,6 +51,7 @@ from asr_shap_torch.models.wav2vec2 import (
     projected_features,
 )
 from asr_shap_torch.ops.attention import multi_head_attention, rel_pos_embedding, rel_shift
+from asr_shap_torch.parallel.tp import copy_to_tp, gather_last, row_linear, scatter_last
 
 Params = Dict[str, Any]
 
@@ -122,22 +123,27 @@ def _apply_rotary(h: torch.Tensor, nh: int, hd: int, base: float) -> torch.Tenso
     return (hs * cos + rot * sin).reshape(b, t, d)
 
 
-def _ffn(p: Params, x: torch.Tensor, act, eps: float) -> torch.Tensor:
-    h = _linear(p["intermediate"], _layer_norm(p["norm"], x, eps))
-    return _linear(p["output"], act(h))
+def _ffn(p: Params, x: torch.Tensor, act, eps: float, tp=None) -> torch.Tensor:
+    h = _linear(p["intermediate"], copy_to_tp(_layer_norm(p["norm"], x, eps), tp))
+    return row_linear(p["output"], act(h), tp)
 
 
 def _attention(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
-               pe: Optional[torch.Tensor], bias: Optional[torch.Tensor]) -> torch.Tensor:
-    b, t, d = x.shape
+               pe: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               tp=None) -> torch.Tensor:
+    """Self-attention; under a tensor-parallel mesh ``tp``, over this rank's
+    heads (the count from the q projection's width), with this rank's rows
+    of the replicated position projection and u/v biases."""
+    b, t, _ = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
-    xn = _layer_norm(p["norm"], x, cfg.layer_norm_eps)
+    nh_local = p["q"]["kernel"].shape[-1] // hd
+    xn = copy_to_tp(_layer_norm(p["norm"], x, cfg.layer_norm_eps), tp)
     qk_in = xn
     if cfg.position_embeddings_type == "rotary":
         qk_in = _apply_rotary(xn, nh, hd, float(cfg.rotary_embedding_base))
 
     def proj(pp, v):
-        return _linear(pp, v).reshape(b, t, nh, hd).transpose(1, 2)
+        return _linear(pp, v).reshape(b, t, nh_local, hd).transpose(1, 2)
 
     q, k, v = proj(p["q"], qk_in), proj(p["k"], qk_in), proj(p["v"], xn)
     attn_bias, q_attn = bias, q
@@ -145,38 +151,51 @@ def _attention(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
         # content-position scores, pre-scaled so that they add to the
         # attention's already scaled q.k: (ac + bd) / sqrt(hd) overall
         p_proj = _linear(p["pos"], pe).reshape(-1, nh, hd)      # [2T-1, H, hd]
-        q_v = q + p["bias_v"][None, :, None, :]
+        bias_u, bias_v = p["bias_u"], p["bias_v"]
+        if tp is not None:  # this rank's heads of the replicated tensors
+            rows = slice(tp.model_rank * nh_local, (tp.model_rank + 1) * nh_local)
+            p_proj, bias_u, bias_v = (copy_to_tp(t, tp)[..., rows, :]
+                                      for t in (p_proj, bias_u, bias_v))
+        q_v = q + bias_v[None, :, None, :]
         scores_bd = torch.einsum("bhtd,rhd->bhtr", q_v, p_proj)
         rel = rel_shift(scores_bd) * hd ** -0.5                  # [B, H, T, T]
         attn_bias = rel if bias is None else rel + bias
-        q_attn = q + p["bias_u"][None, :, None, :]
+        q_attn = q + bias_u[None, :, None, :]
     o = multi_head_attention(q_attn, k, v, attn_bias, impl=cfg.attention_impl)
-    return _linear(p["out"], o.transpose(1, 2).reshape(b, t, d))
+    return row_linear(p["out"], o.transpose(1, 2).reshape(b, t, nh_local * hd), tp)
 
 
 def _conv_module(p: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
-                 rules: Rules) -> torch.Tensor:
+                 rules: Rules, tp=None) -> torch.Tensor:
     """LN, pointwise conv, GLU, depthwise conv (a library conv, as in the
     reference; in bf16 on float32 copies, see ``wav2vec2._conv1d``),
-    inference BatchNorm, SiLU, pointwise conv (GLU and SiLU from ``rules``)."""
-    h = _layer_norm(p["norm"], x, cfg.layer_norm_eps)
-    h = rules.glu(_linear(p["pw1"], h), -1)                    # [B, T, d]
+    inference BatchNorm, SiLU, pointwise conv (GLU and SiLU from ``rules``).
+    Under a tensor-parallel mesh the GLU and the depthwise conv take the
+    gathered width of the column-parallel pw1, and pw2 this rank's input
+    block."""
+    h = _linear(p["pw1"], copy_to_tp(_layer_norm(p["norm"], x, cfg.layer_norm_eps), tp))
+    if tp is not None:
+        h = gather_last(h, tp)
+    h = rules.glu(h, -1)                                        # [B, T, d]
     ksz = cfg.conv_depthwise_kernel_size
     h = _conv1d(h, p["depthwise"]["kernel"], padding=(ksz - 1) // 2, groups=h.shape[-1])
     bn = p["bn"]
     h = (h - bn["mean"]) * torch.rsqrt(bn["var"] + 1e-5) * bn["scale"] + bn["bias"]
-    return _linear(p["pw2"], rules.silu(h))
+    h = rules.silu(h)
+    if tp is not None:
+        h = scatter_last(h, tp)
+    return row_linear(p["pw2"], h, tp)
 
 
 def _conformer_block(layer: Params, cfg: Wav2Vec2ConformerConfig, x: torch.Tensor,
                      pe: Optional[torch.Tensor], bias: Optional[torch.Tensor],
-                     rules: Rules, gelu) -> torch.Tensor:
+                     rules: Rules, gelu, tp=None) -> torch.Tensor:
     eps = cfg.layer_norm_eps
     act = rules.silu if cfg.hidden_act in ("swish", "silu") else gelu
-    x = x + 0.5 * _ffn(layer["ffn1"], x, act, eps)
-    x = x + _attention(layer["attn"], cfg, x, pe, bias)
-    x = x + _conv_module(layer["conv"], cfg, x, rules)
-    x = x + 0.5 * _ffn(layer["ffn2"], x, act, eps)
+    x = x + 0.5 * _ffn(layer["ffn1"], x, act, eps, tp)
+    x = x + _attention(layer["attn"], cfg, x, pe, bias, tp)
+    x = x + _conv_module(layer["conv"], cfg, x, rules, tp)
+    x = x + 0.5 * _ffn(layer["ffn2"], x, act, eps, tp)
     return _layer_norm(layer["final_norm"], x, eps)
 
 
@@ -184,13 +203,15 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
                           input_values: torch.Tensor,
                           lengths: Optional[torch.Tensor] = None,
                           remat: bool = False, rules: Rules = PLAIN_RULES,
-                          gelu=_gelu) -> torch.Tensor:
+                          gelu=_gelu, tp=None) -> torch.Tensor:
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
     ``lengths`` enables padded batching; ``remat`` is accepted for signature
     parity and does nothing (see ``wav2vec2.encoder``). ``rules`` and
     ``gelu`` plug in the blocks' SiLU/GLU and every GELU (DeepSHAP passes
     ``conformer.deepshap_rules()`` and ``explain.deepshap.gelu_rescale``, the
-    batch axis carrying the (actual, reference) pair). ``config.dtype=
+    batch axis carrying the (actual, reference) pair). ``tp`` is the
+    tensor-parallel mesh of params sharded by ``parallel.tp.shard_params_tp``,
+    or None. ``config.dtype=
     "bfloat16"`` casts params (a no-op for leaves already bf16) and input.
     Raises where ``wav2vec2_logits`` does (an unknown ``matmul_precision``
     or dtype, CUDA outside its precision scope), and on rotary positions in
@@ -213,6 +234,6 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
     if cfg.position_embeddings_type == "relative":
         pe = rel_pos_embedding(h.shape[1], cfg.hidden_size, device=h.device).to(h.dtype)
     for layer in params["encoder"]["layers"]:
-        h = _conformer_block(layer, cfg, h, pe, bias, rules, gelu)
+        h = _conformer_block(layer, cfg, h, pe, bias, rules, gelu, tp)
     h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     return _linear(params["lm_head"], h).to(torch.float32)

@@ -24,6 +24,7 @@ from asr_shap_torch.core.device import (
 )
 from asr_shap_torch.kernels import conv_dgrad
 from asr_shap_torch.ops.attention import multi_head_attention
+from asr_shap_torch.parallel.tp import copy_to_tp, row_linear
 
 Params = Dict[str, Any]
 
@@ -60,25 +61,126 @@ def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _gemm_blocks(k: int, stride: int, t_out: int):
+    """(m, need) of the stride-blocked formulation: m = ceil(K / s) blocks
+    of s rows, over the first ``need`` = (T_out + m - 1) s input rows."""
+    m = -(-k // stride)
+    return m, (t_out + m - 1) * stride
+
+
+def _gemm_kernel(kernel: torch.Tensor, stride: int, m: int) -> torch.Tensor:
+    """W [K, C_in, C_out] -> Wq [m, s C_in, C_out], Wq[q, r C_in + c] =
+    W[s q + r, c], zero past K."""
+    k, c_in, c_out = kernel.shape
+    return F.pad(kernel, (0, 0, 0, 0, 0, m * stride - k)).reshape(m, stride * c_in, c_out)
+
+
+def _conv1d_gemm(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> torch.Tensor:
+    """Valid strided conv1d as m = ceil(K / s) dense GEMMs over stride blocks
+    (``conv_impl="gemm"``, the reference's ``_conv1d_gemm``):
+
+      xb[u] = x[s u : s u + s]  (a row-major view),  y[t] = sum_q xb[t + q] @ Wq
+
+    The same sums as the conv in another order. Its backward is autograd's
+    through the matmuls."""
+    b, t, c_in = x.shape
+    k, _, c_out = kernel.shape
+    t_out = (t - k) // stride + 1
+    m, need = _gemm_blocks(k, stride, t_out)
+    if need > t:
+        x = F.pad(x, (0, 0, 0, need - t))
+    xb = x[:, :need].reshape(b, t_out + m - 1, stride * c_in)
+    wq = _gemm_kernel(kernel, stride, m)
+    y = xb[:, :t_out] @ wq[0]
+    for q in range(1, m):
+        y = y + xb[:, q:q + t_out] @ wq[q]
+    return y
+
+
+def _conv1d_gemm_vjp(x: torch.Tensor, kernel: torch.Tensor, ybar: torch.Tensor,
+                     stride: int, need_x: bool, need_kernel: bool):
+    """The GEMM formulation's transpose: (xbar, kernel bar) for the
+    cotangent ``ybar`` [B, T_out, C_out] of ``_conv1d_gemm(x, kernel,
+    stride)``, each None where not asked for. Plain matmuls and pads, so
+    that it batches under vmap."""
+    b, t, c_in = x.shape
+    k, _, c_out = kernel.shape
+    t_out = ybar.shape[-2]
+    m, need = _gemm_blocks(k, stride, t_out)
+    wq = _gemm_kernel(kernel, stride, m)
+    dx = dw = None
+    if need_x:
+        # xb[t + q] feeds y[t] through Wq: its cotangent is ybar[t] @ Wq^T,
+        # shifted down q blocks
+        dxb = sum(F.pad(ybar @ wq[q].transpose(0, 1), (0, 0, q, m - 1 - q))
+                  for q in range(m))
+        dx = dxb.reshape(b, need, c_in)
+        dx = dx[:, :t] if need >= t else F.pad(dx, (0, 0, 0, t - need))
+    if need_kernel:
+        xp = F.pad(x, (0, 0, 0, need - t)) if need > t else x
+        xb = xp[:, :need].reshape(b, t_out + m - 1, stride * c_in)
+        dwq = torch.stack([torch.einsum("bti,bto->io", xb[:, q:q + t_out], ybar)
+                           for q in range(m)])
+        dw = dwq.reshape(m * stride, c_in, c_out)[:k]
+    return dx, dw
+
+
+class Conv1dHybrid(torch.autograd.Function):
+    """``conv_impl="hybrid"``: the library conv forward (``F.conv1d``) with
+    the GEMM formulation's backward, as the reference's ``_conv1d_hybrid``.
+    Its backward is plain torch ops, so the generated vmap rule batches the
+    explainer's cotangent rows through it."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, kernel, stride):
+        return conv_dgrad.conv1d_forward(x, kernel, stride)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, kernel, stride = inputs
+        ctx.stride = stride
+        ctx.save_for_backward(x, kernel)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        x, kernel = ctx.saved_tensors
+        dx, dw = _conv1d_gemm_vjp(x, kernel, ybar, ctx.stride, ctx.needs_input_grad[0],
+                                  ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+CONV_IMPLS = ("lax", "pallas", "gemm", "hybrid")
+
+
 def _conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
             padding: int = 0, groups: int = 1,
             bias: Optional[torch.Tensor] = None,
             impl: str = "lax") -> torch.Tensor:
     """x [B, T, C_in], kernel [K, C_in // groups, C_out] -> [B, T', C_out].
 
-    ``impl="pallas"`` sends the layers the dgrad kernel takes
-    (``conv_dgrad.eligible``) through K1's Function; every other conv, and
-    every conv under ``impl="lax"``, is ``F.conv1d``. A grouped conv (the
-    positional embedding, the conformer's depthwise conv) in bf16 runs on
-    float32 copies of its operands and rounds its output to bf16: the
-    reference's arithmetic (float32 sums, output in the input's dtype), and
-    on the H100 cuDNN's bf16 input gradient of the positional conv took
-    433 ms per call at the base path's shape against 3.4 ms in float32
-    (``chip_smoke.py``, "timing positional conv dgrad"; the depthwise conv's
-    two routes: "timing depthwise conv dgrad")."""
-    if impl not in ("lax", "pallas"):
-        raise NotImplementedError(f"conv_impl {impl!r} is not ported")
-    if impl == "pallas" and conv_dgrad.eligible(
+    ``impl`` selects the formulation of the ungrouped, unpadded, strided
+    convs (the feature encoder's): "lax" is ``F.conv1d``; "gemm" the
+    stride-blocked GEMMs both ways; "hybrid" ``F.conv1d`` forward with the
+    GEMM backward; "pallas" sends the layers the dgrad kernel takes
+    (``conv_dgrad.eligible``) through K1's Function. Every other conv is
+    ``F.conv1d``. A grouped conv (the positional embedding, the conformer's
+    depthwise conv) in bf16 runs on float32 copies of its operands and
+    rounds its output to bf16: the reference's arithmetic (float32 sums,
+    output in the input's dtype), and on the H100 cuDNN's bf16 input
+    gradient of the positional conv took 433 ms per call at the base path's
+    shape against 3.4 ms in float32 (``chip_smoke.py``, "timing positional
+    conv dgrad"; the depthwise conv's two routes: "timing depthwise conv
+    dgrad")."""
+    if impl not in CONV_IMPLS:
+        raise ValueError(f"unknown conv_impl {impl!r}: one of {CONV_IMPLS}")
+    eligible = groups == 1 and padding == 0 and stride > 1
+    if impl == "gemm" and eligible:
+        y = _conv1d_gemm(x, kernel, stride)
+    elif impl == "hybrid" and eligible:
+        y = Conv1dHybrid.apply(x, kernel, stride)
+    elif impl == "pallas" and conv_dgrad.eligible(
             kernel.shape[1], kernel.shape[2], stride, groups, padding):
         y = conv_dgrad.conv1d(x, kernel, stride)
     elif groups > 1 and x.dtype == torch.bfloat16:
@@ -252,24 +354,29 @@ def _pos_conv_embedding(params: Params, config: Wav2Vec2Config,
 
 
 def _encoder_layer(layer: Params, config: Wav2Vec2Config, h: torch.Tensor,
-                   bias: Optional[torch.Tensor], gelu=_gelu) -> torch.Tensor:
-    """One encoder layer: post-LN (base) or pre-LN (do_stable_layer_norm)."""
+                   bias: Optional[torch.Tensor], gelu=_gelu, tp=None) -> torch.Tensor:
+    """One encoder layer: post-LN (base) or pre-LN (do_stable_layer_norm).
+    Under a tensor-parallel mesh ``tp`` the layer holds this rank's heads
+    and FFN columns (``parallel/tp.py``); the head count comes from the q
+    projection's width."""
     cfg = config
-    b, t, d = h.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    b, t, _ = h.shape
+    att = layer["attention"]
+    hd = cfg.head_dim
+    nh = att["q"]["kernel"].shape[-1] // hd
 
     def heads(p, x):
         return _linear(p, x).reshape(b, t, nh, hd).transpose(1, 2)
 
     def attend(x):
-        att = layer["attention"]
+        x = copy_to_tp(x, tp)
         o = multi_head_attention(heads(att["q"], x), heads(att["k"], x),
                                  heads(att["v"], x), bias, impl=cfg.attention_impl)
-        return _linear(att["out"], o.transpose(1, 2).reshape(b, t, d))
+        return row_linear(att["out"], o.transpose(1, 2).reshape(b, t, nh * hd), tp)
 
     def ffn(x):
-        return _linear(layer["ffn"]["output"],
-                       gelu(_linear(layer["ffn"]["intermediate"], x)))
+        return row_linear(layer["ffn"]["output"],
+                          gelu(_linear(layer["ffn"]["intermediate"], copy_to_tp(x, tp))), tp)
 
     if cfg.do_stable_layer_norm:
         h = h + attend(_layer_norm(layer["layer_norm"], h, cfg.layer_norm_eps))
@@ -282,9 +389,10 @@ def _encoder_layer(layer: Params, config: Wav2Vec2Config, h: torch.Tensor,
 
 def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
             frame_mask: Optional[torch.Tensor] = None,
-            remat: bool = False, gelu=_gelu) -> torch.Tensor:
+            remat: bool = False, gelu=_gelu, tp=None) -> torch.Tensor:
     """Transformer encoder over features [B, T, H]; ``gelu`` is the
-    positional conv's and the FFNs' activation.
+    positional conv's and the FFNs' activation; ``tp`` the tensor-parallel
+    mesh of sharded params (``parallel/tp.py``), or None.
 
     ``remat`` is accepted for signature parity and does nothing: the
     explainer's forward runs at batch 1, so its saved activations are small
@@ -298,7 +406,7 @@ def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
     if not cfg.do_stable_layer_norm:
         h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     for layer in params["encoder"]["layers"]:
-        h = _encoder_layer(layer, cfg, h, bias, gelu)
+        h = _encoder_layer(layer, cfg, h, bias, gelu, tp)
     if cfg.do_stable_layer_norm:
         h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     return h
@@ -307,7 +415,7 @@ def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
 def wav2vec2_logits(params: Params, config: Wav2Vec2Config,
                     input_values: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    remat: bool = False, gelu=_gelu) -> torch.Tensor:
+                    remat: bool = False, gelu=_gelu, tp=None) -> torch.Tensor:
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
     ``lengths`` enables padded batching. ``gelu`` replaces every GELU of the
     model (DeepSHAP passes ``explain.deepshap.gelu_rescale``, the batch axis
@@ -315,12 +423,14 @@ def wav2vec2_logits(params: Params, config: Wav2Vec2Config,
     activations and params in bf16 (params cast here, a no-op for leaves
     already bf16; norm statistics stay float32). On CUDA it must run inside
     ``core.device.matmul_precision_scope(config.matmul_precision)``, else it
-    raises: the model does not change torch's process-wide switches itself."""
+    raises: the model does not change torch's process-wide switches itself.
+    ``tp`` is the tensor-parallel mesh of params sharded by
+    ``parallel.tp.shard_params_tp``, or None."""
     cfg = config
     params = cast_params_for_compute(params, cfg.dtype)
     h = projected_features(params, cfg, input_values.to(compute_dtype(cfg.dtype)), gelu)
     frame_mask = None if lengths is None else frame_mask_for(cfg, lengths, h)
-    h = encoder(params, cfg, h, frame_mask, remat=remat, gelu=gelu)
+    h = encoder(params, cfg, h, frame_mask, remat=remat, gelu=gelu, tp=tp)
     return _linear(params["lm_head"], h).to(torch.float32)
 
 

@@ -168,7 +168,25 @@ asr_shap_torch train``). Phases, each reported on its own lines:
    utterances and audio seconds per second, peak memory, two profiled
    steps, the CTC loss and AdamW alone; every kernel at the step's shapes
    beside its bound, plain version and library call ("train", "timing
-   train" lines). Its launches are the JSON line's ``launches_train``.
+   train" lines). Its launches are the JSON line's ``launches_train``;
+13. scale-out and the host runtime, last, on Wav2Vec2-base at full width
+   with the kernel impls, the two clips, 4 draws each ("scale" lines): the
+   native batch WER counts of 3,000 seeded pairs against the plain DP, and
+   the base path's phi written by the native writer and by its pool (the
+   same bytes; np.save's length and data, the header's 2-D shape spelled
+   "(r, c, )") with the walls of a synchronous write and of a submit; a
+   mesh of one NCCL rank through run_shap_pipeline at sample_batch 1 (draws
+   sharded) and 2 (samples sharded), phi bit-equal to the unmeshed run and
+   the same launches (the JSON line's ``launches_scale``); two processes on
+   the one card over gloo: draw-sharded phi within 1e-6 of max|phi| of the
+   single rank's, sample-sharded phi equal, and at model_parallel=2 the
+   base's and the rel-pos-large conformer's logits within 1e-5 of
+   max|logits| of unsharded and one draw's phi within 1e-4 of max|phi|;
+   conv_impl "gemm" and "hybrid" against "pallas" on one draw (float32
+   within 1e-4 of max|phi|, bf16 by phase 7's rule) with the six
+   feature-encoder backwards per draw of each formulation and of the
+   library's conv timed; and run-shap --sample-batch 2 --async-writes then
+   sweep, the same store bytes and records as a plain run's.
 
 Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
 two bf16 forward and the four bf16 backward kernels also with their
@@ -183,27 +201,32 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import io
 import itertools
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from asr_shap_torch import cli
+from asr_shap_torch import cli, native
 from asr_shap_torch.audio.invert import mel_to_audio
 from asr_shap_torch.audio.mel import log_mel_spectrogram
 from asr_shap_torch.audio.normalize import zero_mean_unit_var
 from asr_shap_torch.core.config import (
     ConformerConfig,
     ExplainerConfig,
+    MeshConfig,
     MetricConfig,
     PipelineConfig,
     TrainConfig,
@@ -233,7 +256,7 @@ from asr_shap_torch.kernels import _build
 from asr_shap_torch.kernels import conv_dgrad as k1
 from asr_shap_torch.kernels import flash_attention as fa
 from asr_shap_torch.metrics.eta_raw import eta_raw
-from asr_shap_torch.metrics.wer import wer
+from asr_shap_torch.metrics.wer import wer, word_edit_counts
 from asr_shap_torch.models.conformer import (
     conformer_logits,
     deepshap_rules,
@@ -252,14 +275,21 @@ from asr_shap_torch.models.nemo_ctc import (
     nemo_ctc_decode,
     nemo_ctc_logits,
 )
-from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
+from asr_shap_torch.models.w2v2_conformer import (
+    init_w2v2_conformer_params,
+    w2v2_conformer_logits,
+)
 from asr_shap_torch.models.wav2vec2 import (
+    _conv1d,
     cast_params_for_compute,
     feature_lengths,
     init_wav2vec2_params,
+    wav2vec2_logits,
 )
 from asr_shap_torch.ops.attention import rel_shift
 from asr_shap_torch.ops.ctc import ctc_loss
+from asr_shap_torch.parallel.mesh import make_mesh
+from asr_shap_torch.parallel.tp import shard_params_tp
 from asr_shap_torch.pipeline import compare as compare_mod
 from asr_shap_torch.pipeline import train as train_mod
 from asr_shap_torch.pipeline import train_synthetic as train_syn_mod
@@ -3754,6 +3784,423 @@ def phase_train(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig, base_
     return launches
 
 
+# ---------------------------------------------------------------- scale-out
+
+# The per-draw device ms of the six feature-encoder backwards, from PERF.md's
+# kernel table (one H100 80GB HBM3, 700 W): K1 and cuDNN's dgrad
+K1_TABLE_MS = {"float32": 42.94, "bfloat16": 3.69}
+CUDNN_TABLE_MS = {"float32": 65.96, "bfloat16": 7.74}
+SCALE_DRAW = (2, 0.37)  # (background row, t) of the one-draw comparisons
+
+
+def scale_inputs(test_set):
+    """The one-draw comparisons' clip (the noisy sample, normalized), its
+    seeded background and the draw, on the card."""
+    x = zero_mean_unit_var(torch.from_numpy(test_set[1]["audio"]).cuda())
+    bg = 0.01 * torch.randn((5, N_SAMPLES), generator=torch.Generator().manual_seed(1)).cuda()
+    draws = (torch.tensor([SCALE_DRAW[0]]), torch.tensor([SCALE_DRAW[1]]))
+    return x, bg, draws
+
+
+def one_draw_config(explainer: ExplainerConfig) -> ExplainerConfig:
+    return dataclasses.replace(explainer, nsamples=1, draw_chunk=1)
+
+
+def scale_native(data_dir: str, smi: str) -> None:
+    """The host runtime: the batch WER counts of 3,000 seeded pairs against
+    the plain DP; the base path's phi written by the writer and by the pool
+    (the same bytes) against np.save (the same length and data; the C
+    writer spells a 2-D shape "(r, c, )" in the header); a 1-D clip's bytes
+    equal to np.save's; the wall of a synchronous write beside a submit."""
+    rng = np.random.default_rng(SEED)
+    refs = [[int(v) for v in rng.integers(0, 40, rng.integers(1, 30))] for _ in range(3000)]
+    hyps = [[int(v) for v in rng.integers(0, 40, rng.integers(0, 30))] for _ in range(3000)]
+    t0 = time.perf_counter()
+    got = native.batch_wer_native(refs, hyps)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.asarray([word_edit_counts(r, h) for r, h in zip(refs, hyps)], np.int32)
+    t_plain = time.perf_counter() - t0
+    check(np.array_equal(got, want), "native: batch WER counts differ from the plain DP")
+    log(f"scale native: batch_wer_native on 3000 pairs equals the plain DP; {t_native * 1e3:.2f} "
+        f"ms native against {t_plain * 1e3:.1f} ms plain Python (host)")
+    sample = AttributionStore(f"{data_dir}/base").load(key_for(1, "noisy", 5.0))
+    phi = sample["shap_values"]
+    check(phi.dtype == np.float32 and phi.ndim == 2, f"native: phi {phi.dtype} {phi.shape}")
+    d = Path(data_dir) / "scale_native"
+    d.mkdir()
+    t0 = time.perf_counter()
+    np.save(d / "plain.npy", phi)
+    t_np = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.write_npy_f32_native(str(d / "writer.npy"), phi)
+    t_sync = time.perf_counter() - t0
+    with native.NpyWriterPool(2) as pool:
+        t0 = time.perf_counter()
+        pool.submit(str(d / "pool.npy"), phi)
+        t_submit = time.perf_counter() - t0
+        failed = pool.flush()
+        t_flush = time.perf_counter() - t0
+    check(failed == 0, f"native: {failed} pool write(s) failed")
+    plain, writer, pooled = ((d / n).read_bytes() for n in ("plain.npy", "writer.npy",
+                                                           "pool.npy"))
+    check(writer == pooled, "native: the pool's bytes differ from the writer's")
+    check(len(writer) == len(plain) and writer[128:] == plain[128:],
+          "native: the data section differs from np.save's")
+    check(writer[:128].replace(b", ), }", b"), }  ") == plain[:128],
+          "native: the header differs from np.save's beyond the shape's spelling")
+    audio = np.asarray(sample["audio"], np.float32)
+    native.write_npy_f32_native(str(d / "audio.npy"), audio)
+    np.save(d / "audio_plain.npy", audio)
+    check((d / "audio.npy").read_bytes() == (d / "audio_plain.npy").read_bytes(),
+          "native: a 1-D array's bytes differ from np.save's")
+    log(f"scale native: phi {phi.shape} ({len(writer) / 1e6:.1f} MB): writer and pool "
+        f"byte-equal, np.save's length and data (header: shape spelled "
+        f"{writer[60:80]!r}); 1-D audio byte-equal to np.save")
+    log(f"scale native walls (host, {smi}): np.save {t_np * 1e3:.1f} ms, synchronous native "
+        f"write {t_sync * 1e3:.1f} ms, pool submit {t_submit * 1e3:.2f} ms (flushed after "
+        f"{t_flush * 1e3:.1f} ms)")
+
+
+def conv_backward_ms(params, mc: Wav2Vec2Config, impl: str, rows: int) -> float:
+    """ms (CUDA events) of the explainer's backward through the six eligible
+    feature-encoder layers with ``impl``: per layer the vmapped VJP of
+    ``rows`` cotangent rows, as one draw runs it, summed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dtype = torch.bfloat16 if mc.dtype == "bfloat16" else torch.float32
+    total = 0.0
+    layers = [i for i, (c_in, c, s) in enumerate(zip((1,) + mc.conv_dim[:-1], mc.conv_dim,
+                                                     mc.conv_stride))
+              if k1.eligible(c_in, c, s, 1, 0)]
+    for i, (k, s, c_in, c_out, t_in, t_out) in zip(layers, k1_main_shapes(mc, 1)):
+        w = params["feature_encoder"][i]["conv"]["kernel"].to(dtype)
+        x = torch.randn((1, t_in, c_in), generator=gen, device="cuda").to(dtype)
+        ybar = torch.randn((rows, 1, t_out, c_out), generator=gen, device="cuda").to(dtype)
+        _, vjp = torch.func.vjp(lambda v: _conv1d(v, w, stride=s, impl=impl), x)
+        total += time_ms(lambda: torch.func.vmap(lambda c: vjp(c)[0])(ybar), 5)
+    return total
+
+
+def scale_conv_formulations(model: Wav2Vec2Config, explainer: ExplainerConfig, params,
+                            test_set, smi: str) -> dict:
+    """conv_impl "gemm" and "hybrid" against "pallas" at full width: one
+    draw's phi in float32 "highest" (within 1e-4 of max|phi|) and in bf16
+    "default" (the bf16 rule of phase 7, against the plain bf16 path and
+    float32); the six feature-encoder backwards per draw of each
+    formulation and of the library's conv ("lax"). Returns the timings."""
+    ec = one_draw_config(explainer)
+    x, bg, draws = scale_inputs(test_set)
+    x_t = bg[2] + 0.37 * (x - bg[2])
+    t_out = model.frames_for_samples(N_SAMPLES)
+    out = {}
+    phi32 = {}
+    for impl in ("pallas", "gemm", "hybrid"):
+        mc = dataclasses.replace(model, conv_impl=impl)
+        phi32[impl] = expected_phi(make_explained_fn(params, mc, ec), x, bg, config=ec,
+                                   draws=draws)
+    scale = float(phi32["pallas"].abs().max())
+    for impl in ("gemm", "hybrid"):
+        err = compare(f"scale conv {impl} float32, phi against pallas (one draw)", phi32[impl],
+                      phi32["pallas"], 1e-4 * scale, 0.0, "1e-4 of max|phi|: the same sums "
+                      "in another order in the feature encoder's backward")
+        log(f"scale conv {impl} float32: max_abs_err / max|phi| = {err / scale:.3e}")
+    params16 = cast_params_for_compute(params, "bfloat16")
+    m16 = dataclasses.replace(model, dtype="bfloat16", matmul_precision="default")
+    p16 = dataclasses.replace(m16, attention_impl="xla", conv_impl="lax")
+    with matmul_precision_scope("default"):
+        with torch.no_grad():
+            logits = {"p16": wav2vec2_logits(params16, p16, x_t[None])[0]}
+        phi_p16 = expected_phi(make_explained_fn(params16, p16, ec), x, bg, config=ec,
+                               draws=draws)
+    with torch.no_grad():
+        logits["32"] = wav2vec2_logits(params, model, x_t[None])[0]
+    for impl in ("gemm", "hybrid"):
+        mc = dataclasses.replace(m16, conv_impl=impl)
+        with matmul_precision_scope("default"):
+            phi_k16 = expected_phi(make_explained_fn(params16, mc, ec), x, bg, config=ec,
+                                   draws=draws)
+            with torch.no_grad():
+                lg = dict(logits, k16=wav2vec2_logits(params16, mc, x_t[None])[0])
+        label = f"scale conv {impl} bf16"
+        defined = defined_frames(label, lg)
+        phi_rule(label, {"k16": phi_k16, "p16": phi_p16, "32": phi32["pallas"]},
+                 (("all frames", slice(None)), ("defined frames", defined)))
+    for dtype, mc, p, prec in (("float32", model, params, "highest"),
+                               ("bfloat16", m16, params16, "default")):
+        with matmul_precision_scope(prec):
+            for impl in ("pallas", "gemm", "hybrid", "lax"):
+                out[(dtype, impl)] = conv_backward_ms(p, mc, impl, t_out)
+        log(f"timing scale conv backward {dtype} per draw (six feature-encoder layers, "
+            f"{t_out} cotangent rows, CUDA events; {smi}): "
+            + ", ".join(f"{impl} {out[(dtype, impl)]:.2f} ms" for impl in
+                        ("gemm", "hybrid", "pallas", "lax"))
+            + f"; PERF.md's table: K1 {K1_TABLE_MS[dtype]} ms, cuDNN's dgrad "
+              f"{CUDNN_TABLE_MS[dtype]} ms")
+    return out
+
+
+def scale_mesh_world1(model: Wav2Vec2Config, explainer: ExplainerConfig, params, test_set,
+                      data_dir: str):
+    """A mesh of one NCCL rank (file init under the phase's directory):
+    run_shap_pipeline with sample_batch 1 (the draw-sharded path) and 2
+    (the sample-sharded path) against the unmeshed run: phi bit-equal and
+    the same launches of every kernel. Returns (the unmeshed phis, the
+    meshed runs' launches summed: the JSON line's launches_scale)."""
+    runs = {}
+    dist.init_process_group("nccl", init_method=f"file://{data_dir}/nccl_init", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        for label, sb, m, det in (("unmeshed cuDNN default", 1, None, False),
+                                  ("unmeshed", 1, None, True), ("mesh sb1", 1, mesh, True),
+                                  ("mesh sb2", 2, mesh, True)):
+            cfg = PipelineConfig(model=model, explainer=explainer, seed=SEED, sample_batch=sb,
+                                 data_dir=f"{data_dir}/scale_{label.replace(' ', '_')}")
+            reset_launches()
+            t0 = time.perf_counter()
+            with deterministic_convs() if det else contextlib.nullcontext():
+                res = run_shap_pipeline(params, cfg, test_set, device="cuda", mesh=m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[label] = ([r["shap_values"] for r in res], dict(LAUNCHES), wall)
+            log(f"scale mesh world 1 {label}: {len(res)} samples in {wall:.2f} s; launches "
+                f"{json.dumps({k: v for k, v in LAUNCHES.items() if v})}")
+    finally:
+        dist.destroy_process_group()
+    flat, flat_launches, _ = runs["unmeshed"]
+    moved = max(float(np.abs(a - b).max()) / float(np.abs(b).max())
+                for a, b in zip(runs["unmeshed cuDNN default"][0], flat))
+    log(f"scale mesh world 1: cuDNN's default algorithms against its deterministic ones, "
+        f"largest move of phi {moved:.3e} of max|phi| (information)")
+    scale_launches = {name: 0 for name in LAUNCHES}
+    for label in ("mesh sb1", "mesh sb2"):
+        phis, launches, _ = runs[label]
+        check(all(np.array_equal(a, b) for a, b in zip(phis, flat)),
+              f"scale mesh world 1 {label}: phi not bit-equal to the unmeshed run")
+        check(launches == flat_launches, f"scale mesh world 1 {label}: launches {launches} "
+              f"differ from the unmeshed run's {flat_launches}")
+        for name, c in launches.items():
+            scale_launches[name] += c
+    for name in BASE_KERNELS:
+        check(scale_launches[name] > 0, f"scale mesh world 1: {name} not launched")
+    log("scale mesh world 1: phi bit-equal to the unmeshed run at sample_batch 1 and 2, "
+        "the same launches of every kernel")
+    return flat, scale_launches
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN restricted to its deterministic algorithms inside the block: by
+    default its dgrad may sum with atomics, and phi then moves in its last
+    bits from one run to the next (the first conv layer's and the
+    positional conv's input gradients go through cuDNN)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def scale_configs():
+    model = Wav2Vec2Config(attention_impl="pallas", conv_impl="pallas")
+    conformer = Wav2Vec2ConformerConfig(attention_impl="pallas", conv_impl="pallas")
+    explainer = ExplainerConfig(nsamples=NSAMPLES, method="grad", aggregation="max",
+                                draw_chunk=1, output_chunk=0, num_background=5)
+    return model, conformer, explainer
+
+
+def _scale_rank_work(rank: int, data_dir: str) -> dict:
+    """One of two ranks on the one card: the meshed pipeline at sample_batch
+    1 (draws sharded) and 2 (samples sharded), then model_parallel=2: the
+    base's logits and one draw's phi, the rel-pos-large conformer's
+    logits."""
+    model, conformer, explainer = scale_configs()
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    test_set = make_test_set()
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    out = {"rank": rank}
+    x, bg, draws = scale_inputs(test_set)
+    ec = one_draw_config(explainer)
+    # one untimed draw first: the walls below are the pipelines', not the
+    # process's first launches
+    expected_phi(make_explained_fn(params, model, ec), x, bg, config=ec, draws=draws)
+    for sb in (1, 2):
+        cfg = PipelineConfig(model=model, explainer=explainer, seed=SEED, sample_batch=sb,
+                             data_dir=f"{data_dir}/scale_two_ranks_{sb}")
+        reset_launches()
+        t0 = time.perf_counter()
+        with deterministic_convs():
+            res = run_shap_pipeline(params, cfg, test_set, mesh=mesh)
+        torch.cuda.synchronize()
+        out[f"wall {sb}"] = time.perf_counter() - t0
+        out[f"launches {sb}"] = {k: v for k, v in LAUNCHES.items() if v}
+        out[f"phi {sb}"] = [r["shap_values"] for r in res]
+    tp = make_mesh(MeshConfig(data_parallel=1, model_parallel=2), device="cuda")
+    local = shard_params_tp(params, tp)
+    del params
+    with torch.no_grad():
+        out["logits base"] = wav2vec2_logits(local, model, x[None], tp=tp).cpu().numpy()
+    reset_launches()
+    out["phi tp"] = expected_phi(make_explained_fn(local, model, ec, tp=tp), x, bg, config=ec,
+                                 draws=draws).cpu().numpy()
+    out["launches tp"] = {k: v for k, v in LAUNCHES.items() if v}
+    del local
+    cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
+    clocal = shard_params_tp(cparams, tp)
+    del cparams
+    with torch.no_grad():
+        out["logits conformer"] = w2v2_conformer_logits(clocal, conformer, x[None],
+                                                        tp=tp).cpu().numpy()
+    return out
+
+
+def _scale_rank(rank: int, init_file: str, data_dir: str, queue) -> None:
+    """A spawned rank on cuda:0 of a 2-rank gloo group (NCCL refuses two
+    ranks on one card); its results, or its traceback, go to ``queue``."""
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=300))
+        with highest_precision():
+            queue.put((rank, _scale_rank_work(rank, data_dir), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def scale_two_ranks(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig,
+                    explainer: ExplainerConfig, params, test_set, flat, data_dir: str,
+                    smi: str) -> None:
+    """Two processes on the one card over gloo: draw-sharded phi within
+    1e-6 of max|phi| of the single-rank run over the same draws,
+    sample-sharded phi equal to it, the hand kernels launched on both
+    paths; TP at model_parallel=2: the base's logits and the rel-pos-large
+    conformer's (8 heads per rank) within 1e-5 of max|logits| of unsharded,
+    one draw's phi (the waveform gradient) within 1e-4 of max|phi|. The
+    unsharded references run here while the ranks run."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_scale_rank, args=(r, f"{data_dir}/gloo_init", data_dir,
+                                                      queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        x, bg, draws = scale_inputs(test_set)
+        ec = one_draw_config(explainer)
+        with torch.no_grad():
+            want = {"logits base": wav2vec2_logits(params, model, x[None]).cpu().numpy()}
+        want["phi tp"] = expected_phi(make_explained_fn(params, model, ec), x, bg, config=ec,
+                                      draws=draws).cpu().numpy()
+        cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
+        with torch.no_grad():
+            want["logits conformer"] = w2v2_conformer_logits(cparams, conformer,
+                                                             x[None]).cpu().numpy()
+        del cparams
+        for _ in procs:
+            rank, out, err = queue.get(timeout=900)
+            check(err is None, f"scale two ranks: rank {rank} failed:\n{err}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    for rank in (0, 1):
+        out = got[rank]
+        log(f"scale two ranks rank {rank}: pipeline walls sample_batch 1 {out['wall 1']:.2f} s, "
+            f"2 {out['wall 2']:.2f} s ({smi}, two processes sharing the card); launches "
+            f"sample_batch 1 {json.dumps(out['launches 1'])}, 2 {json.dumps(out['launches 2'])}, "
+            f"TP draw {json.dumps(out['launches tp'])}")
+        for name in BASE_KERNELS:
+            for key in ("launches 1", "launches 2", "launches tp"):
+                check(out[key].get(name, 0) > 0, f"scale two ranks rank {rank}: {name} not "
+                      f"launched ({key})")
+        for j, want_phi in enumerate(flat):
+            scale = float(np.abs(want_phi).max())
+            err = float(np.abs(out["phi 1"][j] - want_phi).max())
+            log(f"scale two ranks rank {rank} draw-sharded sample {j}: max_abs_err / max|phi| "
+                f"= {err / scale:.3e} (limit 1e-6: the same draws, summed in another order)")
+            check(err <= 1e-6 * scale, "scale two ranks: draw-sharded phi off the single rank's")
+            check(np.array_equal(out["phi 2"][j], want_phi),
+                  f"scale two ranks rank {rank}: sample-sharded phi not equal to the single "
+                  "rank's")
+        for key, limit in (("logits base", 1e-5), ("logits conformer", 1e-5),
+                           ("phi tp", 1e-4)):
+            scale = float(np.abs(want[key]).max())
+            err = float(np.abs(out[key] - want[key]).max())
+            log(f"scale two ranks rank {rank} TP {key}: max_abs_err / max|.| = "
+                f"{err / scale:.3e} (limit {limit:g}: the row-parallel sums split over two "
+                "ranks)")
+            check(err <= limit * scale, f"scale two ranks: TP {key} off the unsharded")
+    log(f"scale two ranks: {wall:.1f} s with the spawn; sample-sharded phi equal, "
+        "draw-sharded and TP within their limits on both ranks")
+
+
+def scale_cli(base_archive: str, data_dir: str) -> None:
+    """run-shap --sample-batch 2 --async-writes on the base kernel archive,
+    and a plain run (--sample-batch 1, synchronous writes), then sweep on
+    each: the same .npy bytes (cuDNN's deterministic algorithms in both) and
+    the same sweep records."""
+    args = ["--num-samples", "1", "--snrs", "5", "--min-length", str(N_SAMPLES),
+            "--max-length", str(N_SAMPLES), "--nsamples", "2"]
+    stores = {}
+    for label, extra in (("async", ["--sample-batch", "2", "--async-writes"]),
+                         ("plain", ["--sample-batch", "1"])):
+        d = Path(data_dir) / f"scale_cli_{label}"
+        with deterministic_convs():
+            (run,), launches, wall = run_cli(f"scale {label}", ["run-shap", "--params",
+                                                                base_archive, "--data-dir",
+                                                                str(d), *args, *extra])
+        for name in BASE_KERNELS:
+            check(launches.get(name, 0) > 0, f"scale cli {label}: {name} not launched")
+        lines, _, _ = run_cli(f"scale {label}", ["sweep", "--params", base_archive,
+                                                 "--data-dir", str(d)])
+        stores[label] = ({p.name: p.read_bytes() for p in d.glob("*.npy")}, lines)
+        log(f"scale cli {label}: run-shap {wall:.2f} s for {run['computed']} samples")
+    (files, lines), (plain_files, plain_lines) = stores["async"], stores["plain"]
+    check(len(files) == 8 and files == plain_files,
+          "scale cli: the async store's files differ from the plain run's")
+    check(lines == plain_lines, "scale cli: the sweep records differ")
+    log("scale cli: --sample-batch 2 --async-writes wrote the plain run's bytes; equal sweeps")
+
+
+def phase_scale(base_archive: str, data_dir: str, smi: str) -> dict:
+    """The host runtime, the conv formulations and run-shap's scale-out on
+    the card (Wav2Vec2-base at full width, the kernel impls, the two clips,
+    4 draws each). Returns the JSON line's launches_scale."""
+    t0 = time.perf_counter()
+    log(smi)
+    model, conformer, explainer = scale_configs()
+    test_set = make_test_set()
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+
+    def part(what: str) -> None:
+        log(f"scale phase: {what} done at {time.perf_counter() - t0:.1f} s")
+
+    scale_native(data_dir, smi)
+    part("native")
+    flat, launches = scale_mesh_world1(model, explainer, params, test_set, data_dir)
+    part("mesh world 1")
+    scale_two_ranks(model, conformer, explainer, params, test_set, flat, data_dir, smi)
+    part("two ranks")
+    scale_conv_formulations(model, explainer, params, test_set, smi)
+    part("conv formulations")
+    scale_cli(base_archive, data_dir)
+    part("cli")
+    log("scale phase: crash recovery is not provoked on the card (a lost device cannot be "
+        "made on purpose here); tests/test_torch_scaleout.py holds it on the CPU")
+    log(f"scale phase: {time.perf_counter() - t0:.1f} s; launches_scale "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
     adds fields to a kernel's entry."""
@@ -3823,6 +4270,9 @@ def main() -> int:
         trained = phase_train(model, conformer, base_archive, data_dir, smi)
         for name in ROUTES:
             extra[name] = {**extra.get(name, {}), "launches_train": trained.get(name, 0)}
+        scaled = phase_scale(base_archive, data_dir, smi)
+        for name in ROUTES:
+            extra[name] = {**extra.get(name, {}), "launches_scale": scaled.get(name, 0)}
         for name, fields in build_fields.items():
             extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)

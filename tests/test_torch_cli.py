@@ -101,7 +101,6 @@ def test_cli_commands_match_reference_cli(tmp_path, capsys, tiny_config):
 
 @pytest.mark.parametrize("argv,error", [
     (["run-shap", "--device", "cpu", "--hf", "facebook/wav2vec2-base-960h"], ImportError),
-    (["run-shap", "--device", "cpu", "--mesh"], NotImplementedError),
     (["faithfulness", "--device", "cpu", "--plot", "f.png"], ImportError),
     (["sweep", "--device", "cpu", "--plot", "scatter.png"], ImportError),
     (["sweep", "--device", "cpu", "--arch", "w2v2-conformer", "--params",
@@ -120,6 +119,27 @@ def test_cli_refuses_before_any_work(tmp_path, monkeypatch, argv, error):
         cli(argv + ["--data-dir", str(tmp_path / "data")] if argv[0] != "transcribe"
             else argv)
     assert not (tmp_path / "data").exists()
+
+
+def test_mesh_without_torchrun_runs_unsharded(tmp_path, capsys, monkeypatch):
+    """--mesh in a world of one process (no torchrun environment) runs
+    unsharded, as the reference's --mesh does on one device (queue 1, item
+    8 ported the mesh): the same store as a run without it, and no process
+    group."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    args = ["run-shap", "--device", "cpu", "--tiny", "--random-init", "--num-samples", "1",
+            "--snrs", "5", "--min-length", "800", "--max-length", "800", "--nsamples", "2",
+            "--sample-batch", "2"]
+    stores = {}
+    for name, extra in (("mesh", ["--mesh", "--async-writes"]), ("plain", [])):
+        d = tmp_path / name
+        cli(args + ["--data-dir", str(d)] + extra)
+        (line,) = _json_lines(capsys)
+        assert line["computed"] == 2
+        stores[name] = {p.name: p.read_bytes() for p in d.glob("*.npy")}
+    assert not torch.distributed.is_initialized()
+    assert len(stores["mesh"]) == 8 and stores["mesh"] == stores["plain"]
 
 
 @pytest.mark.parametrize("family", ["wav2vec2", "w2v2-conformer"])
