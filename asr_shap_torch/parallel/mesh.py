@@ -120,6 +120,14 @@ def shard_rows(mesh: Mesh, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return x.narrow(axis, mesh.data_rank * k, k)
 
 
+def data_mean(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` replaced, in place, by its mean over the data axis, the same
+    bits on every rank: an all-reduce sum over this rank's data-axis group,
+    divided by the axis size. Returns ``x``."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    return x.div_(mesh.data_size)
+
+
 def replicate(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """Mesh rank 0's ``x`` on every rank (the reference's ``replicated``):
     a broadcast into a copy of ``x`` on the mesh's device."""

@@ -137,13 +137,15 @@ def prefetch_to_device(
     """Yield device-resident batches ``depth`` steps ahead of consumption.
 
     ``put_fn(batch) -> batch`` overrides placement; the default is
-    :func:`to_device` on ``device``. A ``mesh`` (sharded placement) is not
-    ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(mesh=...): sharded placement is not ported "
-            "(ROADMAP.md queue 1, item 8: scale-out)")
+    :func:`to_device` on ``device``, or with a ``mesh`` this rank's rows on
+    the mesh's device (``pipeline/train.py::shard_batch``, which drops the
+    host-only ``_`` keys)."""
     if put_fn is None:
-        device = resolve_device(device)
-        put_fn = lambda b: to_device(b, device)  # noqa: E731
+        if mesh is not None:
+            from asr_shap_torch.pipeline.train import shard_batch
+
+            put_fn = lambda b: shard_batch(b, mesh)  # noqa: E731
+        else:
+            device = resolve_device(device)
+            put_fn = lambda b: to_device(b, device)  # noqa: E731
     return background_iterator(map(put_fn, batches), maxsize=depth)

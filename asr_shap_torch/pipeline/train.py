@@ -17,8 +17,20 @@ float32 master params and casts them inside each step's graph (the model
 does it), so the gradients land on the float32 leaves. The reference's
 step asks its model for ``remat``; the port's models accept it and do
 nothing, so the step does not pass it. Checkpoints are
-``torch.save`` files, not orbax directories; data-parallel training
-(``mesh=``) is not ported (``ROADMAP.md`` queue 1, item 8).
+``torch.save`` files, not orbax directories.
+
+Data parallelism (``mesh=``, a ``parallel/mesh.py`` mesh of processes):
+each rank takes its rows of the batch over the mesh's data axis
+(``shard_batch``; ranks on the model axis take their data-index peers'
+rows) and starts from mesh rank 0's params (``replicate_params``). After
+the local backward, the loss and the trainable leaves' gradients, in one
+flat buffer, are averaged over the data axis by one all-reduce, before the
+clip: the clip sees the global norm and every rank applies the same update,
+as the reference's jitted step over a sharded batch does. The reference's
+loss is the batch mean, so with equal shards the mean of the local losses
+is the global one. Every rank runs the same epoch loop and takes the same
+early-stopping decision from the same averaged losses; mesh rank 0 alone
+writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -40,13 +52,12 @@ from asr_shap_torch.core.params_io import map_leaves
 from asr_shap_torch.models.heads import model_logits_fn
 from asr_shap_torch.models.wav2vec2 import feature_lengths
 from asr_shap_torch.ops.ctc import ctc_loss
-from asr_shap_torch.pipeline.prefetch import prefetch_to_device
+from asr_shap_torch.parallel.mesh import Mesh, data_mean, replicate, shard_rows
+from asr_shap_torch.pipeline.prefetch import prefetch_to_device, to_device
 
 logger = logging.getLogger(__name__)
 
 Params = Dict[str, Any]
-_MESH = ("mesh=: data-parallel training is not ported "
-         "(ROADMAP.md queue 1, item 8: scale-out)")
 
 
 def named_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -152,10 +163,27 @@ def _loss_fn(model_cfg: Wav2Vec2Config):
     return loss_fn
 
 
-def make_loss_and_grads(model_cfg: Wav2Vec2Config, train_cfg: TrainConfig):
+def _mean_over_data(mesh: Mesh, loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
+    """(loss, grads) averaged over the mesh's data axis: one all-reduce of a
+    flat float32 buffer, the loss first; the gradients come back as views of
+    it."""
+    flat = torch.cat([loss.reshape(1).to(torch.float32)]
+                     + [g.reshape(-1) for g in grads.values()])
+    data_mean(mesh, flat)
+    out, offset = {}, 1
+    for k, g in grads.items():
+        out[k] = flat[offset:offset + g.numel()].view(g.shape)
+        offset += g.numel()
+    return flat[0], out
+
+
+def make_loss_and_grads(model_cfg: Wav2Vec2Config, train_cfg: TrainConfig,
+                        mesh: Optional[Mesh] = None):
     """(params, batch) -> (loss, {path: gradient}) over the trainable leaves
     (``trainable_leaves``): the step's forward and backward, without the
-    update. The leaves require grad only inside the call. On CUDA it runs
+    update. The leaves require grad only inside the call. With ``mesh``,
+    ``batch`` is this rank's shard (``shard_batch``) and both results are
+    the means over the data axis, equal on every rank. On CUDA it runs
     inside ``matmul_precision_scope(model_cfg.matmul_precision)``."""
     loss_fn = _loss_fn(model_cfg)
 
@@ -169,20 +197,26 @@ def make_loss_and_grads(model_cfg: Wav2Vec2Config, train_cfg: TrainConfig):
         finally:
             for t in leaves.values():
                 t.requires_grad_(False)
-        return loss.detach(), {k: torch.zeros_like(t) if g is None else g
-                               for (k, t), g in zip(leaves.items(), grads)}
+        grads = {k: torch.zeros_like(t) if g is None else g
+                 for (k, t), g in zip(leaves.items(), grads)}
+        if mesh is not None:
+            return _mean_over_data(mesh, loss.detach(), grads)
+        return loss.detach(), grads
 
     return loss_and_grads
 
 
 def make_train_step(model_cfg: Wav2Vec2Config, train_cfg: TrainConfig,
-                    optimizer: ClippedAdamW):
+                    optimizer: ClippedAdamW, mesh: Optional[Mesh] = None):
     """(params, opt_state, batch) -> (params, opt_state, loss). The step
     updates ``params`` and ``opt_state`` in place, as torch optimizers do,
     and returns them. batch: tensors on the params' device, audio [B, N]
-    (raw), audio_lengths [B], labels [B, L], label_lengths [B]. On CUDA it
-    runs inside ``matmul_precision_scope(model_cfg.matmul_precision)``."""
-    loss_and_grads = make_loss_and_grads(model_cfg, train_cfg)
+    (raw), audio_lengths [B], labels [B, L], label_lengths [B]. With
+    ``mesh``: replicated params and state (``replicate_params``), this
+    rank's shard of the batch, and the gradients and the loss averaged over
+    the data axis before the clip. On CUDA it runs inside
+    ``matmul_precision_scope(model_cfg.matmul_precision)``."""
+    loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, mesh)
 
     def train_step(params: Params, opt_state: Dict[str, Any], batch: Dict):
         loss, grads = loss_and_grads(params, batch)
@@ -192,16 +226,50 @@ def make_train_step(model_cfg: Wav2Vec2Config, train_cfg: TrainConfig,
     return train_step
 
 
-def make_eval_step(model_cfg: Wav2Vec2Config):
+def make_eval_step(model_cfg: Wav2Vec2Config, mesh: Optional[Mesh] = None):
     """Loss-only validation step, (params, batch) -> loss: forward and CTC
-    loss under ``torch.no_grad()``, no optimizer state."""
+    loss under ``torch.no_grad()``, no optimizer state. With ``mesh``, the
+    loss of this rank's shard averaged over the data axis."""
     loss_fn = _loss_fn(model_cfg)
 
     def eval_step(params: Params, batch: Dict) -> torch.Tensor:
         with torch.no_grad():
-            return loss_fn(params, batch)
+            loss = loss_fn(params, batch)
+        if mesh is not None:
+            loss = data_mean(mesh, loss.reshape(1).to(torch.float32))[0]
+        return loss
 
     return eval_step
+
+
+def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every leaf of a batch (numpy arrays, tensors or
+    what ``torch.as_tensor`` takes) over the mesh's data axis
+    (``shard_rows``), on ``mesh.device``. A leading axis that does not
+    split evenly raises ValueError. Keys starting with ``_`` are host-only
+    (``train_synthetic``'s transcripts) and are dropped."""
+    rows = {}
+    for k, v in batch.items():
+        if k.startswith("_"):
+            continue
+        if isinstance(v, np.ndarray):
+            v = np.ascontiguousarray(v)
+        rows[k] = shard_rows(mesh, torch.as_tensor(v))
+    return to_device(rows, mesh.device)
+
+
+def replicate_params(tree: Any, mesh: Mesh) -> Any:
+    """Mesh rank 0's leaves on every rank, on ``mesh.device``: a params
+    tree or an optimizer state (its integer step count included), each
+    tensor leaf a copy broadcast by ``replicate``."""
+    def leaf(v):
+        if isinstance(v, torch.Tensor):
+            return replicate(mesh, v)
+        if isinstance(v, int):
+            return int(replicate(mesh, torch.tensor(v, dtype=torch.int64)).item())
+        raise TypeError(f"replicate_params: a leaf of type {type(v).__name__}")
+
+    return map_leaves(tree, leaf)
 
 
 # ------------------------------------------------------- host-side utilities
@@ -338,7 +406,7 @@ def train(
     train_cfg: TrainConfig,
     train_batches: Iterable[Dict],
     val_batches: Optional[Iterable[Dict]] = None,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     checkpointer: Optional[Checkpointer] = None,
 ):
     """Epoch loop with validation, early stopping and checkpoints; returns
@@ -346,15 +414,25 @@ def train(
     callables returning a fresh iterable per epoch, or plain lists, of
     batches of numpy arrays or tensors. Runs on the params' device, inside
     ``matmul_precision_scope(model_cfg.matmul_precision)``, on a copy of
-    ``params`` (the caller's stay as they are)."""
+    ``params`` (the caller's stay as they are).
+
+    With ``mesh`` every rank of it calls ``train`` with the same batches:
+    it runs on ``mesh.device`` from mesh rank 0's params, each step on its
+    shard of the batch (the batch size must split over the data axis), and
+    returns the same params, state and history on every rank; only mesh
+    rank 0 writes to ``checkpointer``."""
     if mesh is not None:
-        raise NotImplementedError(f"train({_MESH})")
-    device = params_device(params)
-    params = clone_params(params)
+        device = mesh.device
+        params = replicate_params(params, mesh)
+    else:
+        device = params_device(params)
+        params = clone_params(params)
     optimizer = make_optimizer(train_cfg)
+    # made from the replicated params: zeros on every rank, no broadcast
     opt_state = optimizer.init(trainable_leaves(params, train_cfg))
-    step_fn = make_train_step(model_cfg, train_cfg, optimizer)
-    eval_fn = make_eval_step(model_cfg)
+    step_fn = make_train_step(model_cfg, train_cfg, optimizer, mesh)
+    eval_fn = make_eval_step(model_cfg, mesh)
+    writes = checkpointer is not None and (mesh is None or mesh.is_main)
     stopper = EarlyStopping(train_cfg.early_stopping_patience,
                             train_cfg.early_stopping_min_delta)
 
@@ -365,7 +443,8 @@ def train(
             batches = train_batches() if callable(train_batches) else train_batches
             # batch synthesis, noise mixing and the copy to the device
             # overlap the step through the background producer
-            for batch in prefetch_to_device(iter(batches), depth=2, device=device):
+            for batch in prefetch_to_device(iter(batches), depth=2, mesh=mesh,
+                                            device=device):
                 params, opt_state, loss = step_fn(params, opt_state, batch)
                 ep_losses.append(float(loss))
 
@@ -373,7 +452,8 @@ def train(
             if val_batches is not None:
                 vb = val_batches() if callable(val_batches) else val_batches
                 vl = [float(eval_fn(params, batch))
-                      for batch in prefetch_to_device(iter(vb), depth=2, device=device)]
+                      for batch in prefetch_to_device(iter(vb), depth=2, mesh=mesh,
+                                                      device=device)]
                 val_loss = float(np.mean(vl)) if vl else float("nan")
 
             train_loss = float(np.mean(ep_losses)) if ep_losses else float("nan")
@@ -381,7 +461,7 @@ def train(
             logger.info("epoch %d: train=%.4f val=%.4f", epoch, train_loss, val_loss)
 
             metric = val_loss if np.isfinite(val_loss) else train_loss
-            if checkpointer is not None:
+            if writes:
                 checkpointer.save(epoch, params, opt_state, metric)
             if stopper.update(metric):
                 logger.info("early stopping at epoch %d (best=%.4f)", epoch, stopper.best)

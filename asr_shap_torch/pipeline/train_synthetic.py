@@ -161,15 +161,16 @@ def train_synthetic(
     """Train ``model_cfg`` from a random init (or continue ``params``) on the
     synthetic corpus until early stopping; returns (params, summary).
 
-    ``params`` None: the port's numpy init from ``seed`` on ``device``;
-    else training runs on the params' device. Runs ``pipeline/train.py::
-    train()`` (CTC loss, AdamW, clip, validation, early stopping, optional
-    checkpoints), then the held-out greedy WER."""
+    ``params`` None: the port's numpy init from ``seed`` on ``device`` (the
+    mesh's device with ``mesh``); else training runs on the params' device.
+    Runs ``pipeline/train.py::train()`` (CTC loss, AdamW, clip, validation,
+    early stopping, optional checkpoints), then the held-out greedy WER.
+    With ``mesh`` every rank draws the same batches and ``train`` takes its
+    rows of each (``shard_batch``); the replicas stay equal, so every rank
+    scores the whole held-out set alike and returns the same params and
+    summary (``train_wall_s`` is each rank's own clock)."""
     from asr_shap_torch.pipeline.train import train
 
-    if mesh is not None:
-        raise NotImplementedError("train_synthetic(mesh=...): data-parallel training is "
-                                  "not ported (ROADMAP.md queue 1, item 8: scale-out)")
     train_cfg = train_cfg or TrainConfig(
         learning_rate=3e-4, num_epochs=40, batch_size=8,
         early_stopping_patience=5, freeze_feature_encoder=False, seed=seed,
@@ -182,7 +183,7 @@ def train_synthetic(
             "training from scratch requires freeze_feature_encoder=False "
             "(a frozen random conv stack cannot learn the synthesis patterns)")
     if params is None:
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
         if isinstance(model_cfg, Wav2Vec2ConformerConfig):
             from asr_shap_torch.models.w2v2_conformer import init_w2v2_conformer_params
 
@@ -212,7 +213,7 @@ def train_synthetic(
     with matmul_precision_scope(model_cfg.matmul_precision):
         t0 = time.perf_counter()
         params, _, history = train(params, model_cfg, train_cfg, train_stream, val_stream,
-                                   checkpointer=checkpointer)
+                                   mesh=mesh, checkpointer=checkpointer)
         wall = time.perf_counter() - t0
         val_eval = list(synthetic_batches(seed, val_batches_count, train_cfg.batch_size,
                                           clip_samples, max_label_len, snrs_db=(),

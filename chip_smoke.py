@@ -15,9 +15,10 @@ bf16 K1, K2f, K3b and K4f); then the base path (and, for DeepSHAP, the
 conformer) again through the other explainers, DeepSHAP, KernelSHAP and
 LIME, the compare and visualize commands, the mel Conformer family (the
 NeMo BPE-CTC Conformer and the torchaudio-style Conformer, on log-mel
-features, through the library calls a user makes), and last CTC training
-of both Wav2Vec2 families (``train_synthetic`` and ``python -m
-asr_shap_torch train``). Phases, each reported on its own lines:
+features, through the library calls a user makes), CTC training of both
+Wav2Vec2 families (``train_synthetic`` and ``python -m asr_shap_torch
+train``), run-shap's scale-out, and last data-parallel training. Phases,
+each reported on its own lines:
 
 1. the card's name and power limit (nvidia-smi); build every kernel from
    asr_shap_torch/csrc with nvcc, one process per source, all at once; log
@@ -169,7 +170,7 @@ asr_shap_torch train``). Phases, each reported on its own lines:
    steps, the CTC loss and AdamW alone; every kernel at the step's shapes
    beside its bound, plain version and library call ("train", "timing
    train" lines). Its launches are the JSON line's ``launches_train``;
-13. scale-out and the host runtime, last, on Wav2Vec2-base at full width
+13. scale-out and the host runtime, on Wav2Vec2-base at full width
    with the kernel impls, the two clips, 4 draws each ("scale" lines): the
    native batch WER counts of 3,000 seeded pairs against the plain DP, and
    the base path's phi written by the native writer and by its pool (the
@@ -186,7 +187,22 @@ asr_shap_torch train``). Phases, each reported on its own lines:
    within 1e-4 of max|phi|, bf16 by phase 7's rule) with the six
    feature-encoder backwards per draw of each formulation and of the
    library's conv timed; and run-shap --sample-batch 2 --async-writes then
-   sweep, the same store bytes and records as a plain run's.
+   sweep, the same store bytes and records as a plain run's;
+14. data-parallel training, last, on Wav2Vec2-base at full width with the
+   kernel impls and the training phase's batch (8 clips of 2 s; "dp"
+   lines): a mesh of one NCCL rank, two ``train`` steps with mesh= against
+   two without, in float32 and in bf16, under PyTorch's and cuDNN's
+   deterministic algorithms: loss, params and both moments bit-equal, the
+   same exact launches (the JSON line's ``launches_dp``, with rank 0's
+   below); two processes on the one card over gloo (4 clips each): the
+   all-reduced gradient of every trainable leaf within 1e-4 of its max|g|
+   (floored as phase 12's gate) of one rank's on the whole batch, the loss
+   within rtol 1e-5, params and both moments bit-equal across the ranks
+   after two ``train`` steps, ``train_synthetic(mesh=)`` with the same
+   summary on both, each run's exact launches; ``asr_shap_torch.dryrun.
+   dryrun_multichip(2, device="cuda")``; the wall per step with and without
+   the mesh and the all-reduce alone ("timing dp": one card, so no
+   scale-out speed-up).
 
 Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
 two bf16 forward and the four bf16 backward kernels also with their
@@ -202,6 +218,7 @@ import contextlib
 import ctypes
 import dataclasses
 import datetime
+import hashlib
 import io
 import itertools
 import json
@@ -212,6 +229,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -237,6 +255,7 @@ from asr_shap_torch.core.device import highest_precision, matmul_precision_scope
 from asr_shap_torch.core.params_io import load_config, load_params, save_params
 from asr_shap_torch.core.prng import generator
 from asr_shap_torch.core.store import AttributionStore, key_for
+from asr_shap_torch.dryrun import dryrun_multichip
 from asr_shap_torch.explain.baselines import zeros_noise_background
 from asr_shap_torch.explain.deepshap import (
     deep_shap_values,
@@ -288,7 +307,7 @@ from asr_shap_torch.models.wav2vec2 import (
 )
 from asr_shap_torch.ops.attention import rel_shift
 from asr_shap_torch.ops.ctc import ctc_loss
-from asr_shap_torch.parallel.mesh import make_mesh
+from asr_shap_torch.parallel.mesh import data_mean, make_mesh
 from asr_shap_torch.parallel.tp import shard_params_tp
 from asr_shap_torch.pipeline import compare as compare_mod
 from asr_shap_torch.pipeline import train as train_mod
@@ -4201,6 +4220,308 @@ def phase_scale(base_archive: str, data_dir: str, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ data-parallel training
+
+DP_TIMED = 3  # timed steps per run, after one warm-up
+# the two ranks' all-reduced gradients against one rank's on the whole
+# batch: each leaf's max|dg| within DP_GRAD_TOL of its max|g|, floored at
+# GRAD_FLOOR x the model's largest |g| (the attention's key bias has a zero
+# gradient by construction and holds rounding alone)
+DP_GRAD_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def deterministic_training():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations inside the block (warn only, so an op without one
+    runs and is named in the caught warnings the block yields): the CTC
+    loss's gather sums its backward with atomics otherwise."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # the mode's NaN fill of new tensors is a cost, not a determinism
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with deterministic_convs(), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def tree_digest(*trees) -> str:
+    """sha256 over the bytes of every leaf of the trees, in order."""
+    h = hashlib.sha256()
+    for tree in trees:
+        for _, t in train_mod.named_leaves(tree):
+            h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_walls(mc: Wav2Vec2Config, params, batch, mesh=None) -> float:
+    """Median wall (ms) of DP_TIMED train steps after one warm-up, each
+    ending in the loss's read-out and a synchronize; with ``mesh`` on this
+    rank's shard."""
+    meshed = mesh is not None
+    p = train_mod.replicate_params(params, mesh) if meshed else train_mod.clone_params(params)
+    opt = train_mod.make_optimizer(TRAIN_CFG)
+    state = opt.init(train_mod.trainable_leaves(p, TRAIN_CFG))
+    step = train_mod.make_train_step(mc, TRAIN_CFG, opt, mesh)
+    b = train_mod.shard_batch(batch, mesh) if meshed else batch
+    walls = []
+    with matmul_precision_scope(mc.matmul_precision):
+        for i in range(DP_TIMED + 1):
+            t0 = time.perf_counter()
+            float(step(p, state, b)[2])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    return float(np.median(walls[1:])) * 1e3
+
+
+def allreduce_ms(mesh, params) -> float:
+    """Host-clocked ms of the step's all-reduce alone: data_mean over a
+    float32 buffer of the trainable leaves' size plus the loss, median of 5
+    after one warm-up, each ended by a synchronize."""
+    n = sum(t.numel() for t in train_mod.trainable_leaves(params, TRAIN_CFG).values()) + 1
+    buf = torch.zeros(n, device="cuda")
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data_mean(mesh, buf)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls[1:])) * 1e3
+
+
+def dp_world1(model: Wav2Vec2Config, params, batch, data_dir: str):
+    """A mesh of one NCCL rank in this process: two ``train`` steps with
+    mesh= against two without, in float32 ("highest") and bf16 ("default"),
+    under deterministic_training: loss, params and both moments bit-equal,
+    the same launches; an unmeshed repeat's equality logged beside it.
+    Then the wall per step with and without the mesh and the all-reduce
+    alone. Returns (the meshed runs' launches, the timings)."""
+    model16 = dataclasses.replace(model, dtype="bfloat16", matmul_precision="default")
+    launches = {}
+    dist.init_process_group("nccl", init_method=f"file://{data_dir}/dp_nccl_init", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        for label, mc in (("float32", model), ("bf16", model16)):
+            runs = {}
+            for run, m, det in (("unmeshed", None, True), ("meshed", mesh, True),
+                                ("unmeshed again", None, True),
+                                ("unmeshed, default algorithms", None, False)):
+                reset_launches()
+                with deterministic_training() if det else contextlib.nullcontext([]) as caught:
+                    p, state, history = train_mod.train(params, mc, TRAIN_CFG, [batch] * 2,
+                                                        mesh=m)
+                torch.cuda.synchronize()
+                runs[run] = (history[0]["train_loss"], tree_digest(p, state["mu"], state["nu"]),
+                             {k: v for k, v in LAUNCHES.items() if v})
+                del p, state
+                names = sorted({str(w.message).split(" does not have a deterministic")[0][:60]
+                                for w in caught if "deterministic" in str(w.message)})
+                log(f"dp world 1 {label} {run}: train loss {runs[run][0]!r}, digest "
+                    f"{runs[run][1][:16]}; launches {json.dumps(runs[run][2])}; ops without a "
+                    f"deterministic implementation: {names or 'none'}")
+            want = train_launches(mc, 2)
+            check(runs["meshed"][2] == want == runs["unmeshed"][2],
+                  f"dp world 1 {label}: launches {runs['meshed'][2]}, expected exactly {want}")
+            log(f"dp world 1 {label} (information): bit-equal to the first unmeshed run: the "
+                f"repeat {runs['unmeshed again'][:2] == runs['unmeshed'][:2]}, the run with "
+                "cuDNN's and PyTorch's default algorithms "
+                f"{runs['unmeshed, default algorithms'][:2] == runs['unmeshed'][:2]}")
+            check(runs["meshed"][:2] == runs["unmeshed"][:2],
+                  f"dp world 1 {label}: the meshed steps' loss, params or moments differ from "
+                  "the unmeshed steps'")
+            log(f"dp world 1 {label}: two train(mesh=) steps bit-equal to two unmeshed steps "
+                "in loss, params and both moments; the same launches")
+            for name, c in runs["meshed"][2].items():
+                launches[name] = launches.get(name, 0) + c
+        # in turns, unmeshed and meshed, as the host's clock drifts
+        walls = {"unmeshed": [], "meshed": []}
+        for run in ("unmeshed", "meshed", "meshed", "unmeshed"):
+            walls[run].append(step_walls(model, params, batch,
+                                         mesh if run == "meshed" else None))
+        timing = {run: float(np.mean(w)) for run, w in walls.items()}
+        timing["allreduce"] = allreduce_ms(mesh, params)
+    finally:
+        dist.destroy_process_group()
+    return launches, timing
+
+
+def _dp_rank_work(rank: int) -> dict:
+    """One of two ranks on the one card (4 of the batch's 8 clips each),
+    float32: the all-reduced gradients and loss, and rank 0 also one rank's
+    on the whole batch; two ``train`` steps with mesh= (digest of params
+    and moments); ``train_synthetic(mesh=)`` on 2 batches; the wall per
+    step and the all-reduce alone."""
+    model, _, _ = scale_configs()
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    batch = train_batch()
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    out = {"rank": rank}
+    reset_launches()
+    loss, grads = train_mod.make_loss_and_grads(model, TRAIN_CFG, mesh)(
+        params, train_mod.shard_batch(batch, mesh))
+    out["loss"] = float(loss)
+    out["launches grads"] = {k: v for k, v in LAUNCHES.items() if v}
+    if rank == 0:
+        loss1, grads1 = train_mod.make_loss_and_grads(model, TRAIN_CFG)(params, batch)
+        top = max(float(g.abs().max()) for g in grads1.values())
+        out["loss1"] = float(loss1)
+        out["grad rel"] = max(
+            (float((grads[k] - g).abs().max()) / max(float(g.abs().max()), GRAD_FLOOR * top), k)
+            for k, g in grads1.items())
+        del grads1
+    del grads
+    reset_launches()
+    p, state, history = train_mod.train(params, model, TRAIN_CFG, [batch] * 2, mesh=mesh)
+    torch.cuda.synchronize()
+    out["launches train"] = {k: v for k, v in LAUNCHES.items() if v}
+    out["history"] = history
+    out["digest"] = tree_digest(p, state["mu"], state["nu"])
+    del p, state
+    reset_launches()
+    _, summary = train_synthetic(model, TRAIN_CFG, params=params, clip_seconds=2.0,
+                                 batches_per_epoch=2, val_batches_count=1, seed=SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    out["launches synthetic"] = {k: v for k, v in LAUNCHES.items() if v}
+    out["summary"] = summary
+    out["wall"] = step_walls(model, params, batch, mesh)
+    out["allreduce"] = allreduce_ms(mesh, params)
+    return out
+
+
+def _dp_rank(rank: int, init_file: str, queue) -> None:
+    """A spawned rank on cuda:0 of a 2-rank gloo group; its results, or its
+    traceback, go to ``queue``."""
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=300))
+        with highest_precision():
+            queue.put((rank, _dp_rank_work(rank), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dp_two_ranks(model: Wav2Vec2Config, data_dir: str):
+    """Two processes on the one card over gloo, float32: the all-reduced
+    gradient of every trainable leaf within DP_GRAD_TOL of one rank's on the
+    whole batch, the loss within rtol 1e-5; params and both moments after
+    two ``train`` steps bit-equal across the ranks, the same history;
+    ``train_synthetic(mesh=)``'s summary the same on both (less its wall);
+    each run's exact launches. Returns (rank 0's counted launches, the
+    ranks' timings)."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_rank, args=(r, f"{data_dir}/dp_gloo_init", queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, out, err = queue.get(timeout=900)
+            check(err is None, f"dp two ranks: rank {rank} failed:\n{err}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    r0, r1 = got[0], got[1]
+    rel, leaf = r0["grad rel"]
+    log(f"check dp two ranks gradients: worst leaf max|dg| / max(max|g|, {GRAD_FLOOR:g} x "
+        f"the model's) = {rel:.3e} at {leaf} (limit {DP_GRAD_TOL:g}: two halves' means "
+        "averaged against the whole batch's mean, float32 sums in another order)")
+    check(rel <= DP_GRAD_TOL, "dp two ranks: an all-reduced gradient is off the one-rank one")
+    log(f"check dp two ranks loss: ranks {r0['loss']!r} and {r1['loss']!r}, one rank on the "
+        f"whole batch {r0['loss1']!r} (rtol 1e-5)")
+    check(r0["loss"] == r1["loss"] and abs(r0["loss"] - r0["loss1"]) <= 1e-5 * abs(r0["loss1"]),
+          "dp two ranks: loss")
+    # json: the history's val_loss is NaN (no validation batches), never equal to itself
+    check(r0["digest"] == r1["digest"]
+          and json.dumps(r0["history"]) == json.dumps(r1["history"]),
+          "dp two ranks: params or moments differ across the ranks after two steps")
+    log(f"dp two ranks: after two train(mesh=) steps params and both moments bit-equal "
+        f"across the ranks (sha256 {r0['digest'][:16]}), history {json.dumps(r0['history'])}")
+    s0, s1 = ({k: v for k, v in r["summary"].items() if k != "train_wall_s"} for r in (r0, r1))
+    check(s0 == s1, f"dp two ranks: train_synthetic summaries differ: {s0} and {s1}")
+    check(all(np.isfinite(s0[k]) for k in ("final_train_loss", "final_val_loss")),
+          "dp two ranks: train_synthetic losses not finite")
+    log(f"dp two ranks train_synthetic(mesh=): the same summary on both ranks (walls "
+        f"{r0['summary']['train_wall_s']} and {r1['summary']['train_wall_s']} s): "
+        f"{json.dumps({k: v for k, v in s0.items() if k != 'example_pairs'})}")
+    counted = {}
+    for r in (r0, r1):
+        for key, want in (("launches grads", train_launches(model, 1)),
+                          ("launches train", train_launches(model, 2)),
+                          ("launches synthetic", train_launches(model, 2, forwards=2))):
+            check(r[key] == want, f"dp two ranks rank {r['rank']} {key}: {r[key]}, expected "
+                  f"exactly {want}")
+    for key in ("launches grads", "launches train", "launches synthetic"):
+        for name, c in r0[key].items():
+            counted[name] = counted.get(name, 0) + c
+    log(f"dp two ranks: {wall:.1f} s with the spawn; each rank's launches exact "
+        f"({json.dumps(r0['launches train'])} per two steps)")
+    return counted, [(r["wall"], r["allreduce"]) for r in (r0, r1)]
+
+
+def dp_dryrun() -> None:
+    """``asr_shap_torch.dryrun.dryrun_multichip(2, device="cuda")``: its four
+    parts on two ranks (gloo on cuda:0 where the host has one card)."""
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = dryrun_multichip(2, device="cuda")
+    for line in out.getvalue().splitlines():
+        log(f"dp dryrun: {line}")
+    log(f"dp dryrun: {time.perf_counter() - t0:.1f} s with the spawn; rank 0 "
+        f"{json.dumps(res)}")
+
+
+def phase_dp(data_dir: str, smi: str) -> dict:
+    """Data-parallel training of Wav2Vec2-base at full width with the kernel
+    impls, on the training phase's batch (8 clips of 2 s): one NCCL rank
+    against no mesh (float32 and bf16, bit-equal), two gloo ranks on the
+    card against one rank, the dryrun twin; the wall per step and the
+    all-reduce alone. Returns the JSON line's launches_dp."""
+    t0 = time.perf_counter()
+    log(smi)
+    model, _, _ = scale_configs()
+    batch = train_batch()
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    launches, one = dp_world1(model, params, batch, data_dir)
+    del params
+    log(f"dp phase: world 1 done at {time.perf_counter() - t0:.1f} s")
+    counted, two = dp_two_ranks(model, data_dir)
+    for name, c in counted.items():
+        launches[name] = launches.get(name, 0) + c
+    log(f"dp phase: two ranks done at {time.perf_counter() - t0:.1f} s")
+    dp_dryrun()
+    log(f"timing dp ({smi}; one card, so no scale-out speed-up: the two ranks share it): "
+        f"one NCCL rank, wall per step unmeshed {one['unmeshed']:.1f} ms, meshed "
+        f"{one['meshed']:.1f} ms (8 clips; each the mean of two medians of {DP_TIMED}, taken "
+        f"in turns), all-reduce of the gradients alone "
+        f"{one['allreduce']:.2f} ms; two gloo ranks on cuda:0, wall per step "
+        f"{two[0][0]:.1f} / {two[1][0]:.1f} ms (4 clips each), all-reduce through gloo's host "
+        f"copies {two[0][1]:.1f} / {two[1][1]:.1f} ms (host clock, median of 5)")
+    log(f"dp phase: {time.perf_counter() - t0:.1f} s; launches_dp "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
     adds fields to a kernel's entry."""
@@ -4273,6 +4594,9 @@ def main() -> int:
         scaled = phase_scale(base_archive, data_dir, smi)
         for name in ROUTES:
             extra[name] = {**extra.get(name, {}), "launches_scale": scaled.get(name, 0)}
+        dp = phase_dp(data_dir, smi)
+        for name in ROUTES:
+            extra[name] = {**extra.get(name, {}), "launches_dp": dp.get(name, 0)}
         for name, fields in build_fields.items():
             extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)

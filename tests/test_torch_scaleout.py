@@ -1,8 +1,9 @@
-"""run-shap's scale-out in the port on the CPU: one 2-rank gloo group (two
-spawned processes, started once for the module) runs every sharded scenario,
-tensor-parallel logits of both Wav2Vec2 families and the TP waveform
-gradient, the draw-sharded explainer and the meshed pipeline, and the
-results are held here to the reference and to the port unsharded; then the
+"""run-shap's scale-out and data-parallel training in the port on the CPU:
+one 2-rank gloo group (two spawned processes, started once for the module)
+runs every sharded scenario, tensor-parallel logits of both Wav2Vec2
+families and the TP waveform gradient, the draw-sharded explainer, the
+meshed pipeline, data-parallel train steps and the meshed epoch loop, and
+the results are held here to the reference and to the port unsharded; then the
 mesh's and TP's rules, the group-size policy, and the pipeline's fallbacks
 (a failed group, a lost device, a failed re-staging) with the errors
 injected through the group step. The reference's modules are imported
@@ -26,9 +27,12 @@ from asr_shap_torch.core.store import AttributionStore
 from asr_shap_torch.explain.expected_gradients import expected_gradients_sharded, expected_phi
 from asr_shap_torch.models.heads import make_explained_fn, model_logits_fn
 from asr_shap_torch.models.wav2vec2 import init_wav2vec2_params
+from asr_shap_torch.core.params_io import params_from_jax
 from asr_shap_torch.parallel.mesh import make_mesh, replicate, shard_rows
 from asr_shap_torch.parallel.tp import shard_params_tp, tp_specs
 from asr_shap_torch.pipeline import run_shap as rs
+from asr_shap_torch.pipeline import train as ptrain
+from asr_shap_torch.pipeline.prefetch import prefetch_to_device
 from asr_shap_torch.pipeline.testset import create_test_set
 from torch_port_configs import (
     conformer_params,
@@ -43,6 +47,10 @@ FAMILIES = ("wav2vec2", "relative", "rotary")
 N = 800
 EC = JaxExplainerConfig(nsamples=4, draw_chunk=2, output_chunk=0, num_background=3,
                         remat=False)
+# data-parallel training: the narrow Wav2Vec2 with the kernel impls, a batch
+# of 4 (2 per rank), the train tests' learning rate
+LR = 1e-3
+DP_STEPS = 2
 
 
 def _model(family):
@@ -113,6 +121,47 @@ def _scenarios(inputs):
                                    inputs["test_set"], mesh=mesh)
         out[f"pipeline {sb}"] = [(r["index"], r["shap_values"], r["transcription"])
                                  for r in res]
+    out.update(_dp_scenarios(inputs, mesh))
+    return out
+
+
+def _dp_scenarios(inputs, mesh):
+    """Data-parallel training on the (2, 1) mesh: DP_STEPS steps from
+    replicated params on this rank's half of the batch; the epoch loop with
+    validation and a checkpointer shared by both ranks; shard_batch and
+    replicate_params on rank-dependent inputs."""
+    out = {}
+    cfg, tcfg, batch = inputs["dp_cfg"], inputs["dp_tcfg"], inputs["dp_batch"]
+    opt = ptrain.make_optimizer(tcfg)
+    p = ptrain.replicate_params(_torch(inputs["params"]["wav2vec2"]), mesh)
+    state = ptrain.replicate_params(opt.init(ptrain.trainable_leaves(p, tcfg)), mesh)
+    step = ptrain.make_train_step(cfg, tcfg, opt, mesh)
+    losses = []
+    for _ in range(DP_STEPS):
+        p, state, loss = step(p, state, ptrain.shard_batch(batch, mesh))
+        losses.append(float(loss))
+    out["dp step"] = {"losses": losses, "params": _numpy(p), "count": state["count"],
+                      "mu": {k: t.numpy() for k, t in state["mu"].items()},
+                      "nu": {k: t.numpy() for k, t in state["nu"].items()}}
+
+    ck = ptrain.Checkpointer(inputs["dirs"]["dp"], keep=1)
+    _, _, history = ptrain.train(_torch(inputs["params"]["wav2vec2"]), cfg,
+                                 dataclasses.replace(tcfg, num_epochs=1),
+                                 [batch] * DP_STEPS, [batch], mesh=mesh, checkpointer=ck)
+    out["dp train"] = {"history": history, "saved": sorted(ck._losses)}
+
+    rank = dist.get_rank()
+    ragged = {"a": np.arange(8).reshape(4, 2), "b": torch.arange(4.0), "_texts": list("wxyz")}
+    out["shard_batch"] = {k: v.numpy() for k, v in ptrain.shard_batch(ragged, mesh).items()}
+    out["prefetch"] = [{k: v.numpy() for k, v in b.items()}
+                       for b in prefetch_to_device([ragged] * 2, mesh=mesh)]
+    try:
+        ptrain.shard_batch({"a": np.zeros(3)}, mesh)
+    except ValueError as e:
+        out["uneven"] = str(e)
+    tree = {"count": rank + 3, "mu": {"a": torch.full((2,), float(rank))}}
+    got = ptrain.replicate_params(tree, mesh)
+    out["replicate_params"] = (got["count"], got["mu"]["a"].numpy())
     return out
 
 
@@ -136,7 +185,14 @@ def two_ranks(tmp_path_factory):
     models = {family: _model(family) for family in FAMILIES}
     key = jax.random.key(11)
     draws = jax_draws(key, 4, 3)
+    n_dp, dp_rng = 1600, np.random.default_rng(1)
     inputs = {
+        "dp_cfg": port_cfg(narrow_config()),
+        "dp_tcfg": pc.TrainConfig(learning_rate=LR, freeze_feature_encoder=False),
+        "dp_batch": {"audio": dp_rng.standard_normal((4, n_dp)).astype(np.float32),
+                     "audio_lengths": np.array([n_dp, n_dp - 200, n_dp - 400, n_dp], np.int32),
+                     "labels": dp_rng.integers(5, 32, (4, 6)).astype(np.int32),
+                     "label_lengths": np.array([6, 4, 0, 5], np.int32)},
         "x": rng.standard_normal((2, N)).astype(np.float32),
         "bg": (0.01 * rng.standard_normal((3, N))).astype(np.float32),
         "draws": tuple(d.numpy() for d in draws),
@@ -145,7 +201,7 @@ def two_ranks(tmp_path_factory):
         "ec": pc.ExplainerConfig(**dataclasses.asdict(EC)),
         "test_set": create_test_set(pc.TestSetConfig(num_samples=1, snrs_db=(5.0, 2.0),
                                                      min_length=N, max_length=N)),
-        "dirs": {sb: str(tmp / f"mesh{sb}") for sb in (1, 2)},
+        "dirs": {**{sb: str(tmp / f"mesh{sb}") for sb in (1, 2)}, "dp": str(tmp / "dp_ck")},
     }
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
@@ -286,6 +342,102 @@ def test_shard_rows_and_replicate(two_ranks):
     for rank, out in enumerate(two_ranks["ranks"]):
         np.testing.assert_array_equal(out["shard_rows"], whole[:, 2 * rank:2 * rank + 2])
         np.testing.assert_array_equal(out["replicate"], np.zeros(3))
+
+
+def _port_leaves(tree):
+    """{path: numpy array} of a port params tree of numpy arrays."""
+    return {k: t.numpy() for k, t in ptrain.named_leaves(_torch(tree))}
+
+
+def _reference_leaves(tree):
+    """{path: numpy array} of a reference tree (layers stacked), in the
+    port's paths."""
+    return {k: t.numpy() for k, t in ptrain.named_leaves(
+        params_from_jax(jax.tree.map(np.asarray, tree), device="cpu"))}
+
+
+def test_dp_train_steps_match_reference_sharded(two_ranks):
+    """DP_STEPS data-parallel steps on 2 gloo ranks (2 clips each) against
+    the reference's replicate_params/shard_batch step on a 2-device CPU mesh,
+    at test_torch_train.py's tolerances: losses rtol 2e-5, first moments
+    within 1e-4 of the largest, params within 0.1 lr per step on all but
+    0.1% of each leaf's elements and 2 lr per step everywhere; the two
+    ranks' params and moments bit-equal."""
+    from asr_shap.core.config import MeshConfig as JaxMeshConfig
+    from asr_shap.core.config import TrainConfig as JaxTrainConfig
+    from asr_shap.parallel.mesh import make_mesh as jax_make_mesh
+    from asr_shap.pipeline import train as jtrain
+
+    cfg, _, ref = two_ranks["models"]["wav2vec2"]
+    xla = dataclasses.replace(cfg, attention_impl="xla", conv_impl="lax")
+    mesh = jax_make_mesh(JaxMeshConfig(), jax.devices()[:2])
+    jcfg = JaxTrainConfig(learning_rate=LR, freeze_feature_encoder=False)
+    opt = jtrain.make_optimizer(jcfg)
+    jp, js = jtrain.replicate_params(ref, mesh), jtrain.replicate_params(opt.init(ref), mesh)
+    step = jax.jit(jtrain.make_train_step(xla, jcfg, opt))
+    want = []
+    for _ in range(DP_STEPS):
+        jp, js, loss = step(jp, js, jtrain.shard_batch(two_ranks["inputs"]["dp_batch"], mesh))
+        want.append(float(loss))
+
+    ranks = [r["dp step"] for r in two_ranks["ranks"]]
+    mu_ref = _reference_leaves(js[1][0].mu)
+    p_ref = _reference_leaves(jp)
+    scale = max(float(np.abs(m).max()) for m in mu_ref.values())
+    step_lr = LR * DP_STEPS
+    for got in ranks:
+        np.testing.assert_allclose(got["losses"], want, rtol=2e-5)
+        assert got["count"] == DP_STEPS and got["mu"].keys() == mu_ref.keys()
+        for k, m in got["mu"].items():
+            np.testing.assert_allclose(m, mu_ref[k], rtol=0, atol=1e-4 * scale, err_msg=k)
+        params = _port_leaves(got["params"])
+        assert params.keys() == p_ref.keys()
+        for k, b in params.items():
+            err = np.abs(b - p_ref[k])
+            assert (err > 0.1 * step_lr).mean() <= 1e-3, k
+            np.testing.assert_allclose(b, p_ref[k], rtol=0, atol=2 * step_lr, err_msg=k)
+    a, b = ranks
+    assert a["losses"] == b["losses"]
+    for part in ("mu", "nu"):
+        for k in a[part]:
+            np.testing.assert_array_equal(a[part][k], b[part][k], err_msg=f"{part} {k}")
+    pa, pb = _port_leaves(a["params"]), _port_leaves(b["params"])
+    for k in pa:
+        np.testing.assert_array_equal(pa[k], pb[k], err_msg=k)
+
+
+def test_dp_train_loop(two_ranks):
+    """train(mesh=) on both ranks: the same history, its train loss the mean
+    of the DP steps' losses (bit for bit: the same steps from the same
+    params), a finite validation loss, and the epoch's checkpoint written by
+    mesh rank 0 alone into the directory both ranks were given."""
+    runs = [r["dp train"] for r in two_ranks["ranks"]]
+    losses = two_ranks["ranks"][0]["dp step"]["losses"]
+    assert runs[0]["history"] == runs[1]["history"]
+    (epoch,) = runs[0]["history"]
+    assert epoch["train_loss"] == float(np.mean(losses))
+    assert np.isfinite(epoch["val_loss"])
+    assert runs[0]["saved"] == [0] and runs[1]["saved"] == []
+    ck = ptrain.Checkpointer(two_ranks["inputs"]["dirs"]["dp"], keep=1)
+    assert ck.best_step == 0 and ck._losses == {0: epoch["val_loss"]}
+
+
+def test_shard_batch_and_replicate_params(two_ranks):
+    """shard_batch: each rank's rows of every leaf, the host-only "_" keys
+    dropped, also through prefetch_to_device(mesh=); a batch of 3 rows over
+    2 ranks raises ValueError. replicate_params: rank 0's tensors and step
+    count on every rank."""
+    for rank, out in enumerate(two_ranks["ranks"]):
+        rows = slice(2 * rank, 2 * rank + 2)
+        want = {"a": np.arange(8).reshape(4, 2)[rows], "b": np.arange(4.0)[rows]}
+        for got in [out["shard_batch"]] + out["prefetch"]:
+            assert got.keys() == want.keys()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k])
+        assert "does not split over 2 data ranks" in out["uneven"]
+        count, mu = out["replicate_params"]
+        assert count == 3 and type(count) is int
+        np.testing.assert_array_equal(mu, np.zeros(2))
 
 
 @pytest.mark.parametrize("family", ["wav2vec2", "relative"])

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from asr_shap.core.config import TrainConfig as JaxTrainConfig
@@ -33,6 +34,7 @@ from asr_shap_torch.cli import main as cli
 from asr_shap_torch.core import config as pc
 from asr_shap_torch.core.params_io import params_to_jax
 from asr_shap_torch.ops.ctc import ctc_log_likelihood, ctc_loss
+from asr_shap_torch.parallel.mesh import make_mesh
 from asr_shap_torch.pipeline import train as ptrain
 from asr_shap_torch.pipeline import train_synthetic as psyn
 from asr_shap_torch.pipeline.prefetch import background_iterator, prefetch_to_device
@@ -400,7 +402,11 @@ def test_background_iterator_starts_eagerly_and_releases_its_producer():
     assert not set(threading.enumerate()) - before
 
 
-def test_prefetch_to_device_and_mesh(rng):
+def test_prefetch_to_device_and_mesh(rng, tmp_path):
+    """prefetch_to_device: tensors on the device, host-only "_" keys passed
+    through; with a mesh (a world of one gloo rank) the batch's rows through
+    shard_batch, the "_" keys dropped. train(mesh=) on that world: bit-equal
+    to train() without a mesh (the all-reduce of one rank, divided by 1)."""
     batches = [{"audio": rng.standard_normal((2, 100)).astype(np.float32),
                 "audio_lengths": np.array([100, 80], np.int32), "_texts": ["a", "b"]}
                for _ in range(4)]
@@ -410,12 +416,30 @@ def test_prefetch_to_device_and_mesh(rng):
         assert isinstance(got["audio"], torch.Tensor) and got["_texts"] == src["_texts"]
         np.testing.assert_array_equal(got["audio"].numpy(), src["audio"])
         assert got["audio_lengths"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="item 8"):
-        prefetch_to_device(iter(batches), mesh=object())
     cfg = narrow_config()
     params, _ = shared_params(cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ptrain.train(params, port_cfg(cfg), pc.TrainConfig(), [], mesh=object())
+    tcfg = pc.TrainConfig(learning_rate=LR, num_epochs=1, freeze_feature_encoder=False)
+    batch = _batch(np.random.default_rng(1), b=2)
+    want = ptrain.train(params, port_cfg(cfg), tcfg, [batch], [batch])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(pc.MeshConfig(), device="cpu")
+        meshed = list(prefetch_to_device(iter(batches), depth=2, mesh=mesh))
+        got = ptrain.train(params, port_cfg(cfg), tcfg, [batch], [batch], mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert len(meshed) == 4
+    for src, b in zip(batches, meshed):
+        assert b.keys() == {"audio", "audio_lengths"}
+        np.testing.assert_array_equal(b["audio"].numpy(), src["audio"])
+        assert b["audio_lengths"].dtype == torch.int32
+    assert got[2] == want[2] and np.isfinite(got[2][0]["val_loss"])
+    for (name, a), (_, b) in zip(ptrain.named_leaves(got[0]), ptrain.named_leaves(want[0])):
+        assert torch.equal(a, b), name
+    for part in ("mu", "nu"):
+        for name, a in got[1][part].items():
+            assert torch.equal(a, want[1][part][name]), f"{part} {name}"
 
 
 # ------------------------------------------------------- the loop, the CLI
