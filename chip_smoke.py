@@ -430,11 +430,18 @@ def time_ms(fn, iters: int, warmup: int = 2, repeats: int = 1) -> float:
 
 def device_ms(fn, kernel: str, iters: int = 50, tries: int = 3) -> float:
     """Device time per launch of the kernels whose name holds ``kernel``,
-    from torch.profiler over ``iters`` calls of ``fn`` after a warm-up."""
+    from torch.profiler over ``iters`` calls of ``fn`` after a warm-up.
+
+    The profiler may drop some or all of its window's device records. A try
+    that saw under half the launches is profiled again; after ``tries`` the
+    time is the mean over the launches of the try that saw most, and where no
+    try saw any, the time per call of ``fn`` between two CUDA events (which
+    holds ``fn``'s other work on the card too, if it has any)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    most = (0, 0.0)
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -449,16 +456,23 @@ def device_ms(fn, kernel: str, iters: int = 50, tries: int = 3) -> float:
         # average what it saw, and profile again if it saw under half
         if count >= iters // 2:
             return total / count / 1e3
+        most = max(most, (count, total))
         log(f"profiler saw {count} launches of {kernel} of {iters}; profiling again")
-    raise CheckFailed(f"profiler saw under half the launches of {kernel} in {tries} tries")
+    if most[0]:
+        log(f"profiler saw at most {most[0]} launches of {kernel} of {iters} in {tries} "
+            f"tries; device time is their mean")
+        return most[1] / most[0] / 1e3
+    log(f"profiler saw no launch of {kernel} in {tries} tries; timed by CUDA events instead")
+    return time_ms(fn, iters)
 
 
 def device_ms_per_call(fn, iters: int = 50, tries: int = 3, host_ops: bool = True) -> float:
     """Device time per call of ``fn`` (all its kernels), from torch.profiler
     over ``iters`` calls after a warm-up; profiled again when the profiler
     recorded no device time (it may drop its window's device records, as
-    ``device_ms`` notes). ``host_ops=False`` records the device alone (a
-    call of thousands of small ops profiles in a fraction of the time)."""
+    ``device_ms`` notes), and timed by CUDA events where no try recorded
+    any. ``host_ops=False`` records the device alone (a call of thousands
+    of small ops profiles in a fraction of the time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -474,7 +488,8 @@ def device_ms_per_call(fn, iters: int = 50, tries: int = 3, host_ops: bool = Tru
         if total > 0:
             return total / iters / 1e3
         log("profiler recorded no device time; profiling again")
-    raise CheckFailed(f"the profiler recorded no device time in {tries} tries")
+    log(f"profiler recorded no device time in {tries} tries; timed by CUDA events instead")
+    return time_ms(fn, iters)
 
 
 def compare_bf16(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
