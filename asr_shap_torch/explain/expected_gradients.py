@@ -6,11 +6,18 @@ average:
 
     phi[n, j] = E_{b,t}[ dF_j/dx_n (b + t (x - b)) * (x_n - b_n) ]
 
-Each draw is one forward and one batched VJP: ``torch.func.vjp`` gives the
-backward, and ``torch.func.vmap`` pushes the T_out one-hot cotangent rows
-through it at once (the kernels fold those rows into their batch). Draws
-run one after another and accumulate in float32. The draws come from a
-``torch.Generator`` or are given explicitly as (background index, t) pairs.
+The draws go ``draw_chunk`` at a time, as the reference's vmap inside a
+chunk: a chunk is one forward of ``torch.func.vmap(f)`` over its C
+interpolation points under ``torch.func.vjp``, then the T_out one-hot
+cotangent rows, each set on every draw, pushed through the VJP by one
+``torch.func.vmap`` (per ``output_chunk`` slice of rows). The kernels'
+vmap rules fold the draws into their batch and the rows outside them, so
+a chunk launches each kernel once per layer and pass. Chunks run one
+after another and accumulate in float32; draw i is draw i whatever the
+chunk, so phi at any ``draw_chunk`` equals phi at 1 up to the order of the
+sums. The draws come from a ``torch.Generator`` or are given explicitly as
+(background index, t) pairs. The base value is one ``vmap(f)`` forward
+over the background.
 ``expected_phi_sharded`` splits the draws over a mesh's data axis and sums
 the ranks' float32 partial sums with one all_reduce.
 """
@@ -50,11 +57,27 @@ def _jacobian(f: Callable, x: torch.Tensor, output_chunk: int) -> torch.Tensor:
                       for s in range(0, t, output_chunk)])
 
 
-def _draw_phi(f: Callable, x: torch.Tensor, b: torch.Tensor, t: torch.Tensor,
-              output_chunk: int) -> torch.Tensor:
-    """Contribution of one (b, t) draw. [T, N]."""
-    x_t = b + t * (x - b)
-    return _jacobian(f, x_t, output_chunk) * (x - b)[None, :]
+def _chunk_phi(f: Callable, x: torch.Tensor, b: torch.Tensor, t: torch.Tensor,
+               output_chunk: int) -> torch.Tensor:
+    """Sum over one chunk of draws (background rows b [C, N], t [C]) of the
+    per-draw phi, float32, [T, N]: one forward of ``vmap(f)`` over the C
+    interpolation points, then the one-hot cotangent rows, each set on
+    every draw ([rows, C, T]), through one vmapped VJP per slice of
+    ``output_chunk`` rows. The draws are folded into the kernels' batch by
+    their vmap rules, and the rows outside them."""
+    d = x - b                                                    # [C, N]
+    x_t = b + t[:, None] * d
+    y, vjp_fn = torch.func.vjp(torch.func.vmap(f), x_t)          # y [C, T]
+    t_out = y.shape[1]
+    eye = torch.eye(t_out, dtype=y.dtype, device=y.device)
+    rows = torch.func.vmap(lambda ct: vjp_fn(ct)[0])
+    step = output_chunk if 0 < output_chunk < t_out else t_out
+    acc = torch.empty((t_out, x.shape[0]), dtype=torch.float32, device=x.device)
+    for s in range(0, t_out, step):
+        cts = eye[s:s + step, None, :].expand(-1, d.shape[0], -1)
+        jac = rows(cts)                                          # [rows, C, N]
+        acc[s:s + step] = (jac * d[None]).to(torch.float32).sum(dim=1)
+    return acc
 
 
 def num_draws(config: ExplainerConfig) -> int:
@@ -74,15 +97,24 @@ def sample_draws(generator: torch.Generator, total: int,
 
 
 def _phi_sum(f: Callable, x: torch.Tensor, background: torch.Tensor,
-             draws: Draws, output_chunk: int) -> torch.Tensor:
-    """Sum over the draws of the per-draw phi, float32. [T, N]."""
+             draws: Draws, output_chunk: int, draw_chunk: int) -> torch.Tensor:
+    """Sum over the draws of the per-draw phi, float32, [T, N]: the draws
+    taken ``draw_chunk`` at a time in their order, each chunk one batch
+    (``_chunk_phi``)."""
     idx, ts = (d.to(x.device) for d in draws)
+    chunk = max(1, draw_chunk)
     acc = None
-    for i in range(idx.shape[0]):
-        phi = _draw_phi(f, x, background[idx[i]], ts[i], output_chunk)
-        phi = phi.to(torch.float32)
+    for s in range(0, idx.shape[0], chunk):
+        phi = _chunk_phi(f, x, background[idx[s:s + chunk]], ts[s:s + chunk], output_chunk)
         acc = phi if acc is None else acc + phi
     return acc
+
+
+def base_value(f: Callable, background: torch.Tensor) -> torch.Tensor:
+    """The mean of f over the background rows, one forward of ``vmap(f)``,
+    as the reference's ``jnp.mean(jax.vmap(f)(background))``. [T_out]."""
+    with torch.no_grad():
+        return torch.func.vmap(f)(background).mean(dim=0)
 
 
 def expected_phi(f: Callable, x: torch.Tensor, background: torch.Tensor,
@@ -98,7 +130,7 @@ def expected_phi(f: Callable, x: torch.Tensor, background: torch.Tensor,
     elif draws[0].shape[0] != total:
         raise ValueError(f"{draws[0].shape[0]} explicit draws given, the "
                          f"config asks for {total}")
-    acc = _phi_sum(f, x, background, draws, config.output_chunk)
+    acc = _phi_sum(f, x, background, draws, config.output_chunk, config.draw_chunk)
     # float32 whatever the model's compute dtype: x_t stays float32 and the
     # model casts it, so its gradient comes back float32
     if acc.dtype != torch.float32:
@@ -119,8 +151,7 @@ def expected_gradients(f: Callable[[torch.Tensor], torch.Tensor],
     phi = expected_phi(f, x, background, generator, config, draws)
     with torch.no_grad():
         fx = f(x)
-        base = torch.stack([f(b) for b in background]).mean(dim=0)
-    return Explanation(values=phi, base_values=base, model_output=fx)
+    return Explanation(values=phi, base_values=base_value(f, background), model_output=fx)
 
 
 def sharded_draws(config: ExplainerConfig, ndev: int) -> Tuple[int, int]:
@@ -154,7 +185,7 @@ def expected_phi_sharded(f: Callable, x: torch.Tensor, background: torch.Tensor,
                          f"over {mesh.data_size} data ranks")
     start = mesh.data_rank * per_rank
     local = tuple(d[start:start + per_rank] for d in draws)
-    acc = _phi_sum(f, x, background, local, config.output_chunk)
+    acc = _phi_sum(f, x, background, local, config.output_chunk, config.draw_chunk)
     if acc.dtype != torch.float32:
         raise TypeError(f"phi accumulated in {acc.dtype}, float32 expected")
     dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=mesh.data_group)
@@ -171,8 +202,7 @@ def expected_gradients_sharded(f: Callable[[torch.Tensor], torch.Tensor],
     phi = expected_phi_sharded(f, x, background, mesh, generator, config, draws)
     with torch.no_grad():
         fx = f(x)
-        base = torch.stack([f(b) for b in background]).mean(dim=0)
-    return Explanation(values=phi, base_values=base, model_output=fx)
+    return Explanation(values=phi, base_values=base_value(f, background), model_output=fx)
 
 
 class GradientExplainer:
@@ -201,6 +231,4 @@ class GradientExplainer:
 
     @property
     def expected_value(self) -> np.ndarray:
-        with torch.no_grad():
-            base = torch.stack([self.f(b) for b in self.background]).mean(dim=0)
-        return base.cpu().numpy()
+        return base_value(self.f, self.background).cpu().numpy()

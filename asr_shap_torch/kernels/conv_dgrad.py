@@ -40,8 +40,12 @@ operations at the card's 989 TFLOP/s bf16 rate.
 The forward of the eligible layers stays ``F.conv1d``, as the reference
 leaves it to ``lax.conv``. ``ConvDgrad`` carries a ``vmap`` rule that folds
 the explainer's vmapped cotangent rows into the kernel's batch dimension,
-as the reference's ``custom_vmap`` does; a ctypes launch cannot see a
-batched tensor, so the rule is what makes the batched VJP possible.
+as the reference's ``custom_vmap`` does; ``Conv1d``'s folds the draws of
+an explainer chunk into the forward's batch, so that the backward's rows
+reach K1 through the first rule. A ctypes launch cannot see a batched
+tensor, so the rules are what make the batched VJP possible. The kernels
+index with 64-bit offsets: a chunk of 4 draws puts 596 rows through the
+largest layer, an xbar of 2.9e9 elements.
 """
 
 from __future__ import annotations
@@ -230,6 +234,19 @@ class Conv1d(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = _conv1d_wgrad(x, ybar, ctx.stride, kernel.shape[0])
         return dx, dw, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, kernel, stride):
+        """Fold a vmapped x (the draws of an explainer chunk) into B: one
+        forward, and autograd's node on the folded tensors, so that the
+        backward's cotangent rows reach K1 through ``ConvDgrad``'s rule."""
+        if in_dims[1] is not None:
+            raise NotImplementedError("conv1d: batched kernels under vmap")
+        if in_dims[0] is None:
+            return Conv1d.apply(x, kernel, stride), None
+        x = x.movedim(in_dims[0], 0)
+        y = Conv1d.apply(x.reshape((-1,) + x.shape[2:]), kernel, stride)
+        return y.reshape(x.shape[:2] + y.shape[1:]), 0
 
 
 def conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> torch.Tensor:

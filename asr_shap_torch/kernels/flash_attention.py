@@ -31,9 +31,14 @@ sums meet in shared memory; ``fwd_block_rows`` picks the rows per block.
 The forward residuals (q, k, v, o, lse) are stored once; cotangent row n
 reads residual row ``n % (B*H)``, so folding the rows in copies nothing.
 
-``FlashBackward`` carries the ``vmap`` rule that folds the vmapped axis of
-the cotangent into the kernels' leading dimension; a ctypes launch cannot
-see a batched tensor.
+A ctypes launch cannot see a batched tensor, so both Functions carry
+``vmap`` rules that fold a vmapped axis into the kernels' leading
+dimension. ``FlashAttention``'s folds the draws of an explainer chunk into
+B (one K2 launch per layer for the chunk); ``FlashBackward``'s folds the
+cotangent rows outside the residuals' B, and, where the residuals are
+vmapped too (a layer recomputed by remat under the draws' vmap), the
+draws into B with the rows outside them, so that row n reads residual
+row ``n % (B*H)`` in every case.
 
 bf16 q, k, v (the model's ``dtype="bfloat16"``) launch the bf16 entry
 points, with either bias kind: o, dq, dk, dv in the inputs' dtype; lse,
@@ -339,6 +344,23 @@ def _unbroadcast(grad: torch.Tensor, shape) -> torch.Tensor:
     return grad
 
 
+def _fold_vmapped(x: Optional[torch.Tensor], dim: Optional[int], nv: int, b: int):
+    """A rank-4 tensor of this vmap level with logical batch B (``dim`` its
+    vmapped dim, or None) -> [V*B, ...], the vmapped axis outside B. An
+    unbatched tensor is tiled V times, and one whose batch dim broadcasts
+    (size 1: a shared mask or bias) is expanded to B first."""
+    if x is None:
+        return None
+    x = x.movedim(dim, 0) if dim is not None else x.expand(nv, *x.shape)
+    return x.expand(nv, b, *x.shape[2:]).reshape(nv * b, *x.shape[2:])
+
+
+def _batch(x: torch.Tensor, dim: Optional[int]) -> int:
+    """The logical leading size of ``x`` at a vmap level (``dim`` its
+    vmapped dim, or None)."""
+    return x.shape[1] if dim == 0 else x.shape[0]
+
+
 class FlashBackward(torch.autograd.Function):
     """K3 then K4 (K3b then K4f for a full bias). g may carry V cotangents
     per residual row: its leading dim is V*B while the residuals' is B.
@@ -367,21 +389,50 @@ class FlashBackward(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, g, bias):
-        if any(dim is not None for i, dim in enumerate(in_dims) if i != 5):
-            raise NotImplementedError("flash backward: batched residuals under vmap")
-        g = g.movedim(in_dims[5], 0)
-        nv = g.shape[0]
-        flat = g.reshape((-1,) + g.shape[2:])                  # [V*B, H, T, D]
-        dq, dk, dv, dbias = FlashBackward.apply(q, k, v, o, lse, flat, bias)
-        outs = tuple(x.reshape((nv,) + q.shape) for x in (dq, dk, dv))
-        if dbias is None:
-            return outs + (None,), (0, 0, 0, None)
-        b, h, t, _ = q.shape
-        return outs + (dbias.reshape(nv, b, h, t, t),), (0, 0, 0, 0)
+        """Cotangent rows vmapped alone (the explainer's Jacobian) fold into
+        g's leading dim, outside the residuals' B: row n reads residual row
+        n % (B*H). Residuals vmapped too (a layer recomputed under a vmap
+        over draws) fold into B as the forward's rule folds them, and g's R
+        rows per residual row go outside that fold, so that the same
+        indexing holds."""
+        nv = info.batch_size
+        res_dims = in_dims[:5] + in_dims[6:]
+        if all(d is None for d in in_dims):
+            return FlashBackward.apply(q, k, v, o, lse, g, bias), (None,) * 4
+        if all(d is None for d in res_dims):
+            g = g.movedim(in_dims[5], 0)
+            flat = g.reshape((-1,) + g.shape[2:])                  # [V*N, H, T, D]
+            dq, dk, dv, dbias = FlashBackward.apply(q, k, v, o, lse, flat, bias)
+            unfold = lambda x: x.reshape((nv, g.shape[1]) + x.shape[1:])
+            outs = tuple(unfold(x) for x in (dq, dk, dv))
+            if dbias is None:
+                return outs + (None,), (0, 0, 0, None)
+            return outs + (unfold(dbias),), (0, 0, 0, 0)
+        b = _batch(q, in_dims[0])
+        qf, kf, vf, of = (_fold_vmapped(x, d, nv, b) for x, d in zip((q, k, v, o), in_dims))
+        lsef = _fold_vmapped(lse[..., None], in_dims[4], nv, b)[..., 0]
+        biasf = _fold_vmapped(bias, in_dims[6], nv, b)
+        g = g.movedim(in_dims[5], 0) if in_dims[5] is not None else g.expand(nv, *g.shape)
+        rows = g.shape[1] // b                                     # R, with N = R*B
+        gf = g.reshape(nv, rows, b, *g.shape[2:]).transpose(0, 1).reshape(-1, *g.shape[2:])
+
+        def unfold(x):                                             # [R*V*B, ...] -> [V, N, ...]
+            x = x.reshape(rows, nv, b, *x.shape[1:]).transpose(0, 1)
+            return x.reshape(nv, rows * b, *x.shape[3:])
+
+        dq, dk, dv, dbias = FlashBackward.apply(qf, kf, vf, of, lsef, gf, biasf)
+        outs = tuple(unfold(x) for x in (dq, dk, dv))
+        return outs + (None if dbias is None else unfold(dbias),), \
+            (0, 0, 0, None if dbias is None else 0)
 
 
 class FlashAttention(torch.autograd.Function):
-    """K2 (K2f) forward; K3/K4 (K3b/K4f) backward through ``FlashBackward``."""
+    """K2 (K2f) forward; K3/K4 (K3b/K4f) backward through ``FlashBackward``.
+
+    Its ``vmap`` rule folds a vmapped axis (the draws of an explainer
+    chunk) into B, so that one launch takes every draw; the node autograd
+    records is then on the folded tensors, and the backward's cotangent
+    rows fold outside them through ``FlashBackward``'s rule."""
 
     @staticmethod
     def forward(q, k, v, bias):
@@ -410,6 +461,24 @@ class FlashAttention(torch.autograd.Function):
         elif bias is not None and ctx.needs_input_grad[3]:
             dbias = torch.zeros_like(bias)  # masks are constants
         return dq, dk, dv, dbias
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, bias):
+        """Fold the vmapped axis into B: [V*B, H, T, D] through one launch,
+        o and lse unfolded to [V, B, ...]. A bias comes as None, a [B or 1,
+        1, 1, T] mask or a full bias, batched or shared; a shared one of
+        batch 1 broadcasts over the fold as it is. With nothing vmapped at
+        this level (a recomputed layer's unbatched inputs), the call runs
+        as it is."""
+        if all(d is None for d in in_dims):
+            return FlashAttention.apply(q, k, v, bias), (None, None)
+        nv = info.batch_size
+        b = _batch(q, in_dims[0])
+        qf, kf, vf = (_fold_vmapped(x, d, nv, b) for x, d in zip((q, k, v), in_dims))
+        if bias is not None and (in_dims[3] is not None or bias.shape[0] != 1):
+            bias = _fold_vmapped(bias, in_dims[3], nv, b)
+        o, lse = FlashAttention.apply(qf, kf, vf, bias)
+        return (o.reshape(nv, b, *o.shape[1:]), lse.reshape(nv, b, *lse.shape[1:])), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -49,6 +49,7 @@ from asr_shap_torch.models.wav2vec2 import (
     compute_dtype,
 )
 from asr_shap_torch.ops.attention import multi_head_attention, rel_pos_embedding, rel_shift
+from asr_shap_torch.ops.remat import checkpoint_layer
 
 Params = Dict[str, Any]
 
@@ -241,10 +242,13 @@ def _conformer_layer(layer: Params, cfg: ConformerConfig, x: torch.Tensor, rules
 
 def conformer_encode(params: Params, config: ConformerConfig, x: torch.Tensor,
                      lengths: Optional[torch.Tensor] = None,
-                     rules: Rules = PLAIN_RULES) -> torch.Tensor:
+                     rules: Rules = PLAIN_RULES, remat: bool = False) -> torch.Tensor:
     """Features [..., T, input_dim] -> encoded [..., T', hidden], in the
     compute dtype. With a "striding" subsampler T' = subsampled_length(T),
-    and ``lengths`` [B] count subsampled frames. On CUDA it raises outside
+    and ``lengths`` [B] count subsampled frames. ``remat`` recomputes each
+    layer in the backward ("full", ``ops/remat.py``), as the reference's
+    ``jax.checkpoint`` of its layer body; the subsampler keeps its
+    activations. On CUDA it raises outside
     ``matmul_precision_scope(precision_for(config))``."""
     cfg = config
     dtype = compute_dtype(cfg.dtype)
@@ -272,20 +276,27 @@ def conformer_encode(params: Params, config: ConformerConfig, x: torch.Tensor,
     pe = None
     if cfg.pos_encoding == "relative":
         pe = rel_pos_embedding(x.shape[-2], cfg.hidden_size, device=x.device).to(x.dtype)
+
+    def body(h, bias_, mask_, pe_, layer):
+        return _conformer_layer(layer, cfg, h, rules, bias_, mask_, pe_)
+
     for layer in params["layers"]:
-        x = _conformer_layer(layer, cfg, x, rules, bias, frame_mask, pe)
+        if remat:
+            x = checkpoint_layer(body, x, (bias, frame_mask, pe), layer)
+        else:
+            x = body(x, bias, frame_mask, pe, layer)
     return x
 
 
 def conformer_logits(params: Params, config: ConformerConfig, features: torch.Tensor,
                      lengths: Optional[torch.Tensor] = None,
-                     rules: Rules = PLAIN_RULES) -> torch.Tensor:
+                     rules: Rules = PLAIN_RULES, remat: bool = False) -> torch.Tensor:
     """Log-mel features [..., T, F] -> CTC logits [..., T', vocab], float32.
     In bf16 the head is the reference's "highest" product of bf16 operands:
     a float32 GEMM of the bf16-rounded operands (exact products under
     either precision's switches: a bf16 significand is exact in TF32),
     rounded to bf16, plus the bf16 bias, then cast to float32."""
-    h = conformer_encode(params, config, features, lengths, rules)
+    h = conformer_encode(params, config, features, lengths, rules, remat)
     head = params["head"]
     if h.dtype == torch.float32:
         return _linear(head, h)

@@ -69,10 +69,11 @@ def init_nemo_ctc_params(seed: int, config: ConformerConfig,
 
 def nemo_ctc_logits(params: Params, config: ConformerConfig, features: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    rules: Rules = PLAIN_RULES) -> torch.Tensor:
+                    rules: Rules = PLAIN_RULES, remat: bool = False) -> torch.Tensor:
     """Log-mel features [..., T, F] -> BPE CTC logits [..., subsampled_length(T),
-    vocab + 1], float32, blank last (``conformer.conformer_logits``)."""
-    return conformer_logits(params, config, features, lengths, rules)
+    vocab + 1], float32, blank last (``conformer.conformer_logits``; ``remat``
+    recomputes each conformer layer in the backward)."""
+    return conformer_logits(params, config, features, lengths, rules, remat)
 
 
 # ----------------------------------------------------------------- BPE vocab

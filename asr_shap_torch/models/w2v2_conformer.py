@@ -51,6 +51,7 @@ from asr_shap_torch.models.wav2vec2 import (
     projected_features,
 )
 from asr_shap_torch.ops.attention import multi_head_attention, rel_pos_embedding, rel_shift
+from asr_shap_torch.ops.remat import checkpoint_layer
 from asr_shap_torch.parallel.tp import copy_to_tp, gather_last, row_linear, scatter_last
 
 Params = Dict[str, Any]
@@ -205,8 +206,10 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
                           remat: bool = False, rules: Rules = PLAIN_RULES,
                           gelu=_gelu, tp=None) -> torch.Tensor:
     """Normalized waveform [B, N] -> CTC logits [B, T_frames, vocab], float32.
-    ``lengths`` enables padded batching; ``remat`` is accepted for signature
-    parity and does nothing (see ``wav2vec2.encoder``). ``rules`` and
+    ``lengths`` enables padded batching; ``remat`` recomputes each conformer
+    block in the backward under ``config.remat_policy`` (see
+    ``wav2vec2.encoder``; the reference's policy is always "full" here, and
+    both give the same values). ``rules`` and
     ``gelu`` plug in the blocks' SiLU/GLU and every GELU (DeepSHAP passes
     ``conformer.deepshap_rules()`` and ``explain.deepshap.gelu_rescale``, the
     batch axis carrying the (actual, reference) pair). ``tp`` is the
@@ -233,7 +236,14 @@ def w2v2_conformer_logits(params: Params, config: Wav2Vec2ConformerConfig,
     pe = None
     if cfg.position_embeddings_type == "relative":
         pe = rel_pos_embedding(h.shape[1], cfg.hidden_size, device=h.device).to(h.dtype)
+
+    def block(x, pe_, bias_, layer):
+        return _conformer_block(layer, cfg, x, pe_, bias_, rules, gelu, tp)
+
     for layer in params["encoder"]["layers"]:
-        h = _conformer_block(layer, cfg, h, pe, bias, rules, gelu, tp)
+        if remat:
+            h = checkpoint_layer(block, h, (pe, bias), layer, cfg.remat_policy)
+        else:
+            h = block(h, pe, bias, layer)
     h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     return _linear(params["lm_head"], h).to(torch.float32)

@@ -24,6 +24,7 @@ from asr_shap_torch.core.device import (
 )
 from asr_shap_torch.kernels import conv_dgrad
 from asr_shap_torch.ops.attention import multi_head_attention
+from asr_shap_torch.ops.remat import checkpoint_layer, dot
 from asr_shap_torch.parallel.tp import copy_to_tp, row_linear
 
 Params = Dict[str, Any]
@@ -55,7 +56,7 @@ def _group_norm(p: Params, x: torch.Tensor, num_groups: int,
 
 
 def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["kernel"]
+    y = dot(x, p["kernel"])
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -394,9 +395,10 @@ def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
     positional conv's and the FFNs' activation; ``tp`` the tensor-parallel
     mesh of sharded params (``parallel/tp.py``), or None.
 
-    ``remat`` is accepted for signature parity and does nothing: the
-    explainer's forward runs at batch 1, so its saved activations are small
-    and recomputing them would only add time."""
+    ``remat`` recomputes each encoder layer in the backward under
+    ``config.remat_policy`` ("full" or "dots", ``ops/remat.py``), as the
+    reference's ``jax.checkpoint`` of its layer body; the positional conv
+    and the feature encoder keep their activations, as there."""
     cfg = config
     bias = None
     if frame_mask is not None:
@@ -405,8 +407,15 @@ def encoder(params: Params, config: Wav2Vec2Config, h: torch.Tensor,
     h = h + _pos_conv_embedding(params, cfg, h, gelu)
     if not cfg.do_stable_layer_norm:
         h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
+
+    def layer_fn(x, b, layer):
+        return _encoder_layer(layer, cfg, x, b, gelu, tp)
+
     for layer in params["encoder"]["layers"]:
-        h = _encoder_layer(layer, cfg, h, bias, gelu, tp)
+        if remat:
+            h = checkpoint_layer(layer_fn, h, (bias,), layer, cfg.remat_policy)
+        else:
+            h = layer_fn(h, bias, layer)
     if cfg.do_stable_layer_norm:
         h = _layer_norm(params["encoder"]["layer_norm"], h, cfg.layer_norm_eps)
     return h

@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from asr_shap_torch.ops.remat import dot
 from asr_shap_torch.parallel.mesh import Mesh
 
 # keys whose kernels shard output features (last axis); their biases shard too
@@ -153,7 +154,7 @@ def reduce_from_tp(x: torch.Tensor, tp: Mesh) -> torch.Tensor:
 def row_linear(p, x: torch.Tensor, tp: Optional[Mesh]) -> torch.Tensor:
     """A row-parallel linear: this rank's partial product, reduced, then
     the (replicated) bias once. Without a mesh, the plain linear."""
-    y = x @ p["kernel"]
+    y = dot(x, p["kernel"])
     if tp is not None:
         y = reduce_from_tp(y, tp)
     if "bias" in p:

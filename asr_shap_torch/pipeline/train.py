@@ -14,10 +14,12 @@ updates, the port leaves those leaves out: they do not require grad, they
 are not in the global norm or the optimizer, and so they stay bit-equal and
 K1 is not launched at all. A bf16 model (``dtype="bfloat16"``) keeps
 float32 master params and casts them inside each step's graph (the model
-does it), so the gradients land on the float32 leaves. The reference's
-step asks its model for ``remat``; the port's models accept it and do
-nothing, so the step does not pass it. Checkpoints are
-``torch.save`` files, not orbax directories.
+does it), so the gradients land on the float32 leaves. The loss asks its
+model for ``remat=True``, as the reference's does: each encoder layer
+keeps only its inputs and runs again in the backward (``ops/remat.py``;
+the layer's param leaves are the recompute's explicit inputs, so their
+gradients flow), so the flash forward runs twice per layer and step.
+Checkpoints are ``torch.save`` files, not orbax directories.
 
 Data parallelism (``mesh=``, a ``parallel/mesh.py`` mesh of processes):
 each rank takes its rows of the batch over the mesh's data axis
@@ -156,7 +158,7 @@ def _loss_fn(model_cfg: Wav2Vec2Config):
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         lengths = batch["audio_lengths"]
         x = zero_mean_unit_var(batch["audio"], lengths)
-        logits = logits_fn(params, model_cfg, x, lengths=lengths)
+        logits = logits_fn(params, model_cfg, x, lengths=lengths, remat=True)
         return ctc_loss(logits, feature_lengths(model_cfg, lengths), batch["labels"],
                         batch["label_lengths"])
 

@@ -63,8 +63,9 @@ each reported on its own lines:
    with its peak device memory, then profile two more draws (torch.profiler:
    device busy share, time by kernel group). A kernel's times in the JSON
    line are per draw of its path: the sum over the launches one draw makes
-   (K1 once per eligible conv layer, the flash kernels once per encoder
-   layer); its "launches" is the count from its path's pipeline run of
+   (K1 once per eligible conv layer, the flash forward twice per encoder
+   layer: the forward and remat's recompute, the flash backwards once);
+   its "launches" is the count from its path's pipeline run of
    phase 3 (the command line's counts are logged, "cli" lines). Every kernel (K1, the flash forward K2 and K2f, the flash
    backward K3, K4, K3b and K4f) runs on the tensor cores in 3xTF32, so
    its bound is three TF32 products per float32 product at the TF32 peak,
@@ -108,7 +109,8 @@ each reported on its own lines:
    residual batch of 2; K2 at 16 and 21 clips, K2f at 16; "timing
    explainers" lines); DeepSHAP (5 background rows), KernelSHAP and LIME
    (64 coalitions of 32 segments) through run_shap_pipeline on the base
-   path in float32 and bf16, and DeepSHAP on the conformer, each with the
+   path in float32 and bf16, and DeepSHAP on the conformer (its widths,
+   12 of its 24 layers), each with the
    exact launch counts of its kernels; DeepSHAP's phi of one background
    row and KernelSHAP's and LIME's segment values, model output and base
    value (intercept) through the kernels against plain PyTorch (2e-3 of
@@ -202,7 +204,30 @@ each reported on its own lines:
    summary on both, each run's exact launches; ``asr_shap_torch.dryrun.
    dryrun_multichip(2, device="cuda")``; the wall per step with and without
    the mesh and the all-reduce alone ("timing dp": one card, so no
-   scale-out speed-up).
+   scale-out speed-up);
+15. expected gradients' draw chunks, last ("chunk" lines), at 48,000
+   samples, full width, seed 0, the kernel impls, 8 explicit draws: K1 at
+   596 cotangent rows (4 draws x 149; xbar past 2^31 elements) against
+   its plain version in float32 and bf16; then base float32, base bf16
+   and the rel-pos-large conformer float32 at draw_chunk 1, 2, 4 (all 149
+   rows per backward) and 8 at output_chunk 64: the exact launches
+   (``expected_launches_eg``), wall per draw, device-busy share (one
+   profiled chunk), peak memory beside its prediction, and phi against
+   draw_chunk 1's (float32 within 1e-5 of max|phi|; bf16 no further from
+   float32's draw_chunk 1 phi than bf16's draw_chunk 1 phi is, x 1.25).
+   Its launches are the JSON line's ``launches_chunk``;
+16. remat, last ("remat" lines): phi of 2 draws on the base and the
+   conformer with remat off, "full" and "dots" (within 1e-6 of max|phi|,
+   bit-equality said), wall per draw and peak each way; one float32
+   conformer training step (the training phase's batch) with remat (the
+   train module's loss) and without: wall, peak, and each leaf's gradient
+   within 1e-6 of its max|g|.
+
+Every expected-gradients run takes ``ExplainerConfig.remat`` (on by
+default, as the reference's): each encoder layer runs its forward again in
+each backward call, so per draw chunk the flash forward launches once per
+layer for the forward plus once per backward call (one per
+``output_chunk`` slice), and a training step twice per layer.
 
 Prints one JSON line of per-kernel numbers (the rows of the bf16 K1, the
 two bf16 forward and the four bf16 backward kernels also with their
@@ -1444,6 +1469,14 @@ def profile_calls(fn, n: int, unit: str = "draw", tag: str = "profile",
     return {key: ms for ms, _, key in rows}
 
 
+def launches_per_draw(name: str, layers: int) -> int:
+    """Launches of kernel ``name`` per draw of the explainer's paths
+    (draw_chunk 1, output_chunk 0, remat on): the flash forward twice per
+    encoder layer (the forward, and remat's recompute in the backward), the
+    backward kernels once."""
+    return layers * (2 if name.startswith("flash_fwd") else 1)
+
+
 def phase_timing(cfg: PipelineConfig, params, test_set):
     """The base path's kernels (K1-K4) and the base slice per draw."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1481,7 +1514,8 @@ def phase_timing(cfg: PipelineConfig, params, test_set):
     out["conv_dgrad"] = dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
                              bound_by=b_by, library_ms=tot["library_ms"], device_ms=None)
 
-    # K2: per draw, one launch per encoder layer at B*H = 12
+    # K2: per draw, two launches per encoder layer (the forward, and remat's
+    # recompute in the backward) at B*H = 12
     # host-clocked times first: a torch.profiler session leaves later
     # launches a few microseconds slower on the host
     q, k, v, bias, _ = flash_inputs(gen, 1, h, t, d, 1, False)
@@ -1499,8 +1533,9 @@ def phase_timing(cfg: PipelineConfig, params, test_set):
         f"device_ms={dms:.5f} plain_ms={pms:.4f} library_ms={lms:.4f} "
         f"bound_ms={b_ms:.5f} ({b_by}) fma_bound_ms={bound(fl, nb)[0]:.5f}; best of "
         f"{HOST_REPEATS}: ms={ms_best:.4f} plain_ms={pms_best:.4f} library_ms={lms_best:.4f}")
-    out["flash_fwd"] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
-                            bound_by=b_by, library_ms=layers * lms, device_ms=layers * dms)
+    r = launches_per_draw("flash_fwd", layers)
+    out["flash_fwd"] = dict(ms=r * ms, plain_ms=r * pms, bound_ms=r * b_ms,
+                            bound_by=b_by, library_ms=r * lms, device_ms=r * dms)
 
     # K3, K4: per draw, one launch each per encoder layer, 149 rows folded
     q, k, v, bias, g = flash_inputs(gen, 1, h, t, d, rows, False)
@@ -1692,9 +1727,10 @@ def phase_timing_conformer(cfg: PipelineConfig, params, test_set, k1_row):
         log(f"timing {name} BH={h} N={n} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
             f"library_ms({lib_what})={lms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
             f"fma_bound_ms={bound(fl, nb)[0]:.5f} TFLOP/s={fl / ms / 1e9:.2f}" + more)
-        out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
-                         bound_by=b_by, library_ms=layers * lms,
-                         device_ms=None if dms is None else layers * dms)
+        r = launches_per_draw(name, layers)
+        out[name] = dict(ms=r * ms, plain_ms=r * pms, bound_ms=r * b_ms,
+                         bound_by=b_by, library_ms=r * lms,
+                         device_ms=None if dms is None else r * dms)
     pair = out["flash_dq_dbias"]["ms"] + out["flash_dkv_bias"]["ms"]
     log(f"timing K3b + K4f per draw: {pair:.4f} ms ({layers} launches each) against the SDPA "
         f"backward (dq+dk+dv+d(mask), same inputs) per draw {layers * lib_bwd:.4f} ms "
@@ -1823,16 +1859,36 @@ def phase_checks_bf16(cfg: Wav2Vec2Config):
     return errs, extra
 
 
-def expected_launches_bf16(cfg: PipelineConfig, samples: int) -> dict:
-    """Launches of each bf16 kernel on the pipeline run: per sample one
-    forward for the transcript and per draw one forward and one backward;
-    K1 once per eligible conv layer and backward, the flash kernels (K2-K4,
-    or the conformer's K2f, K3b, K4f) once per encoder layer and pass."""
-    draws, layers = cfg.explainer.nsamples, cfg.model.num_hidden_layers
-    convs = len(k1_main_shapes(cfg.model, 1))
-    k1_, fwd, dq, dkv = path_kernels(cfg.model)
-    return {k1_: samples * draws * convs, fwd: samples * (draws + 1) * layers,
-            dq: samples * draws * layers, dkv: samples * draws * layers}
+def eg_passes(ec: ExplainerConfig, t_out: int) -> tuple:
+    """(chunks, backward calls per chunk, forward passes per chunk) of one
+    expected-gradients explanation: ``num_draws`` draws in chunks of
+    ``draw_chunk``; per chunk one forward of the chunk's draws, one backward
+    call per slice of ``output_chunk`` cotangent rows, and with ``remat``
+    the encoder layers' forward again in each backward call."""
+    chunks = num_draws(ec) // max(1, ec.draw_chunk)
+    oc = ec.output_chunk
+    calls = -(-t_out // oc) if 0 < oc < t_out else 1
+    return chunks, calls, 1 + (calls if ec.remat else 0)
+
+
+def expected_launches_eg(cfg: PipelineConfig, samples: int, n_samples: int = N_SAMPLES,
+                         transcripts: int = 1) -> dict:
+    """Launches of each kernel of the path on an expected-gradients run of
+    ``samples`` clips of ``n_samples``: per sample ``transcripts`` forwards,
+    then per draw chunk (``eg_passes``) the flash forward (K2 or K2f) once
+    per encoder layer and forward pass, K1 once per eligible conv layer and
+    backward call, K3/K4 (K3b/K4f) once per encoder layer and backward call:
+
+      K2 = samples * (transcripts + chunks * (1 + remat * calls)) * layers
+      K3 = K4 = samples * chunks * calls * layers,  K1 = samples * chunks * calls * convs"""
+    layers, mc = cfg.model.num_hidden_layers, cfg.model
+    chunks, calls, passes = eg_passes(cfg.explainer, mc.frames_for_samples(n_samples))
+    convs = len(k1_main_shapes(mc, 1, n_samples))
+    k1_, fwd, dq, dkv = path_kernels(mc)
+    want = {k1_: samples * chunks * calls * convs,
+            fwd: samples * (transcripts + chunks * passes) * layers,
+            dq: samples * chunks * calls * layers, dkv: samples * chunks * calls * layers}
+    return {name: n for name, n in want.items() if n}
 
 
 def _corr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1976,8 +2032,9 @@ def phase_timing_bf16(cfg: PipelineConfig, params16, test_set):
     log(f"timing flash_fwd_bf16 BH={h} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
         f"library_ms(SDPA bf16 forward)={lms:.4f} bound_ms={b_ms:.5f} ({b_by}); best of "
         f"{HOST_REPEATS}: ms={ms_best:.4f} plain_ms={pms_best:.4f} library_ms={lms_best:.4f}")
-    out["flash_fwd_bf16"] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
-                                 bound_by=b_by, library_ms=layers * lms, device_ms=None)
+    r = launches_per_draw("flash_fwd_bf16", layers)
+    out["flash_fwd_bf16"] = dict(ms=r * ms, plain_ms=r * pms, bound_ms=r * b_ms,
+                                 bound_by=b_by, library_ms=r * lms, device_ms=None)
 
     o, lse = fa.flash_fwd(q, k, v, None, h)
     _, dd, _ = fa.flash_dq(q, k, v, o, lse, g, None, h)
@@ -2071,8 +2128,8 @@ def phase_bf16(model16: Wav2Vec2Config, explainer: ExplainerConfig, test_set, da
                          data_dir=f"{data_dir}/bf16")
     params = init_wav2vec2_params(SEED, model16, device="cuda")  # float32 master params
     launches = phase_pipeline("bf16", cfg, params, test_set, BF16_KERNELS)
-    want = expected_launches_bf16(cfg, len(test_set))
-    check(want == {"conv_dgrad_bf16": 48, "flash_fwd_bf16": 120, "flash_dq_bf16": 96,
+    want = expected_launches_eg(cfg, len(test_set))
+    check(want == {"conv_dgrad_bf16": 48, "flash_fwd_bf16": 216, "flash_dq_bf16": 96,
                    "flash_dkv_bf16": 96}, f"bf16 path: expected counts {want}")
     for name, n in want.items():
         check(launches[name] == n, f"bf16 path: {name} launched {launches[name]} times, "
@@ -2167,8 +2224,9 @@ def phase_timing_bf16_conformer(cfg: PipelineConfig, params16, test_set):
         log(f"timing {name} BH={h} N={n} T={t}: ms={ms:.4f} plain_ms={pms:.4f} "
             f"library_ms({lib_what})={lms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
             f"TFLOP/s={fl / ms / 1e9:.2f} GB/s={nb / ms / 1e6:.1f}" + more)
-        out[name] = dict(ms=layers * ms, plain_ms=layers * pms, bound_ms=layers * b_ms,
-                         bound_by=b_by, library_ms=layers * lms, device_ms=None)
+        r = launches_per_draw(name, layers)
+        out[name] = dict(ms=r * ms, plain_ms=r * pms, bound_ms=r * b_ms,
+                         bound_by=b_by, library_ms=r * lms, device_ms=None)
     pair = out["flash_dq_dbias_bf16"]["ms"] + out["flash_dkv_bias_bf16"]["ms"]
     log(f"timing K3b + K4f bf16 per draw: {pair:.4f} ms ({layers} launches each) against the "
         f"SDPA bf16 backward (dq+dk+dv+d(mask), same inputs) per draw {layers * lib_bwd:.4f} ms "
@@ -2226,8 +2284,8 @@ def phase_bf16_conformer(model16: Wav2Vec2ConformerConfig, explainer: ExplainerC
                          data_dir=f"{data_dir}/bf16_conformer")
     params = init_w2v2_conformer_params(SEED, model16, device="cuda")  # float32 masters
     launches = phase_pipeline("bf16 conformer", cfg, params, test_set, BF16_CONFORMER_KERNELS)
-    want = expected_launches_bf16(cfg, len(test_set))
-    check(want == {"conv_dgrad_bf16": 48, "flash_fwd_bias_bf16": 240,
+    want = expected_launches_eg(cfg, len(test_set))
+    check(want == {"conv_dgrad_bf16": 48, "flash_fwd_bias_bf16": 432,
                    "flash_dq_dbias_bf16": 192, "flash_dkv_bias_bf16": 192},
           f"bf16 conformer: expected counts {want}")
     for name, count in launches.items():
@@ -2247,6 +2305,9 @@ def phase_bf16_conformer(model16: Wav2Vec2ConformerConfig, explainer: ExplainerC
 # ---------------------------------------------------------------- explainers
 
 METHODS = ("deep", "kernel", "lime")
+# DeepSHAP's conformer runs 12 of the rel-pos-large's 24 layers (its widths
+# unchanged), to keep the script inside its time limit
+DEEP_CONFORMER_LAYERS = 12
 # DeepSHAP's background rows; KernelSHAP's coalitions and LIME's
 # perturbations per sample (4 batches of 16 whole clips) over 32 segments
 DEEP_BACKGROUND, COALITIONS, SEGMENTS = 5, 64, 32
@@ -2269,7 +2330,8 @@ def expected_launches_method(cfg: PipelineConfig, samples: int) -> dict:
     method (no k-means) on clips of N_SAMPLES, counted from the code: per
     sample one forward for the transcript; DeepSHAP per background row one
     forward of the dual batch and one backward per chunk of
-    ``output_chunk`` cotangent rows, then f at (x, x) and at each (r, r);
+    ``output_chunk`` cotangent rows (with ``remat`` each backward runs the
+    encoder layers' forward again), then f at (x, x) and at each (r, r);
     KernelSHAP
     f(x) and f(b) as one batch, then ceil(M / 16) batches of masked clips;
     LIME the ceil(M / 16) batches. K1 once per eligible conv layer and
@@ -2279,7 +2341,7 @@ def expected_launches_method(cfg: PipelineConfig, samples: int) -> dict:
     layers, convs = mc.num_hidden_layers, len(k1_main_shapes(mc, 1))
     b, t_out, oc = ec.num_background, mc.frames_for_samples(N_SAMPLES), ec.output_chunk
     chunks = -(-t_out // oc) if 0 < oc < t_out else 1
-    fwd, bwd = {"deep": (2 + 2 * b, b * chunks),
+    fwd, bwd = {"deep": (2 + 2 * b + (b * chunks if ec.remat else 0), b * chunks),
                 "kernel": (2 + -(-ec.nsamples // CLIP_BATCH), 0),
                 "lime": (1 + -(-ec.lime_num_samples // CLIP_BATCH), 0)}[ec.method]
     k1_, f, dq, dkv = path_kernels(mc)
@@ -2705,6 +2767,7 @@ def phase_explainers(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig,
         time_method(f"{method} base bf16", cfg16, cast_params_for_compute(params, "bfloat16"),
                     test_set, smi)
     del params
+    conformer = dataclasses.replace(conformer, num_hidden_layers=DEEP_CONFORMER_LAYERS)
     cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
     cfg = PipelineConfig(model=conformer, explainer=method_config(explainer, "deep"),
                          seed=SEED, data_dir=f"{data_dir}/explain_deep_conformer")
@@ -2736,19 +2799,17 @@ def has_matplotlib() -> bool:
     return True
 
 
-def compare_launches(mc: Wav2Vec2Config, draws: int, masks: int) -> dict:
+def compare_launches(mc: Wav2Vec2Config, ec: ExplainerConfig, masks: int) -> dict:
     """Launches of each kernel in one lime_shap_comparison of a
-    COMPARE_SAMPLES clip, counted from the code: per expected-gradients draw
-    one forward and one backward of all T_out cotangent rows (output_chunk
-    0); LIME ceil(masks / 16) forwards of 16 clips. K1 once per eligible
-    conv layer and backward, the flash kernels once per encoder layer and
-    pass."""
-    layers = mc.num_hidden_layers
-    convs = len(k1_main_shapes(mc, 1, COMPARE_SAMPLES))
-    k1_, f, dq, dkv = path_kernels(mc)
-    want = {f: (draws + -(-masks // CLIP_BATCH)) * layers, k1_: draws * convs,
-            dq: draws * layers, dkv: draws * layers}
-    return {name: n for name, n in want.items() if n}
+    COMPARE_SAMPLES clip, counted from the code: expected gradients as
+    ``expected_launches_eg`` with no transcript forward (one backward call
+    per chunk of ``draw_chunk`` draws: output_chunk 0), then LIME's ceil(masks
+    / 16) forwards of 16 clips."""
+    want = expected_launches_eg(PipelineConfig(model=mc, explainer=ec), 1, COMPARE_SAMPLES,
+                                transcripts=0)
+    fwd = path_kernels(mc)[1]
+    want[fwd] = want.get(fwd, 0) + -(-masks // CLIP_BATCH) * mc.num_hidden_layers
+    return want
 
 
 @contextlib.contextmanager
@@ -2804,7 +2865,7 @@ def compare_gate(model: Wav2Vec2Config, params, clip: np.ndarray) -> None:
             params, mc, ec, clip, seed=SEED, clip_seconds=COMPARE_SAMPLES / 16_000,
             background=bg, draws=draws, masks=masks)
         launches[label] = {name: c for name, c in LAUNCHES.items() if c}
-    want = compare_launches(model, GATE_DRAWS, GATE_MASKS)
+    want = compare_launches(model, ec, GATE_MASKS)
     check(launches["kernels"] == want,
           f"compare gate: launches {launches['kernels']}, {want} expected")
     check(not launches["plain"], f"compare gate: the plain run launched {launches['plain']}")
@@ -2851,8 +2912,7 @@ def compare_defaults(base_archive: str, data_dir: str, clip: np.ndarray, mpl: bo
         check(phi.shape == (COMPARE_SAMPLES, cfg.frames_for_samples(COMPARE_SAMPLES))
               and bool(np.isfinite(phi).all()) and bool(np.isfinite(res["lime_per_sample"]).all()),
               f"compare {label}: phi {phi.shape} not finite [32000, 99]")
-        want = compare_launches(cfg, num_draws(ExplainerConfig(nsamples=DEFAULT_DRAWS)),
-                                DEFAULT_MASKS)
+        want = compare_launches(cfg, ExplainerConfig(nsamples=DEFAULT_DRAWS), DEFAULT_MASKS)
         check(launches == want, f"compare {label}: launched {launches}, {want} expected")
         if mpl:
             check(all(Path(rec[k]).exists() for k in ("figure", "shap_wav", "lime_wav", "stats")),
@@ -2910,7 +2970,8 @@ def compare_conformer(data_dir: str) -> None:
                 "--nsamples", str(CONFORMER_DRAWS), "--lime-samples", str(CONFORMER_MASKS),
                 "--out-dir", ""])
         (res[device],) = runs
-    want = compare_launches(load_config(archive), CONFORMER_DRAWS, CONFORMER_MASKS)
+    want = compare_launches(load_config(archive), ExplainerConfig(nsamples=CONFORMER_DRAWS),
+                            CONFORMER_MASKS)
     check(launches["cuda"] == want,
           f"compare conformer: launched {launches['cuda']}, {want} expected")
     check(set(recs["cuda"]) == set(recs["cpu"]), "compare conformer: record keys differ")
@@ -3177,8 +3238,8 @@ def mel_eg(label: str, f, x, bg, ec: ExplainerConfig, draws, expect: dict):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {k: c for k, c in LAUNCHES.items() if c}
-    log(f"mel {label}: expected_gradients, {draws[0].numel()} draws and {bg.shape[0] + 1} "
-        f"forwards for the base values, wall {wall:.3f} s; launches {json.dumps(got)}; peak "
+    log(f"mel {label}: expected_gradients, {draws[0].numel()} draws and 2 forwards for "
+        f"f(x) and the base value (one vmapped forward of the {bg.shape[0]} background rows), wall {wall:.3f} s; launches {json.dumps(got)}; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(got == expect, f"mel {label}: launches {got}, expected {expect}")
     phi = res.values
@@ -3229,7 +3290,7 @@ def nemo_float32(cfg, params, feats, x, bg, ec, draws) -> dict:
 
     f = mel_explained_fn(nemo_ctc_logits, params, cfg, ec, feats.shape[1])
     n = num_draws(ec)
-    expect = {"flash_fwd_bias": (n + 1 + ec.num_background) * cfg.num_layers,
+    expect = {"flash_fwd_bias": (n + 2) * cfg.num_layers,
               "flash_dq_dbias": n * cfg.num_layers, "flash_dkv_bias": n * cfg.num_layers}
     phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
     check(tuple(phi.shape) == (x.numel(), t_out), f"{label}: phi {tuple(phi.shape)}")
@@ -3260,7 +3321,7 @@ def nemo_bf16(cfg, params, feats, x, bg, ec, draws) -> dict:
     params16 = cast_params_for_compute(params, "bfloat16")
     frames = feats.shape[1]
     n = num_draws(ec)
-    expect = {"flash_fwd_bias_bf16": (n + 1 + ec.num_background) * cfg.num_layers,
+    expect = {"flash_fwd_bias_bf16": (n + 2) * cfg.num_layers,
               "flash_dq_dbias_bf16": n * cfg.num_layers,
               "flash_dkv_bias_bf16": n * cfg.num_layers}
     with matmul_precision_scope("default"):
@@ -3302,7 +3363,7 @@ def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
     frames, layers = test_feats.shape[1], cfg.num_layers
     f = mel_explained_fn(conformer_logits, params, cfg, ec, frames)
     n = num_draws(ec)
-    expect = {"flash_fwd": (n + 1 + ec.num_background) * layers, "flash_dq": n * layers,
+    expect = {"flash_fwd": (n + 2) * layers, "flash_dq": n * layers,
               "flash_dkv": n * layers}
     phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
     check(tuple(phi.shape) == (x.numel(), frames), f"{label}: phi {tuple(phi.shape)}")
@@ -3451,12 +3512,13 @@ def train_batch(seed: int = SEED) -> dict:
 def train_launches(mc: Wav2Vec2Config, steps: int, forwards: int = 0, k1_on: bool = True):
     """The launches ``steps`` train steps and ``forwards`` forwards of 8 clips
     of 2 s make on a model's path: K1 once per eligible conv layer per step
-    (none with a frozen feature encoder), the flash forward once per layer
-    per step and per forward, dq and dk/dv once per layer per step."""
+    (none with a frozen feature encoder), the flash forward twice per layer
+    per step (the step's forward, and its remat recompute in the backward)
+    and once per layer per forward, dq and dk/dv once per layer per step."""
     k1_, f, dq, dkv = path_kernels(mc)
     layers = mc.num_hidden_layers
     convs = len(k1_main_shapes(mc, 1, TRAIN_SAMPLES)) if k1_on else 0
-    want = {k1_: steps * convs, f: (steps + forwards) * layers, dq: steps * layers,
+    want = {k1_: steps * convs, f: (2 * steps + forwards) * layers, dq: steps * layers,
             dkv: steps * layers}
     return {name: n for name, n in want.items() if n}
 
@@ -4115,6 +4177,8 @@ def scale_two_ranks(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig,
     conformer's (8 heads per rank) within 1e-5 of max|logits| of unsharded,
     one draw's phi (the waveform gradient) within 1e-4 of max|phi|. The
     unsharded references run here while the ranks run."""
+    # this process's cached blocks back to the card, which the ranks share
+    torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     t0 = time.perf_counter()
@@ -4435,6 +4499,7 @@ def dp_two_ranks(model: Wav2Vec2Config, data_dir: str):
     ``train_synthetic(mesh=)``'s summary the same on both (less its wall);
     each run's exact launches. Returns (rank 0's counted launches, the
     ranks' timings)."""
+    torch.cuda.empty_cache()  # the card is the ranks' too
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     t0 = time.perf_counter()
@@ -4499,6 +4564,7 @@ def dp_dryrun() -> None:
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
+        torch.cuda.empty_cache()  # the card is the dry run's ranks' too
         res = dryrun_multichip(2, device="cuda")
     for line in out.getvalue().splitlines():
         log(f"dp dryrun: {line}")
@@ -4537,6 +4603,288 @@ def phase_dp(data_dir: str, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- draw chunks, remat
+
+CHUNK_DRAWS = 8
+# (draw_chunk, output_chunk) of each setting; draw_chunk 1 is the yardstick
+CHUNK_SETTINGS = ((1, 0), (2, 0), (4, 0), (8, 64))
+# device memory of one cotangent row in flight (a chunk's draws x a slice's
+# rows), from the float32 paths' one-draw peaks at 149 rows (9.08 GiB base,
+# 11.48 GiB conformer): the predicted peak of a setting is rows x this
+CHUNK_ROW_GIB = {"base float32": 9.08 / 149, "base bf16": 9.18 / 149,
+                 "conformer float32": 11.48 / 149}
+CHUNK_PEAK_LIMIT_GIB = 70.0
+
+
+def chunk_inputs(test_set, n: int = CHUNK_DRAWS):
+    """The 5 dB clip normalized, ``reference_draw``'s background and ``n``
+    explicit draws, on the card."""
+    x = zero_mean_unit_var(torch.from_numpy(test_set[1]["audio"]).cuda())
+    bg = 0.01 * torch.randn((5, N_SAMPLES), generator=torch.Generator().manual_seed(1)).cuda()
+    return x, bg, sample_draws(torch.Generator().manual_seed(8), n, 5)
+
+
+def chunk_k1_596(base: Wav2Vec2Config) -> None:
+    """K1 at 596 cotangent rows (draw_chunk 4 x 149), the feature encoder's
+    largest layer (xbar 596 x 9,599 x 512, past 2^31 elements), float32
+    and bf16, against its plain version on the same inputs: phase 2's
+    tolerances (float32 atol 5e-4 of max|ybar|, rtol 1e-4; bf16 one bf16
+    ulp), taken over slices of 64 rows to bound the memory."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    k, s, ci, co, ti, to = max(k1_main_shapes(base, 596), key=lambda r: r[4])
+    for dtype in (torch.float32, BF16):
+        ybar, w = (t.to(dtype) for t in k1_inputs(gen, 596, k, ci, co, to))
+        reset_launches()
+        got = k1.conv1d_dgrad(ybar, w, s, ti)
+        torch.cuda.synchronize()
+        check(sum(LAUNCHES.values()) == 1, f"chunk K1 596: launches {dict(LAUNCHES)}")
+        want = k1.conv1d_dgrad_plain(ybar, w, s, ti)
+        if dtype == torch.float32:
+            atol, rtol = 5e-4 * float(ybar.abs().max()), 1e-4
+        else:
+            atol, rtol = BF16_ATOL_REL * float(want.abs().max()), BF16_RTOL
+        err = worst = 0.0
+        for i in range(0, 596, 64):
+            e = (got[i:i + 64].float() - want[i:i + 64].float()).abs()
+            err = max(err, float(e.max()))
+            worst = max(worst, float((e - rtol * want[i:i + 64].float().abs()).max()))
+        log(f"check chunk K1 {k1_name(dtype)} B=596 K={k} s={s} T_in={ti} T_out={to} "
+            f"(xbar {596 * ti * ci:,} elements): max_abs_err={err:.3e} (atol {atol:.3e}, "
+            f"rtol {rtol:g})")
+        check(bool(torch.isfinite(got).all()) and worst <= atol,
+              f"chunk K1 596 {dtype}: exceeds tolerance")
+        del ybar, w, got, want
+        torch.cuda.empty_cache()
+
+
+def chunk_path(label: str, mc: Wav2Vec2Config, params, x, bg, draws, smi: str,
+               phi32=None) -> tuple:
+    """expected_phi over the CHUNK_DRAWS draws at each CHUNK_SETTINGS entry:
+    the exact launches (``expected_launches_eg``, no transcript), wall per
+    draw, device-busy share and peak device memory, each beside its
+    prediction; phi held to draw_chunk 1's (float32: within 1e-5 of
+    max|phi|, the same products summed in another order; bf16: no further
+    from the float32 draw_chunk 1 phi ``phi32`` than bf16's draw_chunk 1
+    phi is, x 1.25). Each setting first runs one chunk under the profiler
+    (``profile_calls``; two draws at draw_chunk 1): its device-busy time
+    per draw, and the warm-up of the setting's allocations; the busy share
+    is that time over the unprofiled run's wall per draw. Returns (phi at
+    draw_chunk 1, launches)."""
+    t_out = mc.frames_for_samples(N_SAMPLES)
+    launches: dict = {}
+    phi1 = None
+    torch.cuda.empty_cache()
+    for dc, oc in CHUNK_SETTINGS:
+        ec = ExplainerConfig(nsamples=CHUNK_DRAWS, draw_chunk=dc, output_chunk=oc,
+                             num_background=5)
+        rows = dc * (oc if 0 < oc < t_out else t_out)
+        predicted = rows * CHUNK_ROW_GIB[label]
+        check(predicted <= CHUNK_PEAK_LIMIT_GIB, f"chunk {label}: {predicted:.1f} GiB predicted")
+        f = make_explained_fn(params, mc, ec)
+        want = expected_launches_eg(PipelineConfig(model=mc, explainer=ec), 1, transcripts=0)
+        n = dc if dc > 1 else 2
+        one = (draws[0][:n], draws[1][:n])
+        ec1 = dataclasses.replace(ec, nsamples=n)
+        busy = sum(profile_calls(lambda: expected_phi(f, x, bg, config=ec1, draws=one), n,
+                                 tag=f"chunk profile {label} draw_chunk {dc}",
+                                 host_ops=False).values()) or None
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phi = expected_phi(f, x, bg, config=ec, draws=draws)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / CHUNK_DRAWS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {k: c for k, c in LAUNCHES.items() if c}
+        check(got == want, f"chunk {label} draw_chunk {dc}: launches {got}, {want} expected")
+        for name, c in got.items():
+            launches[name] = launches.get(name, 0) + c
+        check(bool(torch.isfinite(phi).all()) and tuple(phi.shape) == (N_SAMPLES, t_out),
+              f"chunk {label} draw_chunk {dc}: phi {tuple(phi.shape)} not finite")
+        busy_txt = ("not measured" if busy is None
+                    else f"{busy:.1f} ms per draw, {100 * busy / wall:.1f}% of the wall")
+        if phi1 is None:
+            phi1, gate = phi, "yardstick"
+        else:
+            scale = float(phi1.abs().max())
+            err = float((phi - phi1).abs().max())
+            if mc.dtype == "float32":
+                gate = f"max|dphi| / max|phi| = {err / scale:.3e} (limit 1e-5)"
+                check(err <= 1e-5 * scale, f"chunk {label} draw_chunk {dc}: {gate}")
+            else:
+                d_c, d_1 = float((phi - phi32).norm()), float((phi1 - phi32).norm())
+                gate = (f"|phi - phi32 (draw_chunk 1)| = {d_c:.6e} against bf16 draw_chunk 1's "
+                        f"{d_1:.6e} (ratio {d_c / d_1:.4f}, limit 1.25); max|dphi| / max|phi| "
+                        f"against bf16 draw_chunk 1 = {err / scale:.3e} (information)")
+                check(d_c <= 1.25 * d_1, f"chunk {label} draw_chunk {dc}: {gate}")
+        log(f"chunk {label} draw_chunk {dc} output_chunk {oc}: {rows} cotangent rows in "
+            f"flight; wall per draw {wall:.1f} ms ({CHUNK_DRAWS} draws); device busy "
+            f"{busy_txt}; peak {peak:.2f} GiB (predicted {predicted:.1f}); launches exact "
+            f"{json.dumps(got)}; {gate}; {smi}")
+        del phi
+    return phi1, launches
+
+
+def phase_chunk(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig, test_set,
+                smi: str) -> dict:
+    """Expected gradients with a chunk's draws as one batch, at 48,000
+    samples (T_out = 149), full width, random weights from SEED, the kernel
+    impls, 8 explicit draws: base float32 ("highest"), base bf16
+    ("default") and the rel-pos-large conformer float32, each at
+    ``CHUNK_SETTINGS`` (``chunk_path``); K1 at 596 rows against its plain
+    version first. Returns the launches by kernel (the JSON line's
+    launches_chunk)."""
+    t0 = time.perf_counter()
+    chunk_k1_596(model)
+    x, bg, draws = chunk_inputs(test_set)
+    launches: dict = {}
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    phi32, got = chunk_path("base float32", model, params, x, bg, draws, smi)
+    launches.update(got)
+    model16 = dataclasses.replace(model, dtype="bfloat16", matmul_precision="default")
+    with matmul_precision_scope("default"):
+        _, got = chunk_path("base bf16", model16, cast_params_for_compute(params, "bfloat16"),
+                            x, bg, draws, smi, phi32)
+    launches.update(got)
+    del params, phi32
+    cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
+    _, got = chunk_path("conformer float32", conformer, cparams, x, bg, draws, smi)
+    launches.update(got)
+    del cparams
+    torch.cuda.empty_cache()
+    log(f"chunk phase: {time.perf_counter() - t0:.1f} s; launches_chunk "
+        f"{json.dumps(launches)}")
+    return launches
+
+
+def remat_explainer(label: str, mc: Wav2Vec2Config, params, x, bg, smi: str) -> None:
+    """phi of one draw (output_chunk 0) with remat off, "full" and "dots",
+    in turns twice (off, full, dots, dots, full, off) after an untimed
+    draw: within 1e-6 of max|phi| of remat off, bit-equality said; the
+    mean wall of the two draws and the peak each way. cuDNN's deterministic
+    algorithms hold the first conv layer's dgrad to one summation order."""
+    draws = sample_draws(torch.Generator().manual_seed(9), 1, 5)
+    modes = (("remat off", False, "full"), ("remat 'full'", True, "full"),
+             ("remat 'dots'", True, "dots"))
+    walls: dict = {}
+    peaks: dict = {}
+    phis: dict = {}
+    with deterministic_convs():
+        for i, (what, remat, policy) in enumerate(modes[1:2] + modes + modes[::-1]):
+            m = dataclasses.replace(mc, remat_policy=policy)
+            ec = ExplainerConfig(nsamples=1, draw_chunk=1, output_chunk=0, num_background=5,
+                                 remat=remat)
+            f = make_explained_fn(params, m, ec)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phi = expected_phi(f, x, bg, config=ec, draws=draws)
+            torch.cuda.synchronize()
+            if i == 0:
+                continue  # the untimed draw
+            walls.setdefault(what, []).append((time.perf_counter() - t0) * 1e3)
+            peaks[what] = max(peaks.get(what, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            phis.setdefault(what, phi)
+    ref = phis["remat off"]
+    for what, _, policy in modes:
+        phi = phis[what]
+        if what == "remat off":
+            gate = "yardstick"
+        else:
+            scale, err = float(ref.abs().max()), float((phi - ref).abs().max())
+            gate = (f"max|dphi| / max|phi| = {err / scale:.3e} (limit 1e-6), "
+                    f"{'bit-equal' if torch.equal(phi, ref) else 'not bit-equal'}")
+            check(err <= 1e-6 * scale, f"remat {label} {policy}: {gate}")
+        w = walls[what]
+        log(f"remat {label} explainer {what}: wall per draw {float(np.mean(w)):.1f} ms "
+            f"({w[0]:.1f}, {w[1]:.1f} in turns), peak {peaks[what]:.2f} GiB; {gate}; {smi}")
+
+
+def remat_train(cmc: Wav2Vec2ConformerConfig, cparams, batch, smi: str) -> None:
+    """One float32 conformer training step's loss and gradients with remat
+    (``train.make_loss_and_grads``, whose loss asks for it: 2 K2f launches
+    per layer) and without (the same loss at remat=False): wall (median of
+    3 after one warm-up) and peak each way, and each leaf's gradient within
+    1e-6 of its max|g| (floored at GRAD_FLOOR of the model's), under
+    deterministic algorithms."""
+    tcfg = TRAIN_CFG
+    leaves_of = train_mod.trainable_leaves
+
+    def without(params, batch):
+        leaves = leaves_of(params, tcfg)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        try:
+            lengths = batch["audio_lengths"]
+            logits = w2v2_conformer_logits(params, cmc, zero_mean_unit_var(batch["audio"], lengths),
+                                           lengths=lengths, remat=False)
+            loss = ctc_loss(logits, feature_lengths(cmc, lengths), batch["labels"],
+                            batch["label_lengths"])
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        finally:
+            for t in leaves.values():
+                t.requires_grad_(False)
+        return loss.detach(), {k: torch.zeros_like(t) if g is None else g
+                               for (k, t), g in zip(leaves.items(), grads)}
+
+    runs = {"remat on": train_mod.make_loss_and_grads(cmc, tcfg), "remat off": without}
+    out = {}
+    layers = cmc.num_hidden_layers
+    with matmul_precision_scope(cmc.matmul_precision), deterministic_training():
+        for label, fn in runs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            loss, grads = fn(cparams, batch)
+            torch.cuda.synchronize()
+            fwd = LAUNCHES["flash_fwd_bias"]
+            check(fwd == layers * (2 if label == "remat on" else 1),
+                  f"remat train {label}: flash_fwd_bias launched {fwd} times")
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(cparams, batch)[0].item()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out[label] = (float(loss), grads)
+            log(f"remat train conformer {label}: wall per step {float(np.median(walls)):.1f} ms "
+                f"(median of 3 after one), peak {peak:.2f} GiB, loss {float(loss):.6f}, "
+                f"{fwd} flash_fwd_bias launches; {smi}")
+    (l_on, g_on), (l_off, g_off) = out["remat on"], out["remat off"]
+    top = max(float(g.abs().max()) for g in g_off.values())
+    worst, equal = (0.0, ""), True
+    for name, w in g_off.items():
+        err = float((g_on[name] - w).abs().max())
+        rel = err / max(float(w.abs().max()), GRAD_FLOOR * top)
+        equal = equal and torch.equal(g_on[name], w)
+        worst = max(worst, (rel, name))
+    log(f"check remat train conformer gradients: {len(g_off)} leaves, worst max|dg| / "
+        f"max(max|g|, {GRAD_FLOOR:g} x {top:.3e}) = {worst[0]:.3e} at {worst[1]} (limit 1e-6); "
+        f"{'bit-equal' if equal else 'not bit-equal'}; loss {l_on:.6f} / {l_off:.6f}")
+    check(worst[0] <= 1e-6, f"remat train: gradients {worst}")
+    check(abs(l_on - l_off) <= 1e-6 * abs(l_off), "remat train: losses differ")
+
+
+def phase_remat(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig, test_set,
+                smi: str) -> None:
+    """remat on the explainer (base and rel-pos-large conformer, float32,
+    full width) and on the float32 conformer's training step (the training
+    phase's batch)."""
+    t0 = time.perf_counter()
+    x, bg, _ = chunk_inputs(test_set, 0)
+    params = init_wav2vec2_params(SEED, model, device="cuda")
+    remat_explainer("base", model, params, x, bg, smi)
+    del params
+    cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
+    remat_explainer("conformer", conformer, cparams, x, bg, smi)
+    remat_train(conformer, cparams, train_batch(), smi)
+    del cparams
+    torch.cuda.empty_cache()
+    log(f"remat phase: {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_rows(out, errs, extra, launches):
     """The JSON line's entries: one per kernel, base path's first; ``extra``
     adds fields to a kernel's entry."""
@@ -4555,6 +4903,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
               "CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        log(f"clock: {phase} phase done at {time.perf_counter() - t_start:.1f} s")
+
     smi, build_fields = phase_build()
     model = Wav2Vec2Config(attention_impl="pallas", conv_impl="pallas")
     conformer = Wav2Vec2ConformerConfig(attention_impl="pallas", conv_impl="pallas")
@@ -4568,6 +4921,7 @@ def main() -> int:
         errs.update(full_errs)
         extra.update(full_extra)
         test_set = make_test_set()
+        mark("checks")
 
         cfg = PipelineConfig(model=model, explainer=explainer, seed=SEED,
                              data_dir=f"{data_dir}/base")
@@ -4577,6 +4931,7 @@ def main() -> int:
         launches = phase_pipeline("base", cfg, params, test_set, BASE_KERNELS)
         phase_reference(cfg, params, test_set)
         out, f32_per_draw = phase_timing(cfg, params, test_set)
+        mark("base")
         del params
 
         ccfg = PipelineConfig(model=conformer, explainer=explainer, seed=SEED,
@@ -4585,33 +4940,49 @@ def main() -> int:
         claunches = phase_pipeline("conformer", ccfg, cparams, test_set, CONFORMER_KERNELS)
         phase_reference_conformer(ccfg, cparams, test_set, data_dir)
         cout, c32_per_draw = phase_timing_conformer(ccfg, cparams, test_set, out["conv_dgrad"])
+        mark("conformer")
         del cparams
         c32_cli_records = phase_cli(base_archive, data_dir)
+        mark("cli")
         model16 = Wav2Vec2Config(dtype="bfloat16", matmul_precision="default",
                                  attention_impl="pallas", conv_impl="pallas")
         b_errs, b_extra, blaunches, bout = phase_bf16(model16, explainer, test_set, data_dir,
                                                       f32_per_draw)
         errs.update(b_errs)
+        mark("bf16")
         extra.update(b_extra)
         conformer16 = dataclasses.replace(conformer, dtype="bfloat16",
                                           matmul_precision="default")
         c_errs, c_extra, c16launches, c16out = phase_bf16_conformer(
             conformer16, explainer, test_set, data_dir, c32_per_draw, c32_cli_records)
         errs.update(c_errs)
+        mark("bf16 conformer")
         extra.update(c_extra)
         phase_explainers(model, conformer, explainer, test_set, data_dir, smi)
+        mark("explainers")
         phase_compare(model, base_archive, data_dir, smi)
+        mark("compare")
         for name, count in phase_mel_conformer(test_set, smi).items():
             extra[name] = {**extra.get(name, {}), "launches_mel": count}
+        mark("mel")
         trained = phase_train(model, conformer, base_archive, data_dir, smi)
+        mark("train")
         for name in ROUTES:
             extra[name] = {**extra.get(name, {}), "launches_train": trained.get(name, 0)}
         scaled = phase_scale(base_archive, data_dir, smi)
+        mark("scale")
         for name in ROUTES:
             extra[name] = {**extra.get(name, {}), "launches_scale": scaled.get(name, 0)}
         dp = phase_dp(data_dir, smi)
+        mark("dp")
         for name in ROUTES:
             extra[name] = {**extra.get(name, {}), "launches_dp": dp.get(name, 0)}
+        chunked = phase_chunk(model, conformer, test_set, smi)
+        mark("chunk")
+        for name in ROUTES:
+            extra[name] = {**extra.get(name, {}), "launches_chunk": chunked.get(name, 0)}
+        phase_remat(model, conformer, test_set, smi)
+        mark("remat")
         for name, fields in build_fields.items():
             extra[name] = {**extra.get(name, {}), **fields}
         kernels = (kernel_rows(out, errs, extra, launches)
