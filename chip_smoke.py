@@ -109,8 +109,7 @@ each reported on its own lines:
    residual batch of 2; K2 at 16 and 21 clips, K2f at 16; "timing
    explainers" lines); DeepSHAP (5 background rows), KernelSHAP and LIME
    (64 coalitions of 32 segments) through run_shap_pipeline on the base
-   path in float32 and bf16, and DeepSHAP on the conformer (its widths,
-   12 of its 24 layers), each with the
+   path in float32 and bf16, and DeepSHAP on the conformer, each with the
    exact launch counts of its kernels; DeepSHAP's phi of one background
    row and KernelSHAP's and LIME's segment values, model output and base
    value (intercept) through the kernels against plain PyTorch (2e-3 of
@@ -210,9 +209,10 @@ each reported on its own lines:
    596 cotangent rows (4 draws x 149; xbar past 2^31 elements) against
    its plain version in float32 and bf16; then base float32, base bf16
    and the rel-pos-large conformer float32 at draw_chunk 1, 2, 4 (all 149
-   rows per backward) and 8 at output_chunk 64: the exact launches
-   (``expected_launches_eg``), wall per draw, device-busy share (one
-   profiled chunk), peak memory beside its prediction, and phi against
+   rows per backward) and 8 at output_chunk 64, each with remat on and
+   off: the exact launches (``expected_launches_eg``), wall per draw,
+   device-busy share (one profiled chunk, remat on), peak memory beside
+   its prediction, and phi against
    draw_chunk 1's (float32 within 1e-5 of max|phi|; bf16 no further from
    float32's draw_chunk 1 phi than bf16's draw_chunk 1 phi is, x 1.25).
    Its launches are the JSON line's ``launches_chunk``;
@@ -2305,9 +2305,6 @@ def phase_bf16_conformer(model16: Wav2Vec2ConformerConfig, explainer: ExplainerC
 # ---------------------------------------------------------------- explainers
 
 METHODS = ("deep", "kernel", "lime")
-# DeepSHAP's conformer runs 12 of the rel-pos-large's 24 layers (its widths
-# unchanged), to keep the script inside its time limit
-DEEP_CONFORMER_LAYERS = 12
 # DeepSHAP's background rows; KernelSHAP's coalitions and LIME's
 # perturbations per sample (4 batches of 16 whole clips) over 32 segments
 DEEP_BACKGROUND, COALITIONS, SEGMENTS = 5, 64, 32
@@ -2767,7 +2764,6 @@ def phase_explainers(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig,
         time_method(f"{method} base bf16", cfg16, cast_params_for_compute(params, "bfloat16"),
                     test_set, smi)
     del params
-    conformer = dataclasses.replace(conformer, num_hidden_layers=DEEP_CONFORMER_LAYERS)
     cparams = init_w2v2_conformer_params(SEED, conformer, device="cuda")
     cfg = PipelineConfig(model=conformer, explainer=method_config(explainer, "deep"),
                          seed=SEED, data_dir=f"{data_dir}/explain_deep_conformer")
@@ -3220,9 +3216,18 @@ def nemo_state_dict(params) -> dict:
 
 def mel_explained_fn(logits_fn, params, cfg, ec: ExplainerConfig, frames: int):
     """f: flattened features [frames * input_dim] -> the explained outputs of
-    each output frame (the max head over the vocab)."""
-    return lambda a: aggregation_head(logits_fn(params, cfg, a.reshape(frames, cfg.input_dim)),
-                                      ec.aggregation)
+    each output frame (the max head over the vocab), each encoder layer
+    recomputed in the backward when ``ec.remat``."""
+    return lambda a: aggregation_head(logits_fn(params, cfg, a.reshape(frames, cfg.input_dim),
+                                                remat=ec.remat), ec.aggregation)
+
+
+def mel_eg_passes(ec: ExplainerConfig, t_out: int) -> tuple:
+    """(flash forward passes, backward calls) of ``mel_eg``'s run over each
+    encoder layer: f(x) and the base value (one vmapped forward), then per
+    draw chunk ``eg_passes``' forward passes and backward calls."""
+    chunks, calls, passes = eg_passes(ec, t_out)
+    return 2 + chunks * passes, chunks * calls
 
 
 def mel_eg(label: str, f, x, bg, ec: ExplainerConfig, draws, expect: dict):
@@ -3289,9 +3294,9 @@ def nemo_float32(cfg, params, feats, x, bg, ec, draws) -> dict:
     check(tk == tp, f"{label}: transcripts differ from the plain twin's")
 
     f = mel_explained_fn(nemo_ctc_logits, params, cfg, ec, feats.shape[1])
-    n = num_draws(ec)
-    expect = {"flash_fwd_bias": (n + 2) * cfg.num_layers,
-              "flash_dq_dbias": n * cfg.num_layers, "flash_dkv_bias": n * cfg.num_layers}
+    fwd, bwd = mel_eg_passes(ec, t_out)
+    expect = {"flash_fwd_bias": fwd * cfg.num_layers,
+              "flash_dq_dbias": bwd * cfg.num_layers, "flash_dkv_bias": bwd * cfg.num_layers}
     phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
     check(tuple(phi.shape) == (x.numel(), t_out), f"{label}: phi {tuple(phi.shape)}")
     reset_launches()
@@ -3320,10 +3325,10 @@ def nemo_bf16(cfg, params, feats, x, bg, ec, draws) -> dict:
     cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
     params16 = cast_params_for_compute(params, "bfloat16")
     frames = feats.shape[1]
-    n = num_draws(ec)
-    expect = {"flash_fwd_bias_bf16": (n + 2) * cfg.num_layers,
-              "flash_dq_dbias_bf16": n * cfg.num_layers,
-              "flash_dkv_bias_bf16": n * cfg.num_layers}
+    fwd, bwd = mel_eg_passes(ec, cfg.subsampled_length(frames))
+    expect = {"flash_fwd_bias_bf16": fwd * cfg.num_layers,
+              "flash_dq_dbias_bf16": bwd * cfg.num_layers,
+              "flash_dkv_bias_bf16": bwd * cfg.num_layers}
     with matmul_precision_scope("default"):
         with torch.no_grad():
             lk = nemo_ctc_logits(params16, cfg16, feats)
@@ -3362,9 +3367,9 @@ def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
     randomize_affines(params, SEED + 23)
     frames, layers = test_feats.shape[1], cfg.num_layers
     f = mel_explained_fn(conformer_logits, params, cfg, ec, frames)
-    n = num_draws(ec)
-    expect = {"flash_fwd": (n + 2) * layers, "flash_dq": n * layers,
-              "flash_dkv": n * layers}
+    fwd, bwd = mel_eg_passes(ec, frames)
+    expect = {"flash_fwd": fwd * layers, "flash_dq": bwd * layers,
+              "flash_dkv": bwd * layers}
     phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
     check(tuple(phi.shape) == (x.numel(), frames), f"{label}: phi {tuple(phi.shape)}")
     phi_p = expected_phi(mel_explained_fn(conformer_logits, params, plain, ec, frames), x, bg,
@@ -3388,8 +3393,8 @@ def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
 
     def dual_fn(c):
         return lambda d: aggregation_head(
-            conformer_logits(params, c, d.reshape(2, frames, c.input_dim), rules=rules),
-            ec.aggregation)[0]
+            conformer_logits(params, c, d.reshape(2, frames, c.input_dim), rules=rules,
+                             remat=ec.remat), ec.aggregation)[0]
 
     reset_launches()
     torch.cuda.synchronize()
@@ -3399,7 +3404,9 @@ def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
     wall = time.perf_counter() - t0
     got = {k: c for k, c in LAUNCHES.items() if c}
     nb = bg.shape[0]
-    want = {"flash_fwd": (2 * nb + 1) * layers, "flash_dq": nb * layers,
+    # per row the dual forward, remat's recompute in its backward, f at (r, r);
+    # then f at (x, x)
+    want = {"flash_fwd": ((2 + ec.remat) * nb + 1) * layers, "flash_dq": nb * layers,
             "flash_dkv": nb * layers}
     log(f"mel {label} deep (group norm): {nb} background rows, wall {wall:.3f} s "
         f"({wall / nb * 1e3:.1f} ms per row); launches {json.dumps(got)}")
@@ -4613,6 +4620,10 @@ CHUNK_SETTINGS = ((1, 0), (2, 0), (4, 0), (8, 64))
 # 11.48 GiB conformer): the predicted peak of a setting is rows x this
 CHUNK_ROW_GIB = {"base float32": 9.08 / 149, "base bf16": 9.18 / 149,
                  "conformer float32": 11.48 / 149}
+# the activations a draw keeps over the encoder layers without remat, from
+# the remat phase's one-draw peaks off and "full" on the card (base 9.09 -
+# 9.04 GiB, conformer 11.28 - 10.86); bf16 taken as float32's
+CHUNK_KEPT_GIB = {"base float32": 0.05, "base bf16": 0.05, "conformer float32": 0.42}
 CHUNK_PEAK_LIMIT_GIB = 70.0
 
 
@@ -4657,19 +4668,39 @@ def chunk_k1_596(base: Wav2Vec2Config) -> None:
         torch.cuda.empty_cache()
 
 
+def chunk_gate(label: str, mc: Wav2Vec2Config, phi, phi1, phi32) -> str:
+    """phi held to draw_chunk 1's ``phi1`` (float32: within 1e-5 of
+    max|phi|, the same products summed in another order; bf16: no further
+    from the float32 draw_chunk 1 phi ``phi32`` than ``phi1`` is, x 1.25).
+    Returns the gate's text."""
+    scale = float(phi1.abs().max())
+    err = float((phi - phi1).abs().max())
+    if mc.dtype == "float32":
+        gate = f"max|dphi| / max|phi| = {err / scale:.3e} (limit 1e-5)"
+        check(err <= 1e-5 * scale, f"{label}: {gate}")
+        return gate
+    d_c, d_1 = float((phi - phi32).norm()), float((phi1 - phi32).norm())
+    gate = (f"|phi - phi32 (draw_chunk 1)| = {d_c:.6e} against bf16 draw_chunk 1's "
+            f"{d_1:.6e} (ratio {d_c / d_1:.4f}, limit 1.25); max|dphi| / max|phi| "
+            f"against bf16 draw_chunk 1 = {err / scale:.3e} (information)")
+    check(d_c <= 1.25 * d_1, f"{label}: {gate}")
+    return gate
+
+
 def chunk_path(label: str, mc: Wav2Vec2Config, params, x, bg, draws, smi: str,
                phi32=None) -> tuple:
-    """expected_phi over the CHUNK_DRAWS draws at each CHUNK_SETTINGS entry:
-    the exact launches (``expected_launches_eg``, no transcript), wall per
-    draw, device-busy share and peak device memory, each beside its
-    prediction; phi held to draw_chunk 1's (float32: within 1e-5 of
-    max|phi|, the same products summed in another order; bf16: no further
-    from the float32 draw_chunk 1 phi ``phi32`` than bf16's draw_chunk 1
-    phi is, x 1.25). Each setting first runs one chunk under the profiler
-    (``profile_calls``; two draws at draw_chunk 1): its device-busy time
-    per draw, and the warm-up of the setting's allocations; the busy share
-    is that time over the unprofiled run's wall per draw. Returns (phi at
-    draw_chunk 1, launches)."""
+    """expected_phi over the CHUNK_DRAWS draws at each CHUNK_SETTINGS entry,
+    with remat on (the default) and then off: the exact launches
+    (``expected_launches_eg``, no transcript), wall per draw and peak device
+    memory each way, each beside its prediction, the device-busy share
+    with remat on; phi at every setting and either way through
+    ``chunk_gate`` against draw_chunk 1's with remat on, and with remat off
+    also against the same setting's with remat on (information). Each
+    setting first runs one chunk under the profiler (``profile_calls``; two
+    draws at draw_chunk 1): its device-busy time per draw, and the warm-up
+    of the setting's allocations; the busy share is that time over the
+    unprofiled run's wall per draw. Returns (phi at draw_chunk 1 with remat
+    on, launches)."""
     t_out = mc.frames_for_samples(N_SAMPLES)
     launches: dict = {}
     phi1 = None
@@ -4681,48 +4712,54 @@ def chunk_path(label: str, mc: Wav2Vec2Config, params, x, bg, draws, smi: str,
         predicted = rows * CHUNK_ROW_GIB[label]
         check(predicted <= CHUNK_PEAK_LIMIT_GIB, f"chunk {label}: {predicted:.1f} GiB predicted")
         f = make_explained_fn(params, mc, ec)
-        want = expected_launches_eg(PipelineConfig(model=mc, explainer=ec), 1, transcripts=0)
         n = dc if dc > 1 else 2
         one = (draws[0][:n], draws[1][:n])
         ec1 = dataclasses.replace(ec, nsamples=n)
         busy = sum(profile_calls(lambda: expected_phi(f, x, bg, config=ec1, draws=one), n,
                                  tag=f"chunk profile {label} draw_chunk {dc}",
                                  host_ops=False).values()) or None
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        phi = expected_phi(f, x, bg, config=ec, draws=draws)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / CHUNK_DRAWS
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        got = {k: c for k, c in LAUNCHES.items() if c}
-        check(got == want, f"chunk {label} draw_chunk {dc}: launches {got}, {want} expected")
-        for name, c in got.items():
-            launches[name] = launches.get(name, 0) + c
-        check(bool(torch.isfinite(phi).all()) and tuple(phi.shape) == (N_SAMPLES, t_out),
-              f"chunk {label} draw_chunk {dc}: phi {tuple(phi.shape)} not finite")
-        busy_txt = ("not measured" if busy is None
-                    else f"{busy:.1f} ms per draw, {100 * busy / wall:.1f}% of the wall")
-        if phi1 is None:
-            phi1, gate = phi, "yardstick"
-        else:
-            scale = float(phi1.abs().max())
-            err = float((phi - phi1).abs().max())
-            if mc.dtype == "float32":
-                gate = f"max|dphi| / max|phi| = {err / scale:.3e} (limit 1e-5)"
-                check(err <= 1e-5 * scale, f"chunk {label} draw_chunk {dc}: {gate}")
+        phi_on = None
+        for remat in (True, False):
+            ec_r = dataclasses.replace(ec, remat=remat)
+            what = f"chunk {label} draw_chunk {dc} output_chunk {oc} remat {'on' if remat else 'off'}"
+            want = expected_launches_eg(PipelineConfig(model=mc, explainer=ec_r), 1,
+                                        transcripts=0)
+            f = make_explained_fn(params, mc, ec_r)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phi = expected_phi(f, x, bg, config=ec_r, draws=draws)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / CHUNK_DRAWS
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = {k: c for k, c in LAUNCHES.items() if c}
+            check(got == want, f"{what}: launches {got}, {want} expected")
+            for name, c in got.items():
+                launches[name] = launches.get(name, 0) + c
+            check(bool(torch.isfinite(phi).all()) and tuple(phi.shape) == (N_SAMPLES, t_out),
+                  f"{what}: phi {tuple(phi.shape)} not finite")
+            if phi1 is None:
+                phi1, gate = phi, "yardstick"
             else:
-                d_c, d_1 = float((phi - phi32).norm()), float((phi1 - phi32).norm())
-                gate = (f"|phi - phi32 (draw_chunk 1)| = {d_c:.6e} against bf16 draw_chunk 1's "
-                        f"{d_1:.6e} (ratio {d_c / d_1:.4f}, limit 1.25); max|dphi| / max|phi| "
-                        f"against bf16 draw_chunk 1 = {err / scale:.3e} (information)")
-                check(d_c <= 1.25 * d_1, f"chunk {label} draw_chunk {dc}: {gate}")
-        log(f"chunk {label} draw_chunk {dc} output_chunk {oc}: {rows} cotangent rows in "
-            f"flight; wall per draw {wall:.1f} ms ({CHUNK_DRAWS} draws); device busy "
-            f"{busy_txt}; peak {peak:.2f} GiB (predicted {predicted:.1f}); launches exact "
-            f"{json.dumps(got)}; {gate}; {smi}")
-        del phi
+                gate = chunk_gate(what, mc, phi, phi1, phi32)
+            if remat:
+                phi_on, extra = phi, ("device busy " + (
+                    "not measured" if busy is None
+                    else f"{busy:.1f} ms per draw, {100 * busy / wall:.1f}% of the wall"))
+                pred = f"predicted {predicted:.1f}"
+            else:
+                err = float((phi - phi_on).abs().max()) / float(phi_on.abs().max())
+                extra = (f"device busy not measured; against remat on: max|dphi| / max|phi| = "
+                         f"{err:.3e}, {'bit-equal' if torch.equal(phi, phi_on) else 'not bit-equal'}"
+                         f" (information)")
+                pred = (f"predicted {predicted + dc * CHUNK_KEPT_GIB[label]:.1f}: remat on's "
+                        f"+ {dc} x {CHUNK_KEPT_GIB[label]:.2f}")
+            log(f"{what}: {rows} cotangent rows in flight; wall per draw {wall:.1f} ms "
+                f"({CHUNK_DRAWS} draws); {extra}; peak {peak:.2f} GiB ({pred}); launches "
+                f"exact {json.dumps(got)}; {gate}; {smi}")
+            del phi
+        del phi_on
     return phi1, launches
 
 
@@ -4732,7 +4769,8 @@ def phase_chunk(model: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig, test_
     samples (T_out = 149), full width, random weights from SEED, the kernel
     impls, 8 explicit draws: base float32 ("highest"), base bf16
     ("default") and the rel-pos-large conformer float32, each at
-    ``CHUNK_SETTINGS`` (``chunk_path``); K1 at 596 rows against its plain
+    ``CHUNK_SETTINGS`` with remat on and off (``chunk_path``); K1 at 596
+    rows against its plain
     version first. Returns the launches by kernel (the JSON line's
     launches_chunk)."""
     t0 = time.perf_counter()
