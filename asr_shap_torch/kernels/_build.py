@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("conv_dgrad", "conv_dgrad_bf16", "flash_attention", "flash_bwd_bf16",
-           "flash_fwd_bf16")
+           "flash_fwd_bf16", "gemm_tf32x3")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +38,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_fwd_bias": 0, "flash_dq_dbias": 0, "flash_dkv_bias": 0,
     "conv_dgrad_bf16": 0, "flash_fwd_bf16": 0, "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
     "flash_fwd_bias_bf16": 0, "flash_dq_dbias_bf16": 0, "flash_dkv_bias_bf16": 0,
+    "gemm_tf32x3": 0,
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

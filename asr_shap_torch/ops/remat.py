@@ -43,6 +43,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from asr_shap_torch.kernels import gemm
+
 REMAT_POLICIES = ("full", "dots")
 
 # the "dots" recorder or replayer of the layer running now, read by ``dot``:
@@ -53,9 +55,59 @@ _tape = threading.local()
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for a weight ``w`` [in, out]: a product without batch dims,
-    which a "dots" forward records and its recompute replays."""
+    which a "dots" forward records and its recompute replays. Where its
+    input gradient will take the 3xTF32 kernel (``gemm.takes``: the
+    operands' dtype and device and the precision, all known now), the
+    product is ``Dot``; elsewhere the plain ``x @ w``, with no Function's
+    cost on the host."""
     tape = getattr(_tape, "active", None)
-    return x @ w if tape is None else tape(x, w)
+    if tape is not None:
+        return tape(x, w)
+    return Dot.apply(x, w) if gemm.takes(x, w) else x @ w
+
+
+def _dot_grads(ctx, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """The gradients of ``x @ w`` that autograd asks for. The input gradient
+    ``g @ w.T`` runs the 3xTF32 kernel where ``gemm.takes`` it (float32 on
+    the card under "highest"), else ``torch.matmul``; the weight gradient,
+    which only training forms, stays on ``torch.matmul``."""
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        gx = gemm.GemmNT.apply(g, w) if gemm.takes(g, w) else g @ w.transpose(0, 1)
+    if ctx.needs_input_grad[1]:
+        gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) @ g.reshape(-1, g.shape[-1])
+    return gx, gw
+
+
+class Dot(torch.autograd.Function):
+    """``x @ w``, with the gradients of ``_dot_grads``."""
+
+    @staticmethod
+    def forward(x, w):
+        return x @ w
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        # x only for the weight gradient, as autograd's own matmul keeps it
+        x, w = inputs
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _dot_grads(ctx, x, w, g)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        """A vmapped ``x`` (the draws of a chunk) keeps its vmapped dimension
+        where it is, as one more leading dimension of the product (moved
+        first only if it is the last): one product, and autograd's node on
+        the physical tensors, whose backward meets the cotangent rows at
+        ``GemmNT``'s rule."""
+        if in_dims[1] is not None:
+            raise NotImplementedError("dot: batched weights under vmap")
+        x, dim = gemm.leading_vmapped(x, in_dims[0])
+        return Dot.apply(x, w), dim
 
 
 @contextlib.contextmanager
@@ -86,11 +138,7 @@ class SavedDot(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        gx = g @ w.transpose(0, 1) if ctx.needs_input_grad[0] else None
-        gw = None
-        if ctx.needs_input_grad[1]:
-            gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) @ g.reshape(-1, g.shape[-1])
-        return gx, gw, None
+        return (*_dot_grads(ctx, x, w, g), None)
 
 
 def _replay(saved: Sequence[torch.Tensor]):

@@ -37,7 +37,13 @@ each reported on its own lines:
    residual row, five clips with a mask length each, 100 and 500 keys and
    D = 32; K1, K3 and K4, K3b and K4f and their plain versions also against
    float64; K2 also at the sweep's batched shapes, 8 clips, no bias,
-   T = 149 and 312, D = 64 and 32);
+   T = 149 and 312, D = 64 and 32); and the 3xTF32 input-gradient GEMM
+   of the linears (csrc/gemm_tf32x3.cu; its registers, blocks per SM and
+   SASS: TF32 warpgroup products only) at every linear shape of both
+   configurations at the 3 s cells' M (64 rows x 8 draws x 149) and at
+   ragged edges, against float64 beside cuBLAS FFMA (at most 2x its error),
+   each shape timed beside its bound and FFMA (its JSON row is per draw of
+   the base path);
 3. drive each path: run_shap_pipeline on a 48,000-sample clip and its 5 dB
    white-noise mix, 4 expected-gradients draws each, with the launch counts
    set to 0 just before and read just after; check phi, the store and the
@@ -298,6 +304,7 @@ from asr_shap_torch.explain.lime import lime_attributions, lime_masks
 from asr_shap_torch.kernels import LAUNCHES, build_all, reset_launches
 from asr_shap_torch.kernels import _build
 from asr_shap_torch.kernels import conv_dgrad as k1
+from asr_shap_torch.kernels import gemm
 from asr_shap_torch.kernels import flash_attention as fa
 from asr_shap_torch.metrics.eta_raw import eta_raw
 from asr_shap_torch.metrics.wer import wer, word_edit_counts
@@ -381,6 +388,8 @@ ROUTES = {
                             "asr_shap/kernels/flash_attention.py:118"),
     "flash_dq_dbias_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:247"),
     "flash_dkv_bias_bf16": ("asr_shap_torch/csrc/flash_bwd_bf16.cu", "asr_shap/kernels/flash_attention.py:282"),
+    # no Pallas kernel: the reference leaves dot to XLA at Precision.HIGHEST
+    "gemm_tf32x3": ("asr_shap_torch/csrc/gemm_tf32x3.cu", "none (dot: XLA, Precision.HIGHEST)"),
 }
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth.
@@ -1084,6 +1093,115 @@ def phase_checks(cfg: Wav2Vec2Config):
     return errs, extra
 
 
+# ---------------------------------------------------------------- GEMM
+
+# the draws' cotangent rows of one backward call in the 3 s cells: 64 rows x 8
+# draws x T_out 149, the M of every input-gradient product
+GEMM_M = 64 * 8 * 149
+# ragged edges: (M, N, K), none a multiple of the 128 x 128 x 32 tile
+GEMM_EDGES = ((1, 4, 4), (7, 32, 32), (129, 192, 100), (300, 260, 1028), (128, 768, 36))
+
+
+@contextlib.contextmanager
+def plain_linears():
+    """Around a plain twin: its linears' input gradients on torch.matmul.
+    ``dot`` routes them by dtype and precision alone (``gemm.takes``), so a
+    float32 twin under "highest" would take the GEMM as the kernel path
+    does, and a fault of the GEMM's folds would show on both sides alike;
+    the route is turned off here, on the twin's side only."""
+    takes = gemm.takes
+    gemm.takes = lambda g, w: False
+    try:
+        yield
+    finally:
+        gemm.takes = takes
+
+
+def gemm_error(a, b, got, ffma, rows) -> tuple:
+    """(the kernel's, FFMA's) max abs error against float64 over ``rows``."""
+    ref = a[rows].double() @ b.double().T
+    return (float((got[rows].double() - ref).abs().max()),
+            float((ffma[rows].double() - ref).abs().max()))
+
+
+def phase_gemm(base: Wav2Vec2Config, conformer: Wav2Vec2ConformerConfig):
+    """The 3xTF32 input-gradient GEMM (gemm_tf32x3) as built, and at the
+    cells' shapes: every distinct (N, K) of both configurations'
+    ``linear_shapes`` at M = GEMM_M, against float64 (its first 2,048 and
+    last 512 rows) beside cuBLAS FFMA (``a @ b.T`` with TF32 off) on the
+    same inputs, at most 2x FFMA's error; the ragged edges at 2x FFMA's
+    error or 2^-20 of max(|a| |b|^T); each shape timed beside its bound and
+    FFMA. Returns (its max abs error, the JSON row per draw of the base
+    path: each product's time x its count, over GEMM_M rows, x the draw's
+    T_out^2 rows; the registers, blocks per SM and shared bytes)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    info_fn = _build.c_function("gemm_tf32x3", "gemm_tf32x3_info", (ctypes.c_void_p,))
+    info = (ctypes.c_int * 4)()
+    check(info_fn(ctypes.addressof(info)) == 0, "gemm: info failed")
+    regs, spilled, smem, per_sm = info
+    log(f"kernel gemm_tf32x3: {regs} registers, {spilled} bytes spilled, {smem} bytes of "
+        f"shared memory per block, {per_sm} blocks per SM")
+    bodies = [body for fn, body in sass_functions(_build.build_all(["gemm_tf32x3"])[
+        "gemm_tf32x3"]).items() if "gemm_tf32x3_wgmma_kernel" in fn]
+    check(len(bodies) == 1, f"sass: {len(bodies)} GEMM kernels, 1 expected")
+    hgmma = [line for line in bodies[0].splitlines() if "HGMMA" in line]
+    tf32 = sum("TF32" in line for line in hgmma)
+    log(f"sass gemm_tf32x3_wgmma_kernel: {tf32} HGMMA ... TF32 of {len(hgmma)} HGMMA")
+    check(tf32 > 0 and tf32 == len(hgmma), "sass gemm_tf32x3: not only TF32 warpgroup products")
+    for m, n, k in GEMM_EDGES:
+        a = torch.randn(m, k, device="cuda", generator=gen)
+        b = torch.randn(n, k, device="cuda", generator=gen) / k ** 0.5
+        got, ffma = gemm.gemm_nt(a, b), a @ b.T
+        err, ferr = gemm_error(a, b, got, ffma, slice(None))
+        floor = 2.0 ** -20 * float((a.abs() @ b.abs().T).max())
+        log(f"check gemm edge M={m} N={n} K={k}: max_abs_err={err:.3e} (FFMA {ferr:.3e}, "
+            f"floor {floor:.3e})")
+        check(err <= max(2 * ferr, floor), f"gemm edge M={m} N={n} K={k}: error {err:.3e}")
+    rows_per_draw = base.frames_for_samples(N_SAMPLES) ** 2
+    counts = {}
+    for mc in (base, conformer):
+        for shape in linear_shapes(mc):
+            counts.setdefault(shape, {"base": 0, "conformer": 0})
+            counts[shape]["base" if mc is base else "conformer"] += 1
+    worst, row = 0.0, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    m = GEMM_M
+    for (n_in, k_out), used in counts.items():
+        n, k = n_in, k_out  # b = w [in, out]: N = in, K = out
+        a = torch.randn(m, k, device="cuda", generator=gen)
+        b = torch.randn(n, k, device="cuda", generator=gen) / k ** 0.5
+        got, ffma = gemm.gemm_nt(a, b), a @ b.T
+        torch.cuda.synchronize()
+        err, ferr = gemm_error(a, b, got, ffma, slice(0, 2048))
+        err_t, ferr_t = gemm_error(a, b, got, ffma, slice(m - 512, m))
+        err, ferr = max(err, err_t), max(ferr, ferr_t)
+        check(err <= 2 * ferr, f"gemm M={m} N={n} K={k}: error {err:.3e}, FFMA's {ferr:.3e}")
+        ms = time_ms(lambda: gemm.gemm_nt(a, b), 10)
+        fms = time_ms(lambda: a @ b.T, 10)
+        # one TF32 product (not the port's precision): the tensor cores'
+        # practical rate at this shape, a third of which 3xTF32 could reach
+        with matmul_precision_scope("default"):
+            tms = time_ms(lambda: a @ b.T, 10)
+        fl, nb = 2.0 * m * n * k, 4.0 * (m * k + n * k + m * n)
+        b_ms, b_by = bound_3xtf32(fl, nb)
+        log(f"timing gemm M={m} N={n} K={k}: ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+            f"{100 * b_ms / ms:.1f}%) TFLOP/s={fl / ms / 1e9:.1f}; library_ms(cuBLAS FFMA)="
+            f"{fms:.4f} TFLOP/s={fl / fms / 1e9:.1f}; cuBLAS one TF32 product {tms:.4f} ms "
+            f"(x3 = {3 * tms:.4f}); max_abs_err={err:.3e} (FFMA {ferr:.3e}, ratio "
+            f"{err / ferr:.3f}); per backward: base {used['base']}, conformer "
+            f"{used['conformer']}")
+        worst = max(worst, err)
+        scale = used["base"] * rows_per_draw / m
+        for key, val in (("ms", ms), ("plain_ms", fms), ("bound_ms", b_ms),
+                         ("library_ms", fms)):
+            row[key] += scale * val
+        del a, b, got, ffma
+    row.update(bound_by="operations (3xTF32)", device_ms=None)
+    log(f"timing gemm per draw of the base path: ms={row['ms']:.3f} bound_ms="
+        f"{row['bound_ms']:.3f} library_ms(cuBLAS FFMA)={row['library_ms']:.3f}")
+    torch.cuda.empty_cache()
+    return worst, row, {"registers": regs, "blocks_per_sm": per_sm, "shared_bytes": smem}
+
+
 def phase_checks_full_bias(cfg: Wav2Vec2ConformerConfig, dtype=torch.float32):
     """K2f, K3b and K4f against their plain versions at the conformer
     slice's shapes: BH = 16, T = 149, D = 64, N = 149 * 16 = 2,384, with a
@@ -1211,8 +1329,9 @@ def reference_draw(label: str, cfg: PipelineConfig, params, test_set):
     plain_cfg = dataclasses.replace(cfg.model, attention_impl="xla", conv_impl="lax")
     phi_k = expected_phi(make_explained_fn(params, cfg.model, ec), x, bg,
                          config=ec, draws=draws)
-    phi_p = expected_phi(make_explained_fn(params, plain_cfg, ec), x, bg,
-                         config=ec, draws=draws)
+    with plain_linears():
+        phi_p = expected_phi(make_explained_fn(params, plain_cfg, ec), x, bg,
+                             config=ec, draws=draws)
     scale = float(phi_p.abs().max())
     err = compare(f"phi {label} full width, kernels vs plain PyTorch (one draw)", phi_k,
                   phi_p, 2e-3 * scale, 0.0, f"2e-3 of max|phi|: float32 through "
@@ -1333,6 +1452,8 @@ def cli_run(label: str, archive: str, data_dir: str, args, arch="wav2vec2"):
     fwd = kernels[1]
     if not k1.eligible(cfg.conv_dim[0], cfg.conv_dim[1], cfg.conv_stride[1], 1, 0):
         kernels = kernels[1:]  # no conv layer K1 takes (narrow conv channels)
+    if gemm_linears(cfg):
+        kernels = (*kernels, "gemm_tf32x3")
     (run,), run_launches, run_wall = run_cli(label, ["run-shap", *model, "--data-dir", data_dir,
                                                      *args])
     for name in kernels:
@@ -1871,23 +1992,71 @@ def eg_passes(ec: ExplainerConfig, t_out: int) -> tuple:
     return chunks, calls, 1 + (calls if ec.remat else 0)
 
 
+def linear_shapes(mc) -> list:
+    """(in, out) of each linear of a Wav2Vec2-family model whose input
+    gradient a backward call forms: the feature projection, per layer q, k,
+    v, out and the FFN's two (the Wav2Vec2-Conformer: both macaron FFNs, and
+    the conv module's pw1 and pw2; its rel-pos projection reads the constant
+    position table and forms none), and lm_head."""
+    h, f = mc.hidden_size, mc.intermediate_size
+    layer = [(h, h)] * 4 + [(h, f), (f, h)]
+    if isinstance(mc, Wav2Vec2ConformerConfig):
+        layer += [(h, f), (f, h), (h, 2 * h), (h, h)]
+    return [(mc.feat_proj_dim, h), (h, mc.vocab_size)] + layer * mc.num_hidden_layers
+
+
+def gemm_linears(mc) -> int:
+    """gemm_tf32x3 launches per backward call of a Wav2Vec2-family model:
+    one per linear of ``linear_shapes`` that ``gemm.takes`` (float32 under
+    "highest", an eligible shape); none in bf16 or under "default"."""
+    if mc.dtype != "float32" or mc.matmul_precision != "highest":
+        return 0
+    return sum(gemm.eligible(*shape) for shape in linear_shapes(mc))
+
+
+def gemm_linears_tree(params) -> int:
+    """gemm_tf32x3 launches per float32 backward call under "highest" of a
+    model given by its params (the mel families): each linear (a 2-D
+    "kernel") at an eligible shape but a rel-pos projection ("pos"), whose
+    input is the constant position table."""
+    count = 0
+
+    def walk(node, key=None):
+        nonlocal count
+        if isinstance(node, dict):
+            kernel = node.get("kernel")
+            if torch.is_tensor(kernel) and kernel.ndim == 2:
+                count += key != "pos" and gemm.eligible(*kernel.shape)
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, key)
+
+    walk(params)
+    return count
+
+
 def expected_launches_eg(cfg: PipelineConfig, samples: int, n_samples: int = N_SAMPLES,
                          transcripts: int = 1) -> dict:
     """Launches of each kernel of the path on an expected-gradients run of
     ``samples`` clips of ``n_samples``: per sample ``transcripts`` forwards,
     then per draw chunk (``eg_passes``) the flash forward (K2 or K2f) once
     per encoder layer and forward pass, K1 once per eligible conv layer and
-    backward call, K3/K4 (K3b/K4f) once per encoder layer and backward call:
+    backward call, K3/K4 (K3b/K4f) once per encoder layer and backward call,
+    and the GEMM once per linear (``gemm_linears``) and backward call:
 
       K2 = samples * (transcripts + chunks * (1 + remat * calls)) * layers
-      K3 = K4 = samples * chunks * calls * layers,  K1 = samples * chunks * calls * convs"""
+      K3 = K4 = samples * chunks * calls * layers,  K1 = samples * chunks * calls * convs
+      gemm_tf32x3 = samples * chunks * calls * linears"""
     layers, mc = cfg.model.num_hidden_layers, cfg.model
     chunks, calls, passes = eg_passes(cfg.explainer, mc.frames_for_samples(n_samples))
     convs = len(k1_main_shapes(mc, 1, n_samples))
     k1_, fwd, dq, dkv = path_kernels(mc)
     want = {k1_: samples * chunks * calls * convs,
             fwd: samples * (transcripts + chunks * passes) * layers,
-            dq: samples * chunks * calls * layers, dkv: samples * chunks * calls * layers}
+            dq: samples * chunks * calls * layers, dkv: samples * chunks * calls * layers,
+            "gemm_tf32x3": samples * chunks * calls * gemm_linears(mc)}
     return {name: n for name, n in want.items() if n}
 
 
@@ -2134,7 +2303,8 @@ def phase_bf16(model16: Wav2Vec2Config, explainer: ExplainerConfig, test_set, da
     for name, n in want.items():
         check(launches[name] == n, f"bf16 path: {name} launched {launches[name]} times, "
               f"{n} expected")
-    check(not any(launches[name] for name in BASE_KERNELS + CONFORMER_KERNELS),
+    check(not any(launches[name] for name in BASE_KERNELS + CONFORMER_KERNELS
+                  + ("gemm_tf32x3",)),
           f"bf16 path: a float32 kernel launched: {launches}")
     phase_reference_bf16("phi bf16", cfg, params, test_set)
     out, per_draw = phase_timing_bf16(cfg, cast_params_for_compute(params, "bfloat16"),
@@ -2332,7 +2502,8 @@ def expected_launches_method(cfg: PipelineConfig, samples: int) -> dict:
     KernelSHAP
     f(x) and f(b) as one batch, then ceil(M / 16) batches of masked clips;
     LIME the ceil(M / 16) batches. K1 once per eligible conv layer and
-    backward, the flash kernels once per encoder layer and pass."""
+    backward, the flash kernels once per encoder layer and pass, the GEMM
+    once per linear (``gemm_linears``) and backward."""
     ec, mc = cfg.explainer, cfg.model
     check(ec.kmeans_background == 0, "expected_launches_method: no k-means")
     layers, convs = mc.num_hidden_layers, len(k1_main_shapes(mc, 1))
@@ -2343,7 +2514,8 @@ def expected_launches_method(cfg: PipelineConfig, samples: int) -> dict:
                 "lime": (1 + -(-ec.lime_num_samples // CLIP_BATCH), 0)}[ec.method]
     k1_, f, dq, dkv = path_kernels(mc)
     want = {f: samples * fwd * layers, k1_: samples * bwd * convs,
-            dq: samples * bwd * layers, dkv: samples * bwd * layers}
+            dq: samples * bwd * layers, dkv: samples * bwd * layers,
+            "gemm_tf32x3": samples * bwd * gemm_linears(mc)}
     return {name: n for name, n in want.items() if n}
 
 
@@ -2387,7 +2559,8 @@ def deep_gate(label: str, cfg: PipelineConfig, params, test_set) -> None:
     plain = dataclasses.replace(mc, attention_impl="xla", conv_impl="lax")
     build = dual_builder(mc)
     out_k = deep_shap_values(build(params, mc, ec), x, bg[2:3], ec.output_chunk)
-    out_p = deep_shap_values(build(params, plain, ec), x, bg[2:3], ec.output_chunk)
+    with plain_linears():
+        out_p = deep_shap_values(build(params, plain, ec), x, bg[2:3], ec.output_chunk)
     scale = float(out_p.values.abs().max())
     err = compare(f"deep {label}: phi of one background row, kernels vs plain PyTorch",
                   out_k.values, out_p.values, 2e-3 * scale, 0.0,
@@ -2409,7 +2582,8 @@ def perturbation_gate(label: str, method: str, cfg: PipelineConfig, params, test
     x, bg = explainer_inputs(test_set)
     plain = dataclasses.replace(mc, attention_impl="xla", conv_impl="lax")
     got = perturbation_explain(method, params, mc, ec, x, bg.mean(dim=0))
-    want = perturbation_explain(method, params, plain, ec, x, bg.mean(dim=0))
+    with plain_linears():
+        want = perturbation_explain(method, params, plain, ec, x, bg.mean(dim=0))
     for field in ("segment_values", "model_output",
                   "base_value" if method == "kernel" else "intercept"):
         a, b = getattr(got, field), getattr(want, field)
@@ -2857,9 +3031,10 @@ def compare_gate(model: Wav2Vec2Config, params, clip: np.ndarray) -> None:
     out, launches = {}, {}
     for label, mc in (("kernels", model), ("plain", plain)):
         reset_launches()
-        out[label] = compare_mod.lime_shap_comparison(
-            params, mc, ec, clip, seed=SEED, clip_seconds=COMPARE_SAMPLES / 16_000,
-            background=bg, draws=draws, masks=masks)
+        with plain_linears() if label == "plain" else contextlib.nullcontext():
+            out[label] = compare_mod.lime_shap_comparison(
+                params, mc, ec, clip, seed=SEED, clip_seconds=COMPARE_SAMPLES / 16_000,
+                background=bg, draws=draws, masks=masks)
         launches[label] = {name: c for name, c in LAUNCHES.items() if c}
     want = compare_launches(model, ec, GATE_MASKS)
     check(launches["kernels"] == want,
@@ -3284,7 +3459,8 @@ def nemo_float32(cfg, params, feats, x, bg, ec, draws) -> dict:
         reset_launches()
         lk = nemo_ctc_logits(params, cfg, feats)
         check(LAUNCHES["flash_fwd_bias"] == cfg.num_layers, f"{label}: forward launches")
-        lp = nemo_ctc_logits(params, plain, feats)
+        with plain_linears():
+            lp = nemo_ctc_logits(params, plain, feats)
     check(tuple(lk.shape) == (2, t_out, 129), f"{label}: logits {tuple(lk.shape)}")
     scale = float(lp.abs().max())
     compare(f"mel {label}: logits of both clips [2, {t_out}, 129]", lk, lp, 2e-3 * scale, 0.0,
@@ -3296,12 +3472,14 @@ def nemo_float32(cfg, params, feats, x, bg, ec, draws) -> dict:
     f = mel_explained_fn(nemo_ctc_logits, params, cfg, ec, feats.shape[1])
     fwd, bwd = mel_eg_passes(ec, t_out)
     expect = {"flash_fwd_bias": fwd * cfg.num_layers,
-              "flash_dq_dbias": bwd * cfg.num_layers, "flash_dkv_bias": bwd * cfg.num_layers}
+              "flash_dq_dbias": bwd * cfg.num_layers, "flash_dkv_bias": bwd * cfg.num_layers,
+              "gemm_tf32x3": bwd * gemm_linears_tree(params)}
     phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
     check(tuple(phi.shape) == (x.numel(), t_out), f"{label}: phi {tuple(phi.shape)}")
     reset_launches()
-    phi_p = expected_phi(mel_explained_fn(nemo_ctc_logits, params, plain, ec, feats.shape[1]),
-                         x, bg, config=ec, draws=draws)
+    with plain_linears():
+        phi_p = expected_phi(mel_explained_fn(nemo_ctc_logits, params, plain, ec,
+                                              feats.shape[1]), x, bg, config=ec, draws=draws)
     check(not any(LAUNCHES.values()), f"{label}: the plain twin launched a kernel")
     gate_phi(label, phi, phi_p, f"phi [{x.numel()}, {t_out}]")
     del phi_p
@@ -3369,11 +3547,12 @@ def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
     f = mel_explained_fn(conformer_logits, params, cfg, ec, frames)
     fwd, bwd = mel_eg_passes(ec, frames)
     expect = {"flash_fwd": fwd * layers, "flash_dq": bwd * layers,
-              "flash_dkv": bwd * layers}
+              "flash_dkv": bwd * layers, "gemm_tf32x3": bwd * gemm_linears_tree(params)}
     phi, launches = mel_eg(label, f, x, bg, ec, draws, expect)
     check(tuple(phi.shape) == (x.numel(), frames), f"{label}: phi {tuple(phi.shape)}")
-    phi_p = expected_phi(mel_explained_fn(conformer_logits, params, plain, ec, frames), x, bg,
-                         config=ec, draws=draws)
+    with plain_linears():
+        phi_p = expected_phi(mel_explained_fn(conformer_logits, params, plain, ec, frames), x,
+                             bg, config=ec, draws=draws)
     gate_phi(label, phi, phi_p, f"phi [{x.numel()}, {frames}]")
     del phi, phi_p
     mel_draw_wall(label, f, x, bg, ec)
@@ -3384,7 +3563,8 @@ def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
         lk = conformer_logits(params, cfg, test_feats, lengths=lengths)
         check(dict((k, c) for k, c in LAUNCHES.items() if c) == {"flash_fwd": layers},
               f"{label}: masked forward launches")
-        lp = conformer_logits(params, plain, test_feats, lengths=lengths)
+        with plain_linears():
+            lp = conformer_logits(params, plain, test_feats, lengths=lengths)
     compare(f"mel {label}: masked 2-clip logits, lengths (301, 201)", lk, lp,
             2e-3 * float(lp.abs().max()), 0.0, "2e-3 of max|logits|")
 
@@ -3407,11 +3587,13 @@ def mel_conformer_float32(test_feats, x, bg, ec, draws) -> dict:
     # per row the dual forward, remat's recompute in its backward, f at (r, r);
     # then f at (x, x)
     want = {"flash_fwd": ((2 + ec.remat) * nb + 1) * layers, "flash_dq": nb * layers,
-            "flash_dkv": nb * layers}
+            "flash_dkv": nb * layers, "gemm_tf32x3": nb * gemm_linears_tree(params)}
     log(f"mel {label} deep (group norm): {nb} background rows, wall {wall:.3f} s "
         f"({wall / nb * 1e3:.1f} ms per row); launches {json.dumps(got)}")
     check(got == want, f"{label} deep: launches {got}, expected {want}")
-    deep_p = deep_shap_values(dual_fn(dataclasses.replace(gcfg, attention_impl="xla")), x, bg)
+    with plain_linears():
+        deep_p = deep_shap_values(dual_fn(dataclasses.replace(gcfg, attention_impl="xla")), x,
+                                  bg)
     gate_phi(f"{label} deep", deep.values, deep_p.values, f"DeepSHAP phi [{x.numel()}, {frames}]")
     return launches
 
@@ -3521,12 +3703,14 @@ def train_launches(mc: Wav2Vec2Config, steps: int, forwards: int = 0, k1_on: boo
     of 2 s make on a model's path: K1 once per eligible conv layer per step
     (none with a frozen feature encoder), the flash forward twice per layer
     per step (the step's forward, and its remat recompute in the backward)
-    and once per layer per forward, dq and dk/dv once per layer per step."""
+    and once per layer per forward, dq and dk/dv once per layer per step, the
+    GEMM once per linear per step (the input gradients; the weight gradients
+    stay on torch.matmul)."""
     k1_, f, dq, dkv = path_kernels(mc)
     layers = mc.num_hidden_layers
     convs = len(k1_main_shapes(mc, 1, TRAIN_SAMPLES)) if k1_on else 0
     want = {k1_: steps * convs, f: (2 * steps + forwards) * layers, dq: steps * layers,
-            dkv: steps * layers}
+            dkv: steps * layers, "gemm_tf32x3": steps * gemm_linears(mc)}
     return {name: n for name, n in want.items() if n}
 
 
@@ -3543,8 +3727,12 @@ def loss_and_grads(mc: Wav2Vec2Config, tcfg: TrainConfig, params, batch):
         return float(loss), grads
 
 
-def plain(mc: Wav2Vec2Config) -> Wav2Vec2Config:
-    return dataclasses.replace(mc, attention_impl="xla", conv_impl="lax")
+def plain_loss_and_grads(mc: Wav2Vec2Config, tcfg: TrainConfig, params, batch):
+    """``loss_and_grads`` of the plain twin: plain attention and convs, and
+    the linears' input gradients on torch.matmul (``plain_linears``)."""
+    with plain_linears():
+        return loss_and_grads(dataclasses.replace(mc, attention_impl="xla", conv_impl="lax"),
+                              tcfg, params, batch)
 
 
 def grad_gate(label: str, got: dict, want: dict, highlight=()) -> None:
@@ -3599,7 +3787,7 @@ def train_base(mc: Wav2Vec2Config, params, batch) -> tuple:
     launches = check_launches("base train_synthetic", train_launches(mc, 4, forwards=2))
 
     loss, grads = loss_and_grads(mc, TRAIN_CFG, params, batch)
-    loss_p, grads_p = loss_and_grads(plain(mc), TRAIN_CFG, params, batch)
+    loss_p, grads_p = plain_loss_and_grads(mc, TRAIN_CFG, params, batch)
     log(f"check train base loss: kernels {loss:.6f} plain {loss_p:.6f} "
         f"(rtol 1e-5: float32 CTC over the same logits' error)")
     check(abs(loss - loss_p) <= 1e-5 * abs(loss_p), "train base: loss exceeds tolerance")
@@ -3607,7 +3795,7 @@ def train_base(mc: Wav2Vec2Config, params, batch) -> tuple:
 
     frozen = dataclasses.replace(TRAIN_CFG, freeze_feature_encoder=True)
     loss_f, grads_f = loss_and_grads(mc, frozen, params, batch)
-    _, grads_fp = loss_and_grads(plain(mc), frozen, params, batch)
+    _, grads_fp = plain_loss_and_grads(mc, frozen, params, batch)
     check(not any(k.startswith("feature_encoder/") for k in grads_f),
           "train frozen: the feature encoder has gradients")
     check(abs(loss_f - loss) <= 1e-6 * abs(loss), "train frozen: loss differs from unfrozen")
@@ -3656,7 +3844,7 @@ def train_bf16(mc16: Wav2Vec2Config, params, batch, grads32: dict) -> dict:
     log(f"train bf16: losses {losses}; {len(leaves)} master leaves and the AdamW state "
         f"float32")
     loss_k, g_k = loss_and_grads(mc16, TRAIN_CFG, params, batch)
-    loss_p, g_p = loss_and_grads(plain(mc16), TRAIN_CFG, params, batch)
+    loss_p, g_p = plain_loss_and_grads(mc16, TRAIN_CFG, params, batch)
     e_k, e_p = global_rel_err(g_k, grads32), global_rel_err(g_p, grads32)
     worst = max((float((g_k[k].float() - g_p[k]).abs().max()) / float(g_p[k].abs().max()), k)
                 for k in g_p if float(g_p[k].abs().max()) > 0)
@@ -3689,7 +3877,7 @@ def train_conformer(cmc: Wav2Vec2ConformerConfig, cparams, batch) -> dict:
     check(all(np.isfinite(losses)), f"train conformer: losses {losses}")
     del p, state
     loss, grads = loss_and_grads(cmc, TRAIN_CFG, cparams, batch)
-    loss_p, grads_p = loss_and_grads(plain(cmc), TRAIN_CFG, cparams, batch)
+    loss_p, grads_p = plain_loss_and_grads(cmc, TRAIN_CFG, cparams, batch)
     log(f"check train conformer loss: kernels {loss:.6f} plain {loss_p:.6f} (rtol 1e-5); "
         f"steps' losses {losses}")
     check(abs(loss - loss_p) <= 1e-5 * abs(loss_p), "train conformer: loss exceeds tolerance")
@@ -4958,6 +5146,7 @@ def main() -> int:
         full_errs, full_extra = phase_checks_full_bias(conformer)
         errs.update(full_errs)
         extra.update(full_extra)
+        errs["gemm_tf32x3"], gemm_row, extra["gemm_tf32x3"] = phase_gemm(model, conformer)
         test_set = make_test_set()
         mark("checks")
 
@@ -4969,6 +5158,7 @@ def main() -> int:
         launches = phase_pipeline("base", cfg, params, test_set, BASE_KERNELS)
         phase_reference(cfg, params, test_set)
         out, f32_per_draw = phase_timing(cfg, params, test_set)
+        out["gemm_tf32x3"] = gemm_row
         mark("base")
         del params
 

@@ -497,12 +497,12 @@ def test_build_starts_one_nvcc_per_source_and_reuses_libraries(tmp_path, monkeyp
         return
     paths = _build.build_all()
     assert sorted(paths) == ["conv_dgrad", "conv_dgrad_bf16", "flash_attention",
-                             "flash_bwd_bf16", "flash_fwd_bf16"]
+                             "flash_bwd_bf16", "flash_fwd_bf16", "gemm_tf32x3"]
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     lines = calls.read_text().splitlines()
-    assert len(lines) == 5 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
+    assert len(lines) == 6 and all("arch=compute_90a,code=sm_90a" in l for l in lines)
     assert _build.build_all() == paths
-    assert len(calls.read_text().splitlines()) == 5
+    assert len(calls.read_text().splitlines()) == 6
 
 
 @pytest.mark.parametrize("shape", [(2, 16), (2, 1, 16)])
